@@ -1,0 +1,6 @@
+// Error strings for the launch codes the C entry points return.
+#include <cuda_runtime.h>
+
+extern "C" const char* salaad_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -38,3 +38,9 @@ def _drop_stale_jit_caches():
     gc.collect()
     jax.clear_caches()
     yield
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one (tests/test_torch_gpu.py)"
+    )
