@@ -6,23 +6,36 @@
 Phases, each of which fails the run (non-zero exit, no result line) on any
 error:
 
-1. build: compile every CUDA kernel of the main path from
-   ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a) and load it;
+1. build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
+   (nvcc, sm_90a, one process per source) and load it;
 2. model: salaad_llama_60m at full width (8 layers, d_model 512, f32,
    ``kernel_impl='pallas'``), random weights from a numpy seed, a non-trivial
    SLR state from ``init_slr_state`` + exact-SVD ``admm_update`` steps,
-   deployed in the ``fused`` format;
-3. kernels: each of the four kernels against its plain PyTorch version on
+   deployed in the ``fused`` format, and the HPA spectrum
+   ``ModelBank.build(budgets=(1.0, 0.6, 0.3), kappa=0.7)`` in the ``fused``
+   and ``bsr`` formats over the same base parameters;
+3. kernels: each of the seven kernels against its plain PyTorch version on
    the card, at the main path's shapes (f32 and bf16) and at ragged shapes,
    then timed with CUDA events beside its plain version, a one-call PyTorch
    yardstick and its bound (bytes over 3.35 TB/s or f32 operations over
-   67 TFLOP/s, whichever is larger);
-4. main path: the paged engine serves 16 greedy requests (prompts of 20-400
-   tokens, chunked prefill of 64, 32 new tokens each) with every launch
-   count set to 0 just before; the fused SLR, paged decode and paged
-   k-query kernels must each have launched;
-5. parity: the first chunk's and first decode tick's logits on the card
-   against the same model on the CPU (plain versions).
+   67 TFLOP/s, whichever is larger, for this run's data);
+4. main path, with every launch count set to 0 just before each run and read
+   just after:
+   a. the fused bank serves 24 greedy requests through ``serve_batch``
+      (tiers round-robin, a shared two-page system prompt, suffixes of
+      20-300 tokens, three exact repeats of page-aligned prompts, 32 new
+      tokens each) with one-shot prefill, the prefix cache and the pressure
+      tier policy on a 128-page pool; flash attention, page copy, paged
+      decode, paged k-query and the fused SLR kernel must each launch, and
+      the run must show prefix hits, copy-on-write copies and downshifts;
+   b. the bsr bank serves 8 requests; the block-CSC and low-rank kernels must
+      launch;
+   c. the single fused model of the first slice serves 16 requests with
+      chunked prefill of 64;
+   d. ``python -m repro_torch.launch.serve`` runs once and prints its line;
+   e. run (a) again under torch.profiler: device busy time and idle share;
+5. parity: the first one-shot prefill's, the first chunk's and the first
+   decode tick's logits on the card against the same model on the CPU.
 
 Output: the card's name and power limit, build time, per-phase lines, then
 one ``{"kernels": [...]}`` line and, last, the device line the harness reads.
@@ -31,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -40,8 +54,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 SEED = 0
-N_REQUESTS = 16
+N_REQUESTS = 16                  # the first slice's chunked path
+N_BANK = 24                      # the fused bank's run
+N_REPEAT = 3                     # exact repeats of page-aligned prompts
+N_BSR = 8                        # the bsr bank's run
 MAX_NEW = 32
+BUDGETS = (1.0, 0.6, 0.3)
+BANK_PAGES = 128                 # of the 256 a full pool of 8 x 512 tokens holds
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # relative to the output's max |value|
@@ -79,6 +98,19 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def bank_prompts(rng, vocab: int, block: int) -> list[list[int]]:
+    """N_BANK prompts: a shared two-page system prompt + 20-300 suffix tokens;
+    the first N_REPEAT are page-aligned and come back as exact repeats after
+    the first wave of admissions (the copy-on-write case)."""
+    lens = rng.integers(20, 301, N_BANK - N_REPEAT)    # drawn first: the same for any vocab
+    lens[:N_REPEAT] = -(-lens[:N_REPEAT] // block) * block
+    system = rng.integers(0, vocab, 2 * block).tolist()
+    out = [system + rng.integers(0, vocab, int(n)).tolist() for n in lens]
+    for i in range(N_REPEAT):
+        out.insert(8 + 2 * i, out[i])
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         fail("src/repro_torch is missing: run chip_smoke.py from a checkout of the repo")
@@ -95,9 +127,11 @@ def main() -> None:
     from repro_torch.configs import get_arch
     from repro_torch.core.admm import SalaadConfig, admm_update, init_slr_state
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.bsr_matmul import bsr_to_dense
+    from repro_torch.kernels.bsr_matmul import bsr_from_dense, bsr_to_dense
+    from repro_torch.launch.serve import serve_batch
     from repro_torch.models import model as model_lib
     from repro_torch.serving.deployed import DeployedModel
+    from repro_torch.serving.elastic import ModelBank
     from repro_torch.serving.engine import EngineConfig, PagedServingEngine
     from repro_torch.tree import tree_map
 
@@ -135,6 +169,15 @@ def main() -> None:
         print(f"  site {name}: shape {lin.shape} r={lin.p.shape[-1]} bs={st.block_size} "
               f"maxb={st.rows.shape[-1]} live tiles {live} "
               f"({live / st.counts.numel() / st.rows.shape[-1]:.3f} of slots)")
+    t0 = time.perf_counter()
+    banks = {fmt: ModelBank.build(cfg, params, state, blocks, BUDGETS, kappa=0.7, fmt=fmt)
+             for fmt in ("fused", "bsr")}
+    torch.cuda.synchronize()
+    for fmt, bank in banks.items():
+        print(f"bank {fmt} (built with the other in {time.perf_counter() - t0:.3f} s): "
+              f"{json.dumps(bank.report())}")
+        if bank.shared_base_bytes() <= 0:
+            fail(f"the {fmt} bank's tiers share no base leaves")
 
     # ---- 3. kernels against their plain versions, then timed ----------------
     rng = np.random.default_rng(SEED)
@@ -174,14 +217,16 @@ def main() -> None:
             slr_err = max(slr_err, err)
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     g_bf = dataclasses.replace(gate.s_stack, vals=bf(gate.s_stack.vals))
-    x = bf(rand(512, 512))
+    x = bf(rand(512, cfg.d_model))
     check("slr_matmul_stacked gate T=512", ops.slr_matmul_stacked(
         x, bf(gate.p), bf(gate.vt), g_bf, lay), ref.slr_matmul_stacked_ref(
         x, bf(gate.p), bf(gate.vt), g_bf, lay), torch.bfloat16)
-    x = rand(512, 512)
-    w_dense = (gate.p[lay] @ gate.vt[lay] + bsr_to_dense(gate.s_stack.at_layer(lay))).contiguous()
+    x = rand(512, cfg.d_model)
+    s_gate = gate.s_stack.at_layer(lay)
+    s_dense = bsr_to_dense(s_gate).contiguous()
+    w_dense = (gate.p[lay] @ gate.vt[lay] + s_dense).contiguous()
     live = int(gate.s_stack.counts[lay].sum())
-    k_dim, m_dim, r = 512, gate.shape[1], gate.p.shape[-1]
+    (k_dim, m_dim), r = gate.shape, gate.p.shape[-1]
     bs = gate.s_stack.block_size
     nbytes = 4 * (512 * k_dim + k_dim * r + r * m_dim + 512 * m_dim + live * bs * bs) \
         + 4 * (gate.s_stack.counts.shape[1] + live)
@@ -196,27 +241,44 @@ def main() -> None:
         library_ms=time_ms(torch, lambda: torch.matmul(x, w_dense)),
         bound=bound_ms(nbytes, flops),
     )
-    x8 = rand(8, 512)
+    decode_rows = {}           # decode-width (T=8) timings of the SLR kernels
+    x8 = rand(8, k_dim)
     nbytes8 = 4 * (8 * k_dim + k_dim * r + r * m_dim + 8 * m_dim + live * bs * bs) \
         + 4 * (gate.s_stack.counts.shape[1] + live)
-    decode_ms = time_ms(torch, lambda: ops.slr_matmul_stacked(
-        x8, gate.p, gate.vt, gate.s_stack, lay))
-    b8, by8 = bound_ms(nbytes8, 2 * 8 * (k_dim * r + r * m_dim + live * bs * bs))
-    print(f"  time slr_matmul_stacked gate T=8 (decode tick): {decode_ms:.4f} ms, "
-          f"bound {b8:.4f} ms ({by8})")
+    decode_rows["slr_matmul_stacked gate T=8"] = (
+        time_ms(torch, lambda: ops.slr_matmul_stacked(x8, gate.p, gate.vt, gate.s_stack, lay)),
+        time_ms(torch, lambda: ref.slr_matmul_stacked_ref(x8, gate.p, gate.vt, gate.s_stack,
+                                                          lay)),
+        time_ms(torch, lambda: torch.matmul(x8, w_dense)),
+        bound_ms(nbytes8, 2 * 8 * (k_dim * r + r * m_dim + live * bs * bs)))
+    q_site = sites["q"]
+    q_live = int(q_site.s_stack.counts[lay].sum())
+    q_bs = q_site.s_stack.block_size
+    q_dense = (q_site.p[lay] @ q_site.vt[lay]
+               + bsr_to_dense(q_site.s_stack.at_layer(lay))).contiguous()
+    decode_rows["slr_matmul_stacked q T=8 (bs=128)"] = (
+        time_ms(torch, lambda: ops.slr_matmul_stacked(x8, q_site.p, q_site.vt,
+                                                      q_site.s_stack, lay)),
+        time_ms(torch, lambda: ref.slr_matmul_stacked_ref(x8, q_site.p, q_site.vt,
+                                                          q_site.s_stack, lay)),
+        time_ms(torch, lambda: torch.matmul(x8, q_dense)),
+        bound_ms(4 * (8 * k_dim * 2 + k_dim * r * 2 + q_live * q_bs * q_bs)
+                 + 4 * (q_site.s_stack.counts.shape[1] + q_live),
+                 2 * 8 * (k_dim * r * 2 + q_live * q_bs * q_bs)))
 
-    # 3b. low-rank matmul (the empty-S corner) on the gate site's factors
+    # 3b. low-rank matmul (the empty-S corner, and the bsr format's L part) on
+    # the gate site's factors
     lr_err = 0.0
     for t_dim in (8, 512, 37):
-        x = rand(t_dim, 512)
+        x = rand(t_dim, k_dim)
         lr_err = max(lr_err, check(f"lowrank_matmul gate T={t_dim}", ops.lowrank_matmul(
             x, gate.p[lay], gate.vt[lay]), ref.lowrank_matmul_ref(x, gate.p[lay], gate.vt[lay]),
             torch.float32))
-    x = bf(rand(512, 512))
+    x = bf(rand(512, k_dim))
     check("lowrank_matmul gate T=512", ops.lowrank_matmul(
         x, bf(gate.p[lay]), bf(gate.vt[lay])), ref.lowrank_matmul_ref(
         x, bf(gate.p[lay]), bf(gate.vt[lay])), torch.bfloat16)
-    x = rand(512, 512)
+    x = rand(512, k_dim)
     p_l, vt_l = gate.p[lay], gate.vt[lay]
     results["lowrank_matmul"] = dict(
         shape=f"gate factors, T=512, K={k_dim} M={m_dim} r={r}",
@@ -228,7 +290,51 @@ def main() -> None:
                        2 * 512 * (k_dim * r + r * m_dim)),
     )
 
-    # 3c/3d. paged attention at the engine's pool shapes: 8 slots, 8 heads,
+    # 3c. block-CSC matmul: every site's S at the bsr format's widths, bf16,
+    # ragged T / n / m with per-column counts below MAXB
+    bsr_err = 0.0
+    for name, lin in sorted(sites.items()):
+        mat = lin.s_stack.at_layer(lay)
+        for t_dim in (8, 512, 37):
+            x = rand(t_dim, lin.shape[0])
+            bsr_err = max(bsr_err, check(f"bsr_matmul {name} T={t_dim}",
+                                         ops.bsr_matmul(x, mat), ref.bsr_matmul_ref(x, mat),
+                                         torch.float32))
+    x = bf(rand(512, k_dim))
+    g_bf_mat = dataclasses.replace(s_gate, vals=bf(s_gate.vals))
+    check("bsr_matmul gate T=512", ops.bsr_matmul(x, g_bf_mat),
+          ref.bsr_matmul_ref(x, g_bf_mat), torch.bfloat16)
+    for bs_r, n_r, m_r in ((8, 40, 36), (64, 200, 130), (128, 300, 260)):
+        ib, jb = -(-n_r // bs_r), -(-m_r // bs_r)
+        tiles = rng.random((ib, jb)) < 0.5
+        s_np = rng.standard_normal((ib * bs_r, jb * bs_r)).astype(np.float32)
+        s_np *= np.repeat(np.repeat(tiles, bs_r, 0), bs_r, 1)
+        mat = bsr_from_dense(s_np[:n_r, :m_r], bs_r, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            mat_d = dataclasses.replace(mat, vals=mat.vals.to(dt))
+            x = rand(21, n_r).to(dt)
+            err = check(f"bsr_matmul ragged bs={bs_r} n={n_r} m={m_r} T=21",
+                        ops.bsr_matmul(x, mat_d), ref.bsr_matmul_ref(x, mat_d), dt)
+            if dt == torch.float32:
+                bsr_err = max(bsr_err, err)
+    x = rand(512, k_dim)
+    results["bsr_matmul"] = dict(
+        shape=f"gate site S, T=512, n={k_dim} m={m_dim} bs={bs} live tiles {live}",
+        max_abs_err=bsr_err,
+        ms=time_ms(torch, lambda: ops.bsr_matmul(x, s_gate)),
+        plain_ms=time_ms(torch, lambda: ref.bsr_matmul_ref(x, s_gate)),
+        library_ms=time_ms(torch, lambda: torch.matmul(x, s_dense)),
+        bound=bound_ms(4 * (512 * k_dim + 512 * m_dim + live * bs * bs)
+                       + 4 * (s_gate.counts.shape[0] + live), 2 * 512 * live * bs * bs),
+    )
+    decode_rows["bsr_matmul gate T=8"] = (
+        time_ms(torch, lambda: ops.bsr_matmul(x8, s_gate)),
+        time_ms(torch, lambda: ref.bsr_matmul_ref(x8, s_gate)),
+        time_ms(torch, lambda: torch.matmul(x8, s_dense)),
+        bound_ms(4 * (8 * k_dim + 8 * m_dim + live * bs * bs)
+                 + 4 * (s_gate.counts.shape[0] + live), 2 * 8 * live * bs * bs))
+
+    # 3d/3e. paged attention at the engine's pool shapes: 8 slots, 8 heads,
     # head_dim 64, 16-token pages, 32 pages per slot (max_len 512)
     slots, hq, hkv, d, pbs, nb = 8, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16, 32
     n_pages = slots * nb
@@ -297,75 +403,195 @@ def main() -> None:
                             + int(np.ceil(np.minimum(lk + kq, seq) / pbs).sum())),
                        4 * hq * d * pairs),
     )
+
+    # 3f. flash attention at one-shot prefill shapes: 8 rows, 8 heads, head_dim
+    # 64, causal, T = S = a prompt bucket; GQA, non-causal, T != S, bf16
+    fa_err = 0.0
+    for b_, hq_, hkv_, t_, s_, causal in ((8, hq, hkv, 512, 512, True),
+                                          (8, hq, hkv, 16, 16, True),
+                                          (8, hq, hkv, 128, 128, True),
+                                          (4, hq, hkv // 2, 256, 256, True),
+                                          (2, hq, hkv, 256, 256, False),
+                                          (2, hq, hkv // 2, 128, 256, True),
+                                          (3, 4, 2, 48, 48, True)):
+        qf, kf, vf = rand(b_, hq_, t_, d), rand(b_, hkv_, s_, d), rand(b_, hkv_, s_, d)
+        fa_err = max(fa_err, check(
+            f"flash_attention B={b_} Hq={hq_} Hkv={hkv_} T={t_} S={s_} causal={causal}",
+            ops.flash_attention(qf, kf, vf, causal=causal),
+            ref.attention_ref(qf, kf, vf, causal=causal, offset=0), torch.float32))
+    qf, kf, vf = rand(8, hq, 512, d), rand(8, hkv, 512, d), rand(8, hkv, 512, d)
+    check("flash_attention T=512", ops.flash_attention(bf(qf), bf(kf), bf(vf)),
+          ref.attention_ref(bf(qf), bf(kf), bf(vf), offset=0), torch.bfloat16)
+    t_ = 512
+    causal_pairs = 8 * hq * t_ * (t_ + 1) // 2
+    results["flash_attention"] = dict(
+        shape=f"one-shot prefill: 8 rows x {hq} heads, T=S={t_}, head_dim {d}, causal",
+        max_abs_err=fa_err,
+        ms=time_ms(torch, lambda: ops.flash_attention(qf, kf, vf)),
+        plain_ms=time_ms(torch, lambda: ref.attention_ref(qf, kf, vf, offset=0)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qf, kf, vf, is_causal=True)),
+        bound=bound_ms(4 * (2 * 8 * hq * t_ * d + 2 * 8 * hkv * t_ * d), 4 * d * causal_pairs),
+    )
+
+    # 3g. page copy on the engine's pool: (layers, pages, heads, 16, 64) payload
+    # pools in f32, bf16 and int8 and the (..., 1) scale pool; a copy into page
+    # 0 beside (0, 0) pads, and 8 distinct pairs for the timing
+    pc_err = 0.0
+    src_np = np.array([5, 9, 13, 40, 77, 0, 0, 0], np.int32)
+    dst_np = np.array([0, 30, 17, 41, 100, 0, 0, 0], np.int32)
+    src, dst = (torch.from_numpy(a).to(dev) for a in (src_np, dst_np))
+    for dt, tail in ((torch.float32, d), (torch.bfloat16, d), (torch.int8, d),
+                     (torch.float32, 1)):
+        pool = (rand(cfg.num_layers, BANK_PAGES, hkv, pbs, tail, scale=50.0)).to(dt)
+        want = ref.page_copy_ref(pool.clone(), src, dst)
+        got = ops.page_copy(pool, src, dst)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        print(f"  check page_copy [{str(dt).split('.')[-1]} x {tail}]: max_abs_err {err:.3e} "
+              f"(exact copy required) {'ok' if err == 0 else 'MISMATCH'}")
+        if err != 0 or got.data_ptr() != pool.data_ptr():
+            fail("page_copy disagrees with its plain version or did not copy in place")
+        pc_err = max(pc_err, err)
+    pool = rand(cfg.num_layers, BANK_PAGES, hkv, pbs, d)
+    src8 = torch.arange(0, 16, 2, dtype=torch.int32, device=dev)
+    dst8 = torch.arange(64, 80, 2, dtype=torch.int32, device=dev)
+    page_bytes = hkv * pbs * d * 4
+    results["page_copy"] = dict(
+        shape=f"8 pairs x {cfg.num_layers} layers, pages of {hkv}x{pbs}x{d} f32 "
+              f"({page_bytes} B), pool of {BANK_PAGES} pages",
+        max_abs_err=pc_err,
+        ms=time_ms(torch, lambda: ops.page_copy(pool, src8, dst8)),
+        plain_ms=time_ms(torch, lambda: ref.page_copy_ref(pool, src8, dst8)),
+        library_ms=time_ms(torch, lambda: pool.__setitem__(
+            (slice(None), dst8.long()), pool[:, src8.long()])),
+        bound=bound_ms(2 * 8 * cfg.num_layers * page_bytes + 2 * 8 * 4, 0),
+    )
     for name, r_ in results.items():
         print(f"  time {name} ({r_['shape']}): kernel {r_['ms']:.4f} ms, plain "
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, bound "
               f"{r_['bound'][0]:.4f} ms ({r_['bound'][1]})")
+    for name, (ms, plain, lib, (b_ms, b_by)) in decode_rows.items():
+        print(f"  time {name} (decode tick): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {lib:.4f} ms (torch.matmul, dense W), bound {b_ms:.4f} ms ({b_by})")
 
     # ---- 4. main path -------------------------------------------------------------
-    prompt_lens = rng.integers(20, 401, N_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in prompt_lens]
-    ecfg = EngineConfig(max_slots=8, max_len=512, block_size=16, prefill_chunk=64)
-    engine = PagedServingEngine(dm, ecfg)
-    for p in prompts:
-        engine.submit(p, max_new_tokens=MAX_NEW)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    if len(done) != N_REQUESTS or any(len(r.out_tokens) != MAX_NEW for r in done):
-        fail(f"main path finished {len(done)} of {N_REQUESTS} requests")
-    toks = [t for r in done for t in r.out_tokens]
-    if not all(0 <= t < cfg.vocab_size for t in toks):
-        fail("generated token outside the vocabulary")
-    for name in ("slr_matmul_stacked", "paged_attention", "paged_attention_kquery"):
-        if counts[name] < 1:
-            fail(f"the main path never launched {name}: {counts}")
-    ttft = sorted(r.first_token_at - r.submitted_at for r in done)
-    print(f"main path: {N_REQUESTS} requests, prompts {int(prompt_lens.min())}-"
-          f"{int(prompt_lens.max())} tokens ({int(prompt_lens.sum())} total), "
-          f"{len(toks)} tokens generated in {wall:.3f} s = {len(toks) / wall:.1f} tok/s "
-          f"({(len(toks) + int(prompt_lens.sum())) / wall:.1f} tok/s incl. prompts); "
-          f"ticks {engine._steps}, chunk calls {engine.chunk_calls}, decode calls "
-          f"{engine.decode_calls}, evictions {engine.evictions}; median TTFT "
-          f"{ttft[len(ttft) // 2]:.3f} s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    print(f"launch counts: {json.dumps(counts)}")
+    def serve(label: str, engine, prompts, tiers, need: tuple[str, ...]) -> tuple[dict, dict]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        stats = serve_batch(engine, cfg.vocab_size, len(prompts), MAX_NEW, SEED,
+                            tiers=tiers, prompts=prompts)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if stats["requests"] != len(prompts) or stats["tokens"] != len(prompts) * MAX_NEW:
+            fail(f"{label}: finished {stats['requests']} of {len(prompts)} requests")
+        if not all(0 <= t < cfg.vocab_size for t in stats["sample"]):
+            fail(f"{label}: generated token outside the vocabulary")
+        for name in need:
+            if counts[name] < 1:
+                fail(f"{label} never launched {name}: {counts}")
+        stats.pop("sample")
+        print(f"main path {label}: {len(prompts)} requests, prompts "
+              f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+              f"{stats['tokens']} tokens generated = {stats['tok_per_s']} tok/s; median "
+              f"TTFT {stats['ttft_p50_ms']} ms; peak memory {peak:.1f} MiB; ticks "
+              f"{engine._steps}, prefill calls {engine.prefill_calls}, chunk calls "
+              f"{engine.chunk_calls}, decode calls {engine.decode_calls}")
+        print(f"  stats: {json.dumps(stats)}")
+        print(f"  launch counts: {json.dumps(counts)}")
+        return stats, counts
 
-    # ---- 4b. where the time goes: the same workload under torch.profiler -------
+    bank_ecfg = EngineConfig(max_slots=8, max_len=512, block_size=16, num_blocks=BANK_PAGES,
+                             prefix_cache=True, tier_policy="pressure")
+    prompts = bank_prompts(np.random.default_rng(SEED), cfg.vocab_size, bank_ecfg.block_size)
+    engine = PagedServingEngine(banks["fused"], bank_ecfg)
+    fused_stats, fused_counts = serve(
+        "4a fused bank", engine, prompts, tuple(range(len(BUDGETS))),
+        ("flash_attention", "page_copy", "paged_attention", "paged_attention_kquery",
+         "slr_matmul_stacked"))
+    pc = fused_stats["prefix_cache"]
+    if pc["hits"] < 1 or pc["cow_copies"] < 1 or fused_stats["downshift_ticks"] < 1:
+        fail(f"the fused bank run needs prefix hits, copy-on-write copies and downshifts: "
+             f"{pc}, downshift_ticks {fused_stats['downshift_ticks']}")
+
+    bsr_prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                   for n in rng.integers(20, 301, N_BSR)]
+    engine = PagedServingEngine(banks["bsr"], EngineConfig(max_slots=8, max_len=512,
+                                                           block_size=16))
+    _, bsr_counts = serve("4b bsr bank", engine, bsr_prompts, tuple(range(len(BUDGETS))),
+                          ("bsr_matmul", "lowrank_matmul", "flash_attention",
+                           "paged_attention"))
+
+    chunk_prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                     for n in rng.integers(20, 401, N_REQUESTS)]
+    engine = PagedServingEngine(dm, EngineConfig(max_slots=8, max_len=512, block_size=16,
+                                                 prefill_chunk=64))
+    serve("4c fused model, chunked prefill", engine, chunk_prompts, (None,),
+          ("slr_matmul_stacked", "paged_attention", "paged_attention_kquery"))
+
+    cli = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "salaad_llama_60m",
+           "--keep-ratios", ",".join(map(str, BUDGETS)), "--fmt", "fused", "--prefix-cache",
+           "--tier-policy", "pressure"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(SRC)})
+    if proc.returncode:
+        fail(f"the serve launcher failed:\n{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if line["requests"] != 4 or line["tokens"] != 32 or "jit_retraces" in line:
+        fail(f"the serve launcher's line is off: {line}")
+    print(f"main path 4d launcher ({time.perf_counter() - t0:.1f} s): {json.dumps(line)}")
+
+    # 4e. where the time goes: the fused bank run under torch.profiler
     from torch.profiler import ProfilerActivity, profile
 
-    engine = PagedServingEngine(dm, ecfg)
-    for p in prompts:
-        engine.submit(p, max_new_tokens=MAX_NEW)
+    engine = PagedServingEngine(banks["fused"], bank_ecfg)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run()
+        serve_batch(engine, cfg.vocab_size, len(prompts), MAX_NEW, SEED,
+                    tiers=tuple(range(len(BUDGETS))), prompts=prompts)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
     device_events = [e for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3
     if busy_ms > 0:
-        print(f"profile: wall {wall_prof * 1e3:.1f} ms under the profiler, device busy "
+        print(f"profile 4a: wall {wall_prof * 1e3:.1f} ms under the profiler, device busy "
               f"{busy_ms:.1f} ms, idle share {1 - busy_ms / (wall_prof * 1e3):.3f}")
-        for e in sorted(device_events, key=lambda e: -e.self_device_time_total)[:8]:
+        for e in sorted(device_events, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"  device {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  "
                   f"{e.key[:90]}")
     else:
         print("profile: the profiler recorded no device time (not measured)")
 
-    # ---- 5. first chunk and first decode tick: card vs CPU ------------------------
+    # ---- 5. first one-shot prefill, chunk and decode tick: card vs CPU -----------
     cpu_params, cpu_state = tree_map(lambda t: t.cpu(), (params, state))
     cpu_dm = DeployedModel.build(cfg, cpu_params, cpu_state, blocks, fmt="fused")
-    chunk = np.zeros((8, 64), np.int32)
+
+    def compare(what, got, want):
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        print(f"parity {what}: max_abs_err {err:.3e} (tol {LOGIT_TOL:g} x {scale:.3g}), "
+              f"argmax agreement {agree:.4f}")
+        if not bool(torch.isfinite(got).all()) or err > LOGIT_TOL * scale:
+            fail(f"{what} logits on the card disagree with the CPU")
+
+    oneshot = np.zeros((4, 128), np.int32)
+    lens_np = np.array([128, 77, 33, 100])
+    for b in range(4):
+        oneshot[b, : lens_np[b]] = prompts[b][: lens_np[b]]
+    mask = torch.arange(128)[None, :] < torch.from_numpy(lens_np)[:, None]
+    logits = [model_lib._forward(m.params, {"tokens": torch.from_numpy(oneshot).to(d_)}, cfg,
+                                 collect_kv=True)[0].float().cpu()
+              for m, d_ in ((dm, dev), (cpu_dm, torch.device("cpu")))]
+    compare("first one-shot prefill", logits[0][mask], logits[1][mask])
+
     counts_np = np.array([64, 64, 20, 64, 37, 64, 64, 51], np.int32)
-    for b in range(8):
-        chunk[b, : counts_np[b]] = prompts[b % len(prompts)][: counts_np[b]]
+    chunk = rng.integers(0, cfg.vocab_size, (8, 64)).astype(np.int32)
+    chunk[np.arange(64)[None, :] >= counts_np[:, None]] = 0
     runs = {}
     for name, model, d_ in (("card", dm, dev), ("cpu", cpu_dm, torch.device("cpu"))):
         cache = model_lib.init_paged_cache(cfg, 8, 8 * 8, 16, 8, device=d_)
@@ -382,18 +608,9 @@ def main() -> None:
     for name, (model, d_, cache, c_logits) in runs.items():
         d_logits, _ = model_lib.decode_step(model.params, nxt.to(d_), cache, cfg)
         logits[name] = (c_logits, d_logits.float().cpu())
-    for i, what in enumerate(("first chunk", "first decode tick")):
-        got, want = logits["card"][i], logits["cpu"][i]
-        if what == "first chunk":
-            mask = torch.arange(64)[None, :] < torch.from_numpy(counts_np)[:, None]
-            got, want = got[mask], want[mask]
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        print(f"parity {what}: max_abs_err {err:.3e} (tol {LOGIT_TOL:g} x {scale:.3g}), "
-              f"argmax agreement {agree:.4f}")
-        if not bool(torch.isfinite(got).all()) or err > LOGIT_TOL * scale:
-            fail(f"{what} logits on the card disagree with the CPU")
+    mask = torch.arange(64)[None, :] < torch.from_numpy(counts_np)[:, None]
+    compare("first chunk", logits["card"][0][mask], logits["cpu"][0][mask])
+    compare("first decode tick", logits["card"][1], logits["cpu"][1])
 
     # ---- result lines -------------------------------------------------------------
     meta = {
@@ -401,17 +618,24 @@ def main() -> None:
                                "src/repro/kernels/slr_matmul.py:316"),
         "lowrank_matmul": ("src/repro_torch/kernels/csrc/slr_matmul.cu",
                            "src/repro/kernels/lowrank_matmul.py:55"),
+        "bsr_matmul": ("src/repro_torch/kernels/csrc/bsr_matmul.cu",
+                       "src/repro/kernels/bsr_matmul.py:158"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:90"),
         "paged_attention_kquery": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:204"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:75"),
+        "page_copy": ("src/repro_torch/kernels/csrc/page_copy.cu",
+                      "src/repro/kernels/page_copy.py:38"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r_ = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
+            "launches": fused_counts[name] + bsr_counts[name],
+            "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
             "plain_ms": r_["plain_ms"], "bound_ms": r_["bound"][0],
             "bound_by": r_["bound"][1], "library_ms": r_["library_ms"],
         })

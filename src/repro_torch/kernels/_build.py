@@ -20,7 +20,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "build", "library", "launch", "dtype_code", "check_cuda"]
+__all__ = ["BUILD_DIR", "build", "library", "launch", "dtype_code", "check_cuda",
+           "check_int32"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -29,9 +30,15 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: name -> argument types (every one returns cudaError_t as int)
 SIGNATURES = {
+    # x, counts, rows, vals, y, T, n, m, JB, MAXB, bs, bt, dtype, stream
+    "bsr_matmul_launch": [_P] * 5 + [_I] * 8 + [_P],
+    # pool, src, dst, n_pairs, n_layers, n_pages, page_bytes, stream
+    "page_copy_launch": [_P] * 3 + [_I] * 3 + [_L, _P],
+    # q, k, v, out, B, Hq, Hkv, T, S, D, causal, scale, dtype, stream
+    "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
     # x, p, vt, counts, rows, vals, y, T, K, M, r, layer, JB, MAXB, bs, bt, dtype, stream
     "slr_matmul_stacked_launch": [_P] * 7 + [_I] * 10 + [_P],
     # x, p, vt, y, T, K, M, r, bt, dtype, stream
@@ -129,6 +136,12 @@ def dtype_code(dtype: torch.dtype) -> int:
         return _DTYPE_CODES[dtype]
     except KeyError:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {dtype}") from None
+
+
+def check_int32(name: str, **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
 
 
 def check_cuda(name: str, **tensors: torch.Tensor) -> torch.device:

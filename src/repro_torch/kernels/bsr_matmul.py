@@ -1,5 +1,4 @@
-"""Block-CSC container for the sparse component S (host side of
-``repro/kernels/bsr_matmul.py``).
+"""Block-CSC sparse matmul  y = x @ S  (port of ``repro/kernels/bsr_matmul.py``).
 
 Layout (column-major over output blocks, padded to a fixed per-column count):
     counts  (JB,)              int32 - live blocks feeding output column jb
@@ -8,8 +7,9 @@ Layout (column-major over output blocks, padded to a fixed per-column count):
 
 Dims that do not divide ``block_size`` are zero-padded at conversion, so the
 tables cover ``ceil(n/bs) x ceil(m/bs)`` tiles. This layout is the contract
-the fused SLR kernel (``slr_matmul.py``) and the bridge share. The sparse-only
-``bsr_matmul`` kernel is a later slice.
+the fused SLR kernel (``slr_matmul.py``), this module's kernel and the bridge
+share. ``bsr_matmul`` runs the plain version for CPU tensors and the CUDA
+kernel ``csrc/bsr_matmul.cu`` for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -18,7 +18,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["BsrMatrix", "bsr_from_dense", "bsr_to_dense"]
+from . import ref
+from ._build import check_cuda, check_int32, dtype_code, launch
+
+__all__ = ["BsrMatrix", "bsr_from_dense", "bsr_to_dense", "bsr_matmul", "row_tile",
+           "BLOCK_SIZES", "MAX_ROW_TILE"]
+
+# block sizes the kernels are instantiated for: every size _fit_block produces
+BLOCK_SIZES = (8, 16, 32, 64, 128)
+MAX_ROW_TILE = 32   # rows of x per thread block (kMaxBT in the kernels)
+
+
+def row_tile(t_dim: int, dtype: torch.dtype, cap: int = 128) -> int:
+    """Decode-width row tile: T rounded up to the dtype's sublane tile, capped
+    at ``cap`` (a 4-row decode batch runs at 8 rows, not 128)."""
+    sub = {4: 8, 2: 16, 1: 32}.get(dtype.itemsize, 8)
+    return min(cap, -(-t_dim // sub) * sub)
 
 
 @dataclass(frozen=True)
@@ -84,3 +99,45 @@ def bsr_to_dense(bsr: BsrMatrix) -> torch.Tensor:
     for t in range(maxb):
         dense.index_put_((bsr.rows[:, t].long(), cols), vals[:, t], accumulate=True)
     return dense.permute(0, 2, 1, 3).reshape(n_pad, jb * bs)[:n, :m]
+
+
+def bsr_matmul(x: torch.Tensor, bsr: BsrMatrix) -> torch.Tensor:
+    """x (T, n) @ block-CSC S (n, m) -> y (T, m) in x.dtype."""
+    if x.device.type == "cpu":
+        return ref.bsr_matmul_ref(x, bsr)
+    name = "bsr_matmul"
+    dev = check_cuda(name, x=x, counts=bsr.counts, rows=bsr.rows, vals=bsr.vals)
+    code = dtype_code(x.dtype)
+    if bsr.vals.dtype != x.dtype:
+        raise TypeError(f"{name}: x and vals must share one dtype, got {x.dtype}, "
+                        f"{bsr.vals.dtype}")
+    check_int32(name, counts=bsr.counts, rows=bsr.rows)
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be (T, n), got {tuple(x.shape)}")
+    t_dim, n_dim = x.shape
+    n_s, m_dim = bsr.shape
+    bs = bsr.block_size
+    jb, maxb = bsr.rows.shape
+    expect = {
+        "x": ((n_dim,), (n_s,)),
+        "counts": (tuple(bsr.counts.shape), (jb,)),
+        "rows (column blocks)": ((jb,), (-(-m_dim // bs),)),
+        "vals": (tuple(bsr.vals.shape), (jb, maxb, bs, bs)),
+    }
+    for arg, (got, want) in expect.items():
+        if got != want:
+            raise ValueError(f"{name}: {arg} has shape {got}, expected {want}")
+    if bs not in BLOCK_SIZES:
+        raise ValueError(f"{name}: block size {bs} not in {BLOCK_SIZES}")
+    y = torch.empty((t_dim, m_dim), dtype=x.dtype, device=dev)
+    if t_dim == 0:
+        return y
+    bt = row_tile(t_dim, x.dtype, cap=MAX_ROW_TILE)
+    launch("bsr_matmul_launch", dev, x.data_ptr(), bsr.counts.data_ptr(),
+           bsr.rows.data_ptr(), bsr.vals.data_ptr(), y.data_ptr(), t_dim, n_dim, m_dim,
+           jb, maxb, bs, bt, code)
+    bsr_matmul.launches += 1
+    return y
+
+
+bsr_matmul.launches = 0

@@ -11,15 +11,22 @@ from __future__ import annotations
 
 import torch
 
+from .bsr_matmul import BsrMatrix, bsr_matmul as _bsr_matmul_kernel
+from .flash_attention import flash_attention
 from .lowrank_matmul import lowrank_matmul
+from .page_copy import page_copy
 from .paged_attention import paged_attention, paged_attention_kquery
 from .slr_matmul import BsrStack, slr_matmul_stacked as _slr_matmul_stacked_kernel
 
 __all__ = [
+    "slr_matmul",
     "slr_matmul_stacked",
     "lowrank_matmul",
+    "bsr_matmul",
     "paged_attention",
     "paged_attention_kquery",
+    "page_copy",
+    "flash_attention",
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
@@ -29,8 +36,11 @@ __all__ = [
 KERNELS = {
     "slr_matmul_stacked": _slr_matmul_stacked_kernel,
     "lowrank_matmul": lowrank_matmul,
+    "bsr_matmul": _bsr_matmul_kernel,
     "paged_attention": paged_attention,
     "paged_attention_kquery": paged_attention_kquery,
+    "page_copy": page_copy,
+    "flash_attention": flash_attention,
 }
 
 
@@ -41,6 +51,36 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def bsr_matmul(x: torch.Tensor, bsr: BsrMatrix) -> torch.Tensor:
+    """y = x @ S; an S with no live block gives zeros without a launch (the
+    JAX dispatcher's static ``empty`` fast path)."""
+    if bsr.empty:
+        return torch.zeros((x.shape[0], bsr.shape[1]), dtype=x.dtype, device=x.device)
+    return _bsr_matmul_kernel(x, bsr)
+
+
+def slr_matmul(x: torch.Tensor, p, vt, bsr: BsrMatrix | None) -> torch.Tensor:
+    """Unstacked fused SLR matmul, as far as its degenerate corners go: no
+    factors and no S give zeros, an empty S the low-rank kernel, r == 0 the
+    block-CSC kernel. Both parts live need ``slr_matmul_pallas``, which is
+    reached only by fused weights outside a layer stack (the hybrid family's
+    shared attention block) and is ported with that family."""
+    r = 0 if p is None else p.shape[-1]
+    empty_s = bsr is None or bsr.empty
+    if empty_s and r == 0:
+        m = vt.shape[-1] if vt is not None else bsr.shape[1]
+        return torch.zeros((x.shape[0], m), dtype=x.dtype, device=x.device)
+    if empty_s:
+        return lowrank_matmul(x, p, vt)
+    if r == 0:
+        return bsr_matmul(x, bsr)
+    raise NotImplementedError(
+        "an unstacked fused weight with both a low-rank part and a live S needs "
+        "the slr_matmul_pallas kernel, ported with the hybrid family (zamba2's "
+        "shared attention block)"
+    )
 
 
 def slr_matmul_stacked(x: torch.Tensor, p, vt, stack: BsrStack | None,

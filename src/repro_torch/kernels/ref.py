@@ -16,15 +16,25 @@ NEG_INF = -1e30
 
 __all__ = [
     "lowrank_matmul_ref",
+    "bsr_matmul_ref",
     "slr_matmul_ref",
     "slr_matmul_stacked_ref",
     "paged_attention_ref",
     "paged_attention_kquery_ref",
+    "page_copy_ref",
+    "attention_ref",
 ]
 
 
 def lowrank_matmul_ref(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:
     return (x.float() @ p.float() @ vt.float()).to(x.dtype)
+
+
+def bsr_matmul_ref(x: torch.Tensor, bsr) -> torch.Tensor:
+    """Scatter the blocks to dense, then one f32 matmul."""
+    from .bsr_matmul import bsr_to_dense
+
+    return (x.float() @ bsr_to_dense(bsr).float()).to(x.dtype)
 
 
 def slr_matmul_ref(x: torch.Tensor, p, vt, bsr=None) -> torch.Tensor:
@@ -84,3 +94,33 @@ def paged_attention_kquery_ref(q, k_pages, v_pages, block_table, lengths) -> tor
     w = torch.softmax(sc, dim=-1)
     out = torch.einsum("bhgqs,bhsd->bhgqd", w, v)
     return out.reshape(b, hq, kq, d).to(q.dtype)
+
+
+def page_copy_ref(pool: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``pool[:, dst[i]] = pool[:, src[i]]`` IN PLACE, every other page
+    untouched; returns ``pool``. Identity pairs (the (0, 0) pads) are no-ops
+    and are skipped, so a pad never competes with a real copy into page 0."""
+    keep = src != dst
+    src, dst = src[keep].long(), dst[keep].long()
+    pool[:, dst] = pool[:, src]
+    return pool
+
+
+def attention_ref(q, k, v, causal: bool = True, scale=None, offset=None) -> torch.Tensor:
+    """Dense softmax attention with GQA broadcast, (B, Hq, T, D) x
+    (B, Hkv, S, D) -> (B, Hq, T, D). Under ``causal`` query i sees keys
+    ``j <= i + offset``; ``offset`` defaults to ``S - T`` (the JAX package's
+    ``attention_ref``), and the flash kernel uses 0 (its Pallas alignment)."""
+    b, hq, t, d = q.shape
+    _, hkv, s, _ = k.shape
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * scale
+    if causal:
+        offset = s - t if offset is None else offset
+        mask = torch.ones((t, s), dtype=torch.bool, device=q.device).tril(offset)
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhts,bhsd->bhtd", w, v.float()).to(q.dtype)

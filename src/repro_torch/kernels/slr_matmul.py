@@ -21,13 +21,9 @@ import torch
 
 from . import ref
 from ._build import check_cuda, dtype_code, launch
-from .bsr_matmul import BsrMatrix
+from .bsr_matmul import BLOCK_SIZES, MAX_ROW_TILE, BsrMatrix, row_tile
 
 __all__ = ["BsrStack", "stack_bsr", "row_tile", "slr_matmul_stacked", "BLOCK_SIZES"]
-
-# block sizes the kernel is instantiated for: every size _fit_block produces
-BLOCK_SIZES = (8, 16, 32, 64, 128)
-MAX_ROW_TILE = 32   # rows of x per thread block (kMaxBT in the kernel)
 
 
 @dataclass(frozen=True)
@@ -71,13 +67,6 @@ def stack_bsr(mats: list[BsrMatrix]) -> BsrStack:
         torch.stack([pad_slots(m.vals) for m in mats]),
         shape, bs, empty=all(m.empty for m in mats),
     )
-
-
-def row_tile(t_dim: int, dtype: torch.dtype, cap: int = 128) -> int:
-    """Decode-width row tile: T rounded up to the dtype's sublane tile, capped
-    at ``cap`` (a 4-row decode batch runs at 8 rows, not 128)."""
-    sub = {4: 8, 2: 16, 1: 32}.get(dtype.itemsize, 8)
-    return min(cap, -(-t_dim // sub) * sub)
 
 
 def slr_matmul_stacked(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,

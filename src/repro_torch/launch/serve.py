@@ -1,0 +1,246 @@
+"""Serving launcher: materialize the HPA budget spectrum of one SLR state as
+ONE ModelBank and serve a batch of requests through one paged engine (port
+of ``repro/launch/serve.py``, ``--engine paged``).
+
+``--keep-ratios`` names the bank's budget tiers (tier 0 = largest). Requests
+spread round-robin across the tiers (pin them all with ``--tier``); the
+engine runs one decode per active tier over the shared paged KV, and
+``--tier-policy pressure`` downshifts the serving tier under page pressure
+before evicting. Without a checkpoint the SLR state is the fresh all-zero
+one, so every SLR site takes the zero corner, as in the JAX launcher.
+
+It prints one JSON line with the JAX launcher's keys, less ``jit_retraces``
+(PyTorch runs eagerly: there is no tracing compiler to count retraces of).
+TTFT percentiles come from the requests' timestamps.
+
+  python -m repro_torch.launch.serve --arch salaad_llama_60m \\
+      --keep-ratios 1.0,0.6,0.3 --fmt fused --prefix-cache --tier-policy pressure
+
+Tensors live on the card unless ``--device cpu`` is given (with
+``--reduced``, for a run of the plain versions on the CPU).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+
+from ..configs import get_arch
+from ..core.admm import SalaadConfig, init_slr_state
+from ..core.hpa import hpa_keep_ratio
+from ..core.selection import SelectionConfig
+from ..device import resolve_device
+from ..models import model as model_lib
+from ..serving.deployed import DeployedModel
+from ..serving.elastic import ModelBank, format_capability_table
+from ..serving.engine import EngineConfig, PagedServingEngine
+from ..serving.slr_params import deployment_report
+
+ENGINES = {"paged": PagedServingEngine}
+
+# switches whose code paths come with later slices of the port
+_LATER = {
+    "ckpt_dir": "--ckpt-dir (the checkpoint loader comes with the training slice)",
+    "spec_k": "--spec-k (speculative decoding is a later slice)",
+    "spec_adaptive": "--spec-adaptive (speculative decoding is a later slice)",
+    "adapters": "--adapters (multi-tenant adapters are a later slice)",
+    "max_resident_adapters": "--max-resident-adapters (multi-tenant adapters are a "
+                             "later slice)",
+    "mesh": "--mesh (tensor-parallel serving is a later slice)",
+    "trace_out": "--trace-out (the request tracer comes with the telemetry slice)",
+    "trace_events": "--trace-events (the request tracer comes with the telemetry slice)",
+    "metrics_port": "--metrics-port (the metrics registry comes with the telemetry slice)",
+    "metrics_out": "--metrics-out (the metrics registry comes with the telemetry slice)",
+}
+
+
+def serve_batch(engine, vocab: int, requests: int, max_new: int, seed: int,
+                slo_ms: float | None = None, tiers=(None,),
+                prompts: list[list[int]] | None = None) -> dict:
+    """Drive one engine over a random trace (or over ``prompts``), requests
+    spread round-robin over ``tiers``; per-tier token counts ride in the
+    stats. With the prefix cache on, every random prompt opens with the same
+    two-page "system prompt"."""
+    rng = np.random.RandomState(seed)
+    if prompts is None:
+        shared: list[int] = []
+        if getattr(engine, "_prefix", None) is not None:
+            shared = rng.randint(0, vocab, size=2 * engine.ecfg.block_size).tolist()
+        prompts = [shared + rng.randint(0, vocab, size=rng.randint(2, 8)).tolist()
+                   for _ in range(requests)]
+    submitted = time.time()          # deadlines are a wall-clock contract
+    for i, prompt in enumerate(prompts):
+        engine.submit(prompt, max_new_tokens=max_new,
+                      deadline=None if slo_ms is None else submitted + slo_ms / 1e3,
+                      tier=tiers[i % len(tiers)])
+    t0 = time.monotonic()
+    done = engine.run()
+    dt = time.monotonic() - t0
+    total_tokens = sum(len(r.out_tokens) for r in done)
+    stats = {
+        "requests": len(done),
+        "tokens": total_tokens,
+        "tok_per_s": round(total_tokens / max(dt, 1e-9), 2),
+        "sample": done[0].out_tokens if done else [],
+        "steps": engine.stats_snapshot()["steps"],
+    }
+    by_tier: dict[int, int] = {}
+    for r in done:
+        by_tier[r.tier] = by_tier.get(r.tier, 0) + len(r.out_tokens)
+    if len(by_tier) > 1 or (by_tier and next(iter(by_tier)) != 0):
+        stats["tokens_by_tier"] = {str(k): v for k, v in sorted(by_tier.items())}
+    ttft = [r.first_token_at - r.submitted_at for r in done if r.first_token_at]
+    if ttft:
+        stats["ttft_p50_ms"] = round(float(np.percentile(ttft, 50)) * 1e3, 1)
+        stats["ttft_p99_ms"] = round(float(np.percentile(ttft, 99)) * 1e3, 1)
+    if slo_ms is not None and ttft:
+        stats["slo_ms"] = slo_ms
+        stats["slo_attainment"] = round(sum(t * 1e3 <= slo_ms for t in ttft) / len(ttft), 3)
+    stats["evictions"] = engine.evictions
+    if getattr(engine, "_prefix", None) is not None:
+        stats["prefix_cache"] = {
+            "lookups": engine.prefix_lookups,
+            "hits": engine.prefix_hits,
+            "hit_tokens": engine.prefix_hit_tokens,
+            "cow_copies": engine.cow_copies,
+            "reattached_pages": engine.reattached_pages,
+            "cached_pages": engine._prefix.pages,
+        }
+    if getattr(engine, "tier_controller", None) is not None:
+        stats["downshift_ticks"] = engine.downshift_ticks
+        stats["tier_switches"] = engine.tier_switches
+    return stats
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog="engine capabilities (serving.elastic.Engine protocol):\n\n"
+        + format_capability_table(ENGINES),
+    )
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device for weights and KV (default: the card; 'cpu' "
+                         "runs the kernels' plain versions)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--keep-ratios", default=None,
+                    help="comma-separated HPA budgets materialized as ONE ModelBank's "
+                         "tiers, largest first, e.g. 1.0,0.6,0.3 (omit: serve dense init)")
+    ap.add_argument("--fmt", "--format", dest="fmt", default="factored",
+                    choices=("dense", "factored", "bsr", "fused"),
+                    help="deployment format: 'fused' runs one kernel per linear site "
+                         "with layer-stacked tables, 'bsr' the low-rank and block-CSC "
+                         "kernels per layer")
+    ap.add_argument("--engine", default="paged",
+                    choices=("paged", "batched", "reference", "speculative"))
+    ap.add_argument("--kappa", type=float, default=0.7)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="KV page size in tokens")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="KV page pool size; None = max_slots * max_len worth")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill in block-aligned chunks of this many tokens "
+                         "(None = one-shot prefill)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prompt cache: share KV pages across requests with a "
+                         "common prompt prefix; copy-on-write on first divergent write")
+    ap.add_argument("--prefix-min-hit", type=int, default=1,
+                    help="minimum matched pages before a prefix-cache hit is attached")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="TTFT SLO; reports attainment and sets request deadlines")
+    ap.add_argument("--kv-dtype", default="float32", choices=("float32", "bfloat16", "int8"),
+                    help="KV storage dtype (int8 pages are a later slice)")
+    ap.add_argument("--tier", type=int, default=None,
+                    help="pin every request to this bank tier (default: round-robin)")
+    ap.add_argument("--tier-policy", default="static", choices=("static", "pressure"),
+                    help="pressure: downshift the serving tier under page pressure "
+                         "before evicting")
+    ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--spec-budget", type=float, default=0.4)
+    ap.add_argument("--spec-adaptive", action="store_true")
+    ap.add_argument("--trace-out", default=None)
+    ap.add_argument("--trace-events", default=None)
+    ap.add_argument("--metrics-port", type=int, default=None)
+    ap.add_argument("--metrics-out", default=None)
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--adapters", type=int, default=0)
+    ap.add_argument("--max-resident-adapters", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def _reject_later_slices(ap: argparse.ArgumentParser, args):
+    asked = [msg for name, msg in _LATER.items() if getattr(args, name) != ap.get_default(name)]
+    if args.engine != "paged":
+        asked.append(f"--engine {args.engine} (the port serves through the paged "
+                     "engine; the other engines are later slices)")
+    if args.kv_dtype == "int8":
+        asked.append("--kv-dtype int8 (quantized pages are a later slice)")
+    if asked:
+        raise ValueError(f"not ported yet: {'; '.join(asked)}")
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    _reject_later_slices(ap, args)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    device = resolve_device(args.device)
+    params = model_lib.init_params(cfg, seed=args.seed, device=device)
+    scfg = SalaadConfig(selection=SelectionConfig(min_dim=16), exact_svd=True)
+    slr, blocks = init_slr_state(params, scfg)
+    ecfg = EngineConfig(
+        max_slots=args.max_slots, max_len=args.max_len, block_size=args.block_size,
+        num_blocks=args.num_blocks, kv_dtype=args.kv_dtype,
+        prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
+        prefix_min_hit_pages=args.prefix_min_hit, tier_policy=args.tier_policy,
+    )
+
+    if args.keep_ratios is None:
+        engine = PagedServingEngine(ModelBank.single(cfg, params), ecfg)
+        stats = serve_batch(engine, cfg.vocab_size, args.requests, args.max_new,
+                            args.seed, args.slo_ms)
+        print(json.dumps({"budget": None, "fmt": "dense-init", **stats}))
+        return
+
+    # ONE HPA truncation + deployment per budget: the bank serves these views
+    # and the same pass yields the per-tier accounting
+    keeps = sorted({float(k) for k in args.keep_ratios.split(",")}, reverse=True)
+    models, tier_rows = [], []
+    for keep in keeps:
+        slr_c, rep = hpa_keep_ratio(slr, blocks, keep, args.kappa)
+        models.append(DeployedModel.build(cfg, params, slr_c, blocks, fmt=args.fmt))
+        dep = deployment_report(params, slr_c, blocks)
+        tier_rows.append({
+            "slr_params": rep["params_after"],
+            "slr_total_bytes": dep["slr_total_bytes"],
+            "compression": round(dep["compression"], 3),
+        })
+    bank = ModelBank(cfg, models, keeps=keeps)
+    for tier, row in zip(bank, tier_rows):
+        row.update(tier=tier.index, name=tier.name, served_bytes=tier.param_bytes)
+
+    engine = PagedServingEngine(bank, ecfg)
+    tiers = (args.tier,) if args.tier is not None else tuple(range(len(bank)))
+    stats = serve_batch(engine, cfg.vocab_size, args.requests, args.max_new, args.seed,
+                        args.slo_ms, tiers=tiers)
+    print(json.dumps({
+        "fmt": args.fmt,
+        "bank": bank.report(),
+        "tier_policy": args.tier_policy,
+        **stats,
+        "tiers": tier_rows,
+    }))
+
+
+if __name__ == "__main__":
+    main()

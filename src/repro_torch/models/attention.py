@@ -2,10 +2,10 @@
 (port of the dense-Llama part of ``repro/models/attention.py``).
 
 Paths, one set of weights:
-  * no cache (``kernel_impl`` dense or blockwise): plain causal masked
-    softmax. The blockwise flash-style memory bound and the Pallas flash
-    kernel (``kernel_impl='pallas'``, which raises here) come with the flash
-    attention slice;
+  * no cache, ``kernel_impl='pallas'``: the CUDA flash attention kernel
+    (``kernels/ops.py``), causal;
+  * no cache otherwise (dense or blockwise): plain causal masked softmax
+    (the blockwise flash-style memory bound comes with the training slice);
   * paged cache, ``kernel_impl='pallas'``: the CUDA paged kernels
     (``kernels/ops.py``), single-query for decode and k-query for chunks;
   * paged cache otherwise: gather the slot's pages, then masked einsum.
@@ -22,11 +22,10 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import ops
-from ..kernels.ref import NEG_INF, _gather_pages
+from ..kernels.ref import NEG_INF, _gather_pages, attention_ref
 from .layers import apply_rope, apply_weight
 
-__all__ = ["PagedLayerCache", "paged_insert", "paged_gather", "dense_attention",
-           "attention_block"]
+__all__ = ["PagedLayerCache", "paged_insert", "paged_gather", "attention_block"]
 
 
 class PagedLayerCache(NamedTuple):
@@ -68,21 +67,6 @@ def paged_gather(cache: PagedLayerCache) -> tuple[torch.Tensor, torch.Tensor]:
     return _gather_pages(cache.k, cache.block_table), _gather_pages(cache.v, cache.block_table)
 
 
-def dense_attention(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Softmax attention with GQA broadcast, (B, Hq, T, D) x (B, Hkv, S, D)."""
-    b, hq, t, d = q.shape
-    _, hkv, s, _ = k.shape
-    group = hq // hkv
-    k = k.repeat_interleave(group, dim=1)
-    v = v.repeat_interleave(group, dim=1)
-    logits = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * (1.0 / math.sqrt(d))
-    if causal:
-        mask = torch.ones((t, s), dtype=torch.bool, device=q.device).tril(s - t)
-        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-    w = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhts,bhsd->bhtd", w, v.float()).to(q.dtype)
-
-
 def attention_block(
     params: dict,
     x: torch.Tensor,                 # (B, T, d_model)
@@ -114,13 +98,10 @@ def attention_block(
 
     if cache is None:
         if kernel_impl == "pallas":
-            raise NotImplementedError(
-                "attention without a cache under kernel_impl='pallas' needs the "
-                "flash attention kernel, ported in a later slice; serve with "
-                "chunked prefill (EngineConfig.prefill_chunk) or use "
-                "kernel_impl='dense'"
-            )
-        out = dense_attention(qh, kh, vh, causal=True)
+            out = ops.flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                                      causal=True)
+        else:
+            out = attention_ref(qh, kh, vh, causal=True)
         new_cache = (kh, vh)
     else:
         new_cache = paged_insert(cache, kh, vh)

@@ -6,7 +6,9 @@ stacked on a leading layer axis, ``final_norm/norm_scale`` and
 ``lm_head/w``. The layer stack runs as a Python loop over layer indices -
 the counterpart of JAX's scan by index: ``layer_view`` hands each layer plain
 tensor slices and, for stacked fused SLR weights, an ``SLRLayerView`` that
-keeps the stacked tables whole and passes the layer index to the kernel.
+keeps the stacked tables whole and passes the layer index to the kernel. The
+``bsr`` format unrolls ``layers`` into a list of per-layer dicts, which the
+same loop walks directly (JAX's ``_forward_unrolled``).
 """
 from __future__ import annotations
 
@@ -16,11 +18,12 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import ops
 from .attention import PagedLayerCache, attention_block
 from .layers import apply_weight, embed, rmsnorm, swiglu
 
 __all__ = ["PagedKVCache", "init_lm", "layer_view", "forward", "init_paged_cache",
-           "scatter_prefill_pages"]
+           "scatter_prefill_pages", "copy_cache_pages"]
 
 
 class PagedKVCache(NamedTuple):
@@ -120,9 +123,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     positions = offset[:, None] + steps[None, :] if offset.dim() else offset + steps[None, :]
 
     layers = params["layers"]
+    unrolled = isinstance(layers, (list, tuple))
     kvs = []
     for l in range(cfg.num_layers):
-        lp = layer_view(layers, l)
+        lp = layers[l] if unrolled else layer_view(layers, l)
         layer_cache = None
         if cache is not None:
             layer_cache = PagedLayerCache(cache.k[l], cache.v[l], cache.block_table,
@@ -171,4 +175,13 @@ def scatter_prefill_pages(cache: PagedKVCache, kvs, page_map: torch.Tensor) -> P
         chunks = heads.reshape(num_l, b, h, t // bs, bs, d).permute(0, 1, 3, 2, 4, 5)
         chunks = chunks.reshape(num_l, -1, h, bs, d)
         pool[:, pages[keep]] = chunks[:, keep].to(pool.dtype)
+    return cache
+
+
+def copy_cache_pages(cache: PagedKVCache, src: torch.Tensor, dst: torch.Tensor) -> PagedKVCache:
+    """Copy whole pages ``src[i] -> dst[i]`` of every layer in both pools,
+    in place, through the page-copy kernel: the device half of prefix-cache
+    copy-on-write (the engine remaps its block table to ``dst`` host-side)."""
+    ops.page_copy(cache.k, src, dst)
+    ops.page_copy(cache.v, src, dst)
     return cache

@@ -9,9 +9,12 @@ embedding) are served dense-materialized. Formats:
 
   * ``dense``    - X_hat = L + S materialized
   * ``factored`` - (p, vt) + COO S, plain PyTorch products
+  * ``bsr``      - factored L + block-CSC S through the low-rank and
+                   block-CSC kernels; the kernels are per matrix, so the
+                   layer stack is unrolled into a list of per-layer dicts
+                   (``models.transformer.forward`` loops over it)
   * ``fused``    - one fused SLR kernel per linear site with layer-stacked
                    block-CSC tables; the layer loop passes the layer index
-  * ``bsr``      - a later slice (it needs the ``bsr_matmul`` kernel)
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from ..core.admm import SLRState, surrogate_params
 from ..core.selection import BlockInfo, path_str
 from ..models import model as model_lib
 from ..tree import replace_by_path, tree_leaves_with_path
-from .slr_params import SLRLinear, build_slr_linears, coo_to_bsr_stack
+from .slr_params import SLRLinear, build_slr_linears, coo_to_bsr, coo_to_bsr_stack
 
 __all__ = ["DeployedModel", "is_linear_site"]
 
@@ -42,15 +45,43 @@ def _materialize_dense(blk, leaf_dtype) -> torch.Tensor:
     return dense.to(leaf_dtype)
 
 
+def _coo_slice_to_bsr(lin: SLRLinear, bsr_block: int) -> SLRLinear:
+    """One unstacked weight's COO part as block-CSC, on the kernel path; a
+    weight with no S keeps the plain path, as in the JAX package."""
+    if lin.s_coo is None:
+        return lin
+    return SLRLinear(p=lin.p, vt=lin.vt, s_coo=None, shape=lin.shape,
+                     s_bsr=coo_to_bsr(lin.s_coo, bsr_block), use_kernel=True)
+
+
 def _fuse_linear(lin: SLRLinear, bsr_block: int) -> SLRLinear:
-    if lin.ndim != 3:
-        raise NotImplementedError(
-            "a fused weight outside a layer stack needs the unstacked "
-            "slr_matmul kernel, ported in a later slice"
-        )
-    s_stack = coo_to_bsr_stack(lin.s_coo, bsr_block) if lin.s_coo is not None else None
-    return SLRLinear(p=lin.p, vt=lin.vt, s_coo=None, s_stack=s_stack,
-                     shape=lin.shape, fuse=True)
+    """Stacked weights keep the layer axis as a ``BsrStack``; unstacked ones
+    get a per-matrix block-CSC (their apply needs ``slr_matmul_pallas`` when
+    both parts are live, and raises)."""
+    if lin.ndim == 3:
+        s_stack = coo_to_bsr_stack(lin.s_coo, bsr_block) if lin.s_coo is not None else None
+        return SLRLinear(p=lin.p, vt=lin.vt, s_coo=None, s_stack=s_stack,
+                         shape=lin.shape, fuse=True, use_kernel=True)
+    s_bsr = coo_to_bsr(lin.s_coo, bsr_block) if lin.s_coo is not None else None
+    return SLRLinear(p=lin.p, vt=lin.vt, s_coo=None, shape=lin.shape, s_bsr=s_bsr,
+                     fuse=True, use_kernel=True)
+
+
+def _unroll_layers(cfg, serving: Any, bsr_block: int) -> Any:
+    """The stacked layer tree as a list of per-layer dicts, each layer's SLR
+    weights converted to block-CSC (the bsr kernels are per matrix)."""
+    layers = serving.get("layers") if isinstance(serving, dict) else None
+    if layers is None:
+        return serving
+
+    def layer(l: int, node):
+        if isinstance(node, dict):
+            return {k: layer(l, v) for k, v in node.items()}
+        if isinstance(node, SLRLinear):
+            return _coo_slice_to_bsr(node.at_layer(l), bsr_block)
+        return node[l]
+
+    return {**serving, "layers": [layer(l, layers) for l in range(cfg.num_layers)]}
 
 
 class DeployedModel:
@@ -68,12 +99,7 @@ class DeployedModel:
         """Deploy (params, SLR state) at format ``fmt``, on the state's device."""
         if fmt == "dense":
             return cls(cfg, surrogate_params(params, state, blocks), fmt)
-        if fmt == "bsr":
-            raise NotImplementedError(
-                "the 'bsr' deployment format needs the bsr_matmul kernel, ported "
-                "in a later slice; use 'fused' or 'factored'"
-            )
-        if fmt not in ("factored", "fused"):
+        if fmt not in ("factored", "bsr", "fused"):
             raise ValueError(f"unknown deployment format {fmt!r}")
         by_name = {info.name: info for info in blocks}
         linears = build_slr_linears(state, blocks)
@@ -86,9 +112,17 @@ class DeployedModel:
             if not is_linear_site(info):
                 return _materialize_dense(state[name], leaf.dtype)
             lin = linears[name]
-            return _fuse_linear(lin, bsr_block) if fmt == "fused" else lin
+            if fmt == "fused":
+                return _fuse_linear(lin, bsr_block)
+            if fmt == "bsr" and lin.ndim == 2:
+                # unstacked weights outside the layer stack also take the kernels
+                return _coo_slice_to_bsr(lin, bsr_block)
+            return lin
 
-        return cls(cfg, replace_by_path(params, replace_leaf), fmt)
+        serving = replace_by_path(params, replace_leaf)
+        if fmt == "bsr":
+            serving = _unroll_layers(cfg, serving, bsr_block)
+        return cls(cfg, serving, fmt)
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,29 +1,38 @@
-"""Paged serving engine: continuous batching over a block-paged KV cache
+"""Paged serving engine: continuous batching over a block-paged KV cache,
+serving a :class:`~repro_torch.serving.elastic.ModelBank` of budget tiers
 (port of ``PagedServingEngine`` and the parts of its base class in
 ``repro/serving/engine.py`` that the greedy dense path runs).
 
 KV lives in a fixed pool of ``num_blocks`` pages of ``block_size`` tokens
 (``models.transformer.PagedKVCache``); a host-side :class:`BlockAllocator`
-hands pages to slots on demand. Each tick:
+hands pages to slots on demand. The pool and block table carry no tier, so
+every tier of the bank serves over the one cache. Each tick:
   1. admits queued requests (earliest deadline first) whenever a slot and
-     enough pages are free;
-  2. advances every mid-prefill slot by one chunk (``prefill_chunk``) in one
-     ``chunk_prefill_step`` call over all slots;
-  3. grows the pages of decode-phase slots, evicting a victim back to the
-     queue when the pool runs dry (it resumes by re-prefilling its prompt and
-     the tokens it already emitted);
-  4. runs one ``decode_step`` over all slots and records each active slot's
-     greedy token.
+     enough pages are free. With the prefix cache on, matching full prompt
+     pages are attached read-only and only the suffix is prefilled; a hit
+     whose first write lands inside an attached page copies that page first
+     (copy-on-write, one batched page-copy kernel call per tick);
+  2. under ``tier_policy='pressure'`` updates the tier controller from the
+     pool's free (and reclaimable) pages and recomputes each slot's effective
+     tier;
+  3. advances every mid-prefill slot by one chunk (``prefill_chunk``), one
+     ``chunk_prefill_step`` call per active tier;
+  4. grows the pages of decode-phase slots, reclaiming cached prefix pages
+     first and evicting a victim back to the queue when the pool runs dry (it
+     resumes by re-prefilling, or by reattaching the pages it published);
+  5. runs one ``decode_step`` per active tier, each masked to that tier's
+     slots, and records each active slot's greedy token.
 
 Without ``prefill_chunk`` an admission prefills the whole prompt in one
-no-cache forward and scatters whole pages. Under ``kernel_impl='pallas'``
-that one-shot path needs the flash attention kernel (a later slice), so the
-engine requires chunked prefill there.
+no-cache forward (the flash attention kernel under ``kernel_impl='pallas'``)
+and scatters whole pages.
 
-Not ported yet, each rejected with a ``ValueError`` that names it: model
-banks and elastic tiers, the prefix cache, multi-tenant adapters,
-speculative decoding, tensor-parallel meshes, int8 pages, sampling with a
-temperature, and telemetry/tracing.
+Not ported yet, each rejected with a ``ValueError`` that names it:
+multi-tenant adapters, speculative decoding, tensor-parallel meshes, int8
+pages, sampling with a temperature, and the telemetry registry and tracer.
+The counters the JAX engine keeps in its registry (prefix lookups, hits, hit
+tokens, copy-on-write copies, reattached pages, tier switches, downshift
+ticks) are plain integers here.
 """
 from __future__ import annotations
 
@@ -36,6 +45,8 @@ import torch
 from ..models import model as model_lib
 from ..models import transformer as transformer_lib
 from .deployed import DeployedModel
+from .elastic import ModelBank, TierController
+from .prefix_cache import PrefixCache
 
 __all__ = ["Request", "RequestRejected", "EngineConfig", "BlockAllocator",
            "PagedServingEngine"]
@@ -50,7 +61,8 @@ _EVICT_POLICIES = ("longest_remaining", "lru")
 
 class RequestRejected(ValueError):
     """Raised by ``submit`` when a request can never be served by this engine
-    (too long for the cache, or larger than the whole page pool)."""
+    (too long for the cache, larger than the whole page pool, or pinned to a
+    tier the bank does not have)."""
 
 
 @dataclass
@@ -66,6 +78,7 @@ class Request:
     finished_at: float = 0.0
     token_times: list[float] = field(default_factory=list)
     deadline: float | None = None    # absolute WALL-CLOCK SLO deadline
+    tier: int = 0                    # requested bank tier (0 = largest)
     evictions: int = 0
     requeued_at: float = 0.0
     prefill_emitted: int = 0         # tokens emitted by prefill/chunk programs
@@ -83,10 +96,11 @@ class EngineConfig:
     evict_policy: str = "longest_remaining"
     decode_reserve: int | None = None  # decode headroom (tokens) to admit; None = one block
     prefill_chunk: int | None = None   # block-aligned prefill chunk; None = one-shot
+    prefix_cache: bool = False         # radix prompt cache over shared pages
+    prefix_min_hit_pages: int = 1      # smallest match worth attaching
+    tier_policy: str = "static"        # static | pressure (downshift before evicting)
     # features of later slices: kept so a request for one fails loudly
     greedy: bool = True
-    prefix_cache: bool = False
-    tier_policy: str = "static"
     spec_k: int = 0
     mesh: str | None = None
     adapters: bool = False
@@ -117,10 +131,14 @@ class EngineConfig:
             raise ValueError(f"prefill_chunk={self.prefill_chunk} must be a positive "
                              f"multiple of block_size={self.block_size} (chunks scatter "
                              "whole pages)")
+        if not isinstance(self.prefix_min_hit_pages, int) or self.prefix_min_hit_pages < 1:
+            raise ValueError(f"prefix_min_hit_pages={self.prefix_min_hit_pages!r} must be "
+                             "a positive int (a zero-page hit is not a hit)")
+        if self.tier_policy not in ("static", "pressure"):
+            raise ValueError(f"unknown tier_policy {self.tier_policy!r}; expected "
+                             "'static' or 'pressure'")
         later = {
             "greedy=False (sampling with a temperature)": not self.greedy,
-            "prefix_cache (radix prompt cache)": self.prefix_cache,
-            "tier_policy='pressure' (elastic tiers)": self.tier_policy != "static",
             "spec_k (speculative decoding)": self.spec_k != 0,
             "mesh (tensor-parallel serving)": self.mesh is not None,
             "adapters (multi-tenant adapters)": self.adapters,
@@ -138,6 +156,20 @@ def _validate_request(prompt: list[int], max_new_tokens: int, max_len: int):
     if len(prompt) + max_new_tokens > max_len:
         raise RequestRejected(f"prompt({len(prompt)}) + max_new({max_new_tokens}) "
                               f"exceeds cache capacity {max_len}")
+
+
+def _resolve_engine_args(name: str, model, ecfg) -> tuple[ModelBank, EngineConfig]:
+    """``Engine(bank, ecfg)``; a bare ``DeployedModel`` is wrapped as a
+    one-tier bank."""
+    if isinstance(model, DeployedModel):
+        model = ModelBank.single(model.cfg, model)
+    if not isinstance(model, ModelBank):
+        raise TypeError(f"{name} expects a ModelBank (serving.elastic) or a "
+                        f"DeployedModel, got {type(model).__name__}")
+    if ecfg is not None and not isinstance(ecfg, EngineConfig):
+        raise TypeError(f"{name}(bank, ecfg): ecfg must be an EngineConfig, got "
+                        f"{type(ecfg).__name__}")
+    return model, ecfg if ecfg is not None else EngineConfig()
 
 
 class BlockAllocator:
@@ -210,28 +242,21 @@ class BlockAllocator:
 
 class PagedServingEngine:
     """Continuously batched greedy engine over a block-paged KV cache, serving
-    one :class:`DeployedModel` on the device its weights live on."""
+    every tier of a :class:`ModelBank` on the device its weights live on."""
 
-    def __init__(self, model: DeployedModel, ecfg: EngineConfig | None = None):
-        if not isinstance(model, DeployedModel):
-            raise ValueError(f"PagedServingEngine serves a DeployedModel, got "
-                             f"{type(model).__name__} (model banks are not ported yet)")
-        ecfg = ecfg if ecfg is not None else EngineConfig()
-        cfg = model.cfg
+    def __init__(self, model: ModelBank | DeployedModel, ecfg: EngineConfig | None = None):
+        bank, ecfg = _resolve_engine_args(type(self).__name__, model, ecfg)
+        cfg = bank.cfg
         if cfg.family != "dense":
             raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
         kv_dtype = _KV_DTYPES[ecfg.kv_dtype]
-        if cfg.kernel_impl == "pallas":
-            if ecfg.prefill_chunk is None:
-                raise ValueError("kernel_impl='pallas' needs prefill_chunk: one-shot "
-                                 "prefill runs the flash attention kernel, ported in a "
-                                 "later slice")
-            if kv_dtype != cfg.param_dtype:
-                raise ValueError(f"kernel_impl='pallas' needs kv_dtype equal to the "
-                                 f"model dtype {cfg.param_dtype}, got {ecfg.kv_dtype!r}")
-        self.cfg, self.ecfg, self.model = cfg, ecfg, model
-        self.params = model.params
-        self.device = model.params["embed"]["embedding"].device
+        if cfg.kernel_impl == "pallas" and kv_dtype != cfg.param_dtype:
+            raise ValueError(f"kernel_impl='pallas' needs kv_dtype equal to the "
+                             f"model dtype {cfg.param_dtype}, got {ecfg.kv_dtype!r}")
+        self.cfg, self.ecfg, self.bank = cfg, ecfg, bank
+        self._tier_params = [t.params for t in bank]
+        self.params = self._tier_params[0]
+        self.device = self.params["embed"]["embedding"].device
         bs = ecfg.block_size
         self._bs = bs
         self._max_len = -(-ecfg.max_len // bs) * bs
@@ -248,28 +273,79 @@ class PagedServingEngine:
         self._pages: dict[int, list[int]] = {}
         self._ptarget: dict[int, int] = {}
         self._progress: dict[int, int] = {}   # slot -> tokens prefilled (mid-prefill)
+        # slot -> device length to set before the next program: a prefix-hit
+        # admission's length is stale until its first chunk runs, and junk
+        # rows other programs write meanwhile must not land in shared pages
+        self._len_reset: dict[int, int] = {}
         self._queue: list[Request] = []
         self._active: dict[int, Request] = {}
         self._uid = 0
         self._steps = 0
         self._last_token = np.zeros(ecfg.max_slots, np.int64)
+        # effective tier per slot (requested tier + controller downshift)
+        self._slot_tier = np.zeros(ecfg.max_slots, np.int64)
+        self._tier_shift = 0
+        self.tier_controller = None
+        if ecfg.tier_policy == "pressure":
+            self.tier_controller = TierController(len(bank))
+        self._prefix = PrefixCache(self.allocator, bs) if ecfg.prefix_cache else None
         self.decode_calls = 0
         self.prefill_calls = 0
         self.chunk_calls = 0
         self.evictions = 0
+        self.tier_switches = 0
+        self.downshift_ticks = 0
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0      # prompt tokens served from the index
+        self.cow_copies = 0             # pages privatized by copy-on-write
+        self.reattached_pages = 0       # pages evicted slots got back on resume
+
+    @classmethod
+    def capabilities(cls) -> dict:
+        """Which families this engine serves, its KV layout and features."""
+        return {
+            "engine": cls.__name__,
+            "families": ["dense"],
+            "kv": "paged",
+            "features": {
+                "kv_dtype": ["float32", "bfloat16"],
+                "continuous_batching": True,
+                "deadlines_edf": True,
+                "chunked_prefill": True,
+                "eviction_resume": True,
+                "speculative": False,
+                "elastic_tiers": True,
+                "tier_pressure_controller": True,
+                "prefix_caching": True,
+                "tensor_parallel": False,
+                "multi_tenant_adapters": False,
+            },
+        }
+
+    def stats_snapshot(self) -> dict:
+        """Host-side scheduler counters."""
+        return {"engine": type(self).__name__, "steps": self._steps,
+                "decode_calls": self.decode_calls, "prefill_calls": self.prefill_calls,
+                "chunk_calls": self.chunk_calls}
 
     # ------------------------------------------------------------ intake ---
 
     def submit(self, prompt: list[int], max_new_tokens: int = 16,
-               deadline: float | None = None, submitted_at: float | None = None) -> int:
+               deadline: float | None = None, tier: int | None = None,
+               submitted_at: float | None = None) -> int:
         _validate_request(prompt, max_new_tokens, self.ecfg.max_len)
         need = -(-(len(prompt) + max_new_tokens) // self._bs)
         if need > self.num_blocks:
             raise RequestRejected(f"request needs {need} KV pages but the whole pool "
                                   f"holds {self.num_blocks}")
+        try:
+            tier = self.bank.resolve(0 if tier is None else tier)
+        except ValueError as e:
+            raise RequestRejected(str(e)) from None
         self._uid += 1
         self._queue.append(Request(
-            self._uid, list(prompt), max_new_tokens, deadline=deadline,
+            self._uid, list(prompt), max_new_tokens, deadline=deadline, tier=tier,
             submitted_at=_now() if submitted_at is None else submitted_at))
         return self._uid
 
@@ -282,6 +358,42 @@ class PagedServingEngine:
         self._queue.sort(key=lambda r: (r.deadline is None, r.deadline or 0.0,
                                         -r.evictions, r.uid))
 
+    # ------------------------------------------------------------- tiers ---
+
+    def _effective_tier(self, req: Request) -> int:
+        """Requested tier plus the controller's downshift, clamped to the
+        cheap end of the bank."""
+        return min(req.tier + self._tier_shift, len(self._tier_params) - 1)
+
+    def _update_tier_shift(self):
+        """Integrate page pressure into the downshift before anyone can be
+        evicted. Index-only cached pages count as free: one ``reclaim``
+        away from the pool."""
+        if self.tier_controller is None:
+            return
+        free_like = self.allocator.free_blocks
+        if self._prefix is not None:
+            free_like += self._prefix.reclaimable_pages
+        self._tier_shift = self.tier_controller.update(free_like / self.num_blocks)
+        if self._tier_shift > 0:
+            self.downshift_ticks += 1
+
+    def _refresh_slot_tiers(self):
+        """Recompute each active slot's effective tier: host bookkeeping only,
+        the KV cache carries no tier."""
+        for slot, req in self._active.items():
+            eff = self._effective_tier(req)
+            if eff != self._slot_tier[slot]:
+                self.tier_switches += 1
+                self._slot_tier[slot] = eff
+
+    def _tier_groups(self, slots) -> list[tuple[int, list[int]]]:
+        """Slots grouped by effective tier, ascending."""
+        groups: dict[int, list[int]] = {}
+        for s in slots:
+            groups.setdefault(int(self._slot_tier[s]), []).append(s)
+        return sorted(groups.items())
+
     # ----------------------------------------------------- device programs ---
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -291,12 +403,17 @@ class PagedServingEngine:
         if self._table_dirty:
             self.cache.block_table.copy_(torch.from_numpy(self._table))
             self._table_dirty = False
+        if self._len_reset:
+            slots = np.fromiter(self._len_reset, np.int64)
+            vals = np.fromiter(self._len_reset.values(), np.int32)
+            self.cache.length[self._to_dev(slots)] = self._to_dev(vals)
+            self._len_reset.clear()
         return self.cache
 
-    def _decode(self, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
+    def _decode(self, tier: int, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
         cache = self._device_cache()
-        logits, new = model_lib.decode_step(self.params, self._to_dev(tokens), cache,
-                                            self.cfg)
+        logits, new = model_lib.decode_step(self._tier_params[tier], self._to_dev(tokens),
+                                            cache, self.cfg)
         # only active slots advance; inactive slots wrote a junk row at their
         # frozen position (unmapped pages drop it; the next insert overwrites)
         length = torch.where(self._to_dev(active), new.length, cache.length)
@@ -304,7 +421,7 @@ class PagedServingEngine:
         self.decode_calls += 1
         return logits[:, -1].argmax(-1).cpu().numpy()
 
-    def _chunk_call(self, tokens, counts, starts) -> np.ndarray:
+    def _chunk_call(self, tier: int, tokens, counts, starts) -> np.ndarray:
         """One chunk over all slots: rows with counts > 0 reset their length
         to the host-tracked progress (a fresh slot may inherit a stale device
         length) and insert there; rows with counts == 0 keep their length and
@@ -313,18 +430,20 @@ class PagedServingEngine:
         counts_d = self._to_dev(counts)
         n0 = torch.where(counts_d > 0, self._to_dev(starts), cache.length)
         logits, self.cache = model_lib.chunk_prefill_step(
-            self.params, self._to_dev(tokens), counts_d, cache._replace(length=n0), self.cfg)
+            self._tier_params[tier], self._to_dev(tokens), counts_d,
+            cache._replace(length=n0), self.cfg)
         self.chunk_calls += 1
         last = torch.from_numpy(np.maximum(counts - 1, 0).astype(np.int64)).to(self.device)
         rows = torch.arange(len(counts), device=self.device)
         return logits[rows, last].argmax(-1).cpu().numpy()
 
-    def _prefill_call(self, tokens, lengths, slot_ids, page_map) -> np.ndarray:
+    def _prefill_call(self, tier: int, tokens, lengths, slot_ids, page_map) -> np.ndarray:
         """One-shot prefill of admitted prompts: no-cache forward, whole
         prompt pages scattered into the pool; padded rows drop."""
         cache = self._device_cache()
-        logits, kvs = model_lib._forward(self.params, {"tokens": self._to_dev(tokens)},
-                                         self.cfg, collect_kv=True)
+        logits, kvs = model_lib._forward(self._tier_params[tier],
+                                         {"tokens": self._to_dev(tokens)}, self.cfg,
+                                         collect_kv=True)
         transformer_lib.scatter_prefill_pages(cache, kvs, self._to_dev(page_map))
         keep = slot_ids < self.ecfg.max_slots
         cache.length[self._to_dev(slot_ids[keep].astype(np.int64))] = \
@@ -333,6 +452,18 @@ class PagedServingEngine:
         rows = torch.arange(len(lengths), device=self.device)
         last = self._to_dev((lengths - 1).astype(np.int64))
         return logits[rows, last].argmax(-1).cpu().numpy()
+
+    def _cow_copy(self, pairs: list[tuple[int, int]]):
+        """One page-copy call for this tick's copy-on-write pairs (the block
+        table is already remapped host-side), padded to a power of two with
+        (0, 0) identity pairs as in the JAX engine."""
+        n = 1
+        while n < len(pairs):
+            n *= 2
+        pad = pairs + [(0, 0)] * (n - len(pairs))
+        src = self._to_dev(np.array([p for p, _ in pad], np.int32))
+        dst = self._to_dev(np.array([q for _, q in pad], np.int32))
+        transformer_lib.copy_cache_pages(self.cache, src, dst)
 
     # ------------------------------------------------------------- steps ---
 
@@ -343,62 +474,149 @@ class PagedServingEngine:
         b = min(b, self.ecfg.max_len)
         return min(-(-max(b, self._bs) // self._bs) * self._bs, self._max_len)
 
+    def _alloc(self, n: int) -> list[int] | None:
+        """Pool allocation with the prefix cache as the reclaim tail: when the
+        free list cannot cover ``n``, index-only cached pages are reclaimed
+        LRU first, before any caller evicts a live slot."""
+        pages = self.allocator.alloc(n)
+        if pages is None and self._prefix is not None:
+            self._prefix.reclaim(n - self.allocator.free_blocks)
+            pages = self.allocator.alloc(n)
+        return pages
+
+    def _match(self, req: Request, ptoks: list[int]) -> tuple[list[int], int]:
+        """Prefix-cache lookup at admission: the attachable hit pages and the
+        position ``s0`` prefill resumes at (0 without a hit)."""
+        if self._prefix is None:
+            return [], 0
+        self.prefix_lookups += 1
+        plen = len(ptoks)
+        hit = self._prefix.match(ptoks)
+        if len(hit) < self.ecfg.prefix_min_hit_pages:
+            return [], 0
+        # the last prompt position is always recomputed - its logits give the
+        # first token - so a fully cached prompt resumes at plen - 1 inside its
+        # final hit page
+        s0 = min(len(hit) * self._bs, plen - 1)
+        if self._chunk is not None and plen > self._chunk:
+            # chunk-aligned, so the chunked state machine starts at the hit
+            # boundary and never rewrites a hit page
+            s0 = s0 // self._chunk * self._chunk
+        hit = hit[: -(-s0 // self._bs)]
+        return (hit, s0) if hit else ([], 0)
+
     def _admit(self, free: list[int], done: list[Request]):
         """Admit every queued request that a free slot + free pages cover.
-        Chunked mode reserves the first chunk's pages and hands the slot to
-        ``_prefill_progress``; one-shot mode prefills here."""
+
+        With the prefix cache, matching full pages attach read-only and only
+        the unmatched suffix is prefilled, through the chunk program (the one
+        program that starts at an offset). A fully cached prompt resumes at
+        ``plen - 1`` inside its final hit page: that page is privatized by one
+        batched copy before any program runs. Chunked mode reserves the first
+        chunk's pages and hands the slot to ``_prefill_progress``; one-shot
+        mode prefills here, one call per tier."""
         if not self._queue or not free:
             return
         self._order_queue()
         reserve = self.ecfg.decode_reserve or self._bs
-        admitted: list[tuple[int, Request, list[int], int]] = []
+        admitted: list[tuple[int, Request, list[int], int, int]] = []
+        cow_pairs: list[tuple[int, int]] = []
         while self._queue and free:
             req = self._queue[0]
-            plen = len(req.prompt) + len(req.out_tokens)   # evicted requests resume
-            if self._chunk is not None and plen > self._chunk:
-                want = self._chunk      # first chunk only; the rest reserves as it goes
+            ptoks = req.prompt + req.out_tokens      # evicted requests resume
+            plen = len(ptoks)
+            hit, s0 = self._match(req, ptoks)
+            if self._chunk is not None and plen - s0 > self._chunk:
+                want = s0 + self._chunk  # first chunk only; the rest reserves as it goes
             else:
                 remaining = max(req.max_new_tokens - len(req.out_tokens), 1)
                 want = plen + min(max(reserve, 1), remaining)
-            pages = self.allocator.alloc(min(-(-want // self._bs), self._nb_slot))
-            if pages is None:
+            blocks = min(-(-want // self._bs), self._nb_slot)
+            cow = bool(hit) and s0 % self._bs != 0   # the first write lands in hit[-1]
+            if hit:
+                # pin the hit first: _alloc may reclaim index-only pages
+                self.allocator.share(hit)
+            fresh = self._alloc(max(blocks - len(hit), 0) + (1 if cow else 0))
+            if fresh is None:
+                if hit:
+                    self.allocator.release(hit)
                 break                   # pool full: stay queued
+            pages = list(hit)
+            if cow:
+                copy = fresh.pop()
+                cow_pairs.append((pages[-1], copy))
+                self.allocator.release([pages[-1]])  # the index keeps its own ref
+                pages[-1] = copy
+                self.cow_copies += 1
+            pages += fresh
             self._queue.pop(0)
             slot = free.pop()
             req.admitted_at = _now()
             self._active[slot] = req
+            self._slot_tier[slot] = self._effective_tier(req)
             self._pages[slot] = pages
             self._table[slot, : len(pages)] = pages
             self._table_dirty = True
-            admitted.append((slot, req, pages, plen))
+            if hit:
+                self.prefix_hits += 1
+                self.prefix_hit_tokens += s0
+                if req.evictions:
+                    self.reattached_pages += len(hit)
+                self._len_reset[slot] = s0
+            admitted.append((slot, req, pages, plen, s0))
         if not admitted:
             return
+        if cow_pairs:
+            self._cow_copy(cow_pairs)
         if self._chunk is not None:
-            for slot, _, _, plen in admitted:
-                self._progress[slot] = 0
+            # mid-prefill at the hit boundary; this tick's _prefill_progress
+            # runs the first unmatched chunk
+            for slot, _, _, plen, s0 in admitted:
+                self._progress[slot] = s0
                 self._ptarget[slot] = plen
             return
         s = self.ecfg.max_slots
-        bucket = self._bucket(max(plen for *_, plen in admitted))
-        tokens = np.zeros((s, bucket), np.int32)
-        lengths = np.ones((s,), np.int32)
-        slot_ids = np.full((s,), s, np.int32)
-        page_map = np.full((s, bucket // self._bs), self.num_blocks, np.int32)
-        for i, (slot, req, pages, plen) in enumerate(admitted):
-            tokens[i, :plen] = req.prompt + req.out_tokens
-            lengths[i] = plen
-            slot_ids[i] = slot
-            nblk = -(-plen // self._bs)
-            page_map[i, :nblk] = pages[:nblk]
-        firsts = self._prefill_call(tokens, lengths, slot_ids, page_map)
-        for i, (slot, req, _, _) in enumerate(admitted):
-            req.prefill_emitted += 1
-            self._record(slot, req, int(firsts[i]), free, done)
+        whole = {slot: (req, pages, plen) for slot, req, pages, plen, s0 in admitted if s0 == 0}
+        for tier, slots in self._tier_groups(whole):
+            bucket = self._bucket(max(whole[x][2] for x in slots))
+            tokens = np.zeros((s, bucket), np.int32)
+            lengths = np.ones((s,), np.int32)
+            slot_ids = np.full((s,), s, np.int32)
+            page_map = np.full((s, bucket // self._bs), self.num_blocks, np.int32)
+            for i, slot in enumerate(slots):
+                req, pages, plen = whole[slot]
+                tokens[i, :plen] = req.prompt + req.out_tokens
+                lengths[i] = plen
+                slot_ids[i] = slot
+                nblk = -(-plen // self._bs)
+                page_map[i, :nblk] = pages[:nblk]
+            firsts = self._prefill_call(tier, tokens, lengths, slot_ids, page_map)
+            for i, slot in enumerate(slots):
+                req = whole[slot][0]
+                req.prefill_emitted += 1
+                self._record(slot, req, int(firsts[i]), free, done)
+        # prefix hits prefill only their suffix, through the chunk program
+        hits = {slot: (req, plen, s0) for slot, req, _, plen, s0 in admitted if s0 > 0}
+        for tier, slots in self._tier_groups(hits):
+            width = self._bucket(max(hits[x][1] - hits[x][2] for x in slots))
+            tokens = np.zeros((s, width), np.int32)
+            counts = np.zeros((s,), np.int32)
+            starts = np.zeros((s,), np.int32)
+            for slot in slots:
+                req, plen, s0 = hits[slot]
+                tokens[slot, : plen - s0] = (req.prompt + req.out_tokens)[s0:]
+                counts[slot] = plen - s0
+                starts[slot] = s0
+            firsts = self._chunk_call(tier, tokens, counts, starts)
+            for slot in slots:
+                req = hits[slot][0]
+                req.prefill_emitted += 1
+                self._record(slot, req, int(firsts[slot]), free, done)
 
     def _grow(self, slot: int, need: int) -> bool:
         """Allocate pages one at a time until the slot holds ``need``."""
         while len(self._pages[slot]) < need:
-            page = self.allocator.alloc(1)
+            page = self._alloc(1)
             if page is None:
                 return False
             self._table[slot, len(self._pages[slot])] = page[0]
@@ -407,11 +625,11 @@ class PagedServingEngine:
         return True
 
     def _prefill_progress(self, free: list[int], done: list[Request]):
-        """Advance every mid-prefill slot by ONE chunk in one call. A slot
-        whose chunk cannot get pages stalls at its last completed chunk
-        (prefill growth never evicts); if EVERY active slot is a stalled
-        prefill, the least-progressed one is evicted and the survivors take
-        its pages within this tick."""
+        """Advance every mid-prefill slot by ONE chunk, one call per active
+        tier. A slot whose chunk cannot get pages stalls at its last
+        completed chunk (prefill growth never evicts); if EVERY active slot is
+        a stalled prefill, the least-progressed one is evicted and the
+        survivors take its pages within this tick."""
         if not self._progress:
             return
         reserve = self.ecfg.decode_reserve or self._bs
@@ -437,27 +655,28 @@ class PagedServingEngine:
         if not ready:
             return
         s = self.ecfg.max_slots
-        tokens = np.zeros((s, self._chunk), np.int32)
-        counts = np.zeros((s,), np.int32)
-        starts = np.zeros((s,), np.int32)
-        for slot in ready:
-            req = self._active[slot]
-            p = self._progress[slot]
-            c = min(self._chunk, self._ptarget[slot] - p)
-            tokens[slot, :c] = (req.prompt + req.out_tokens)[p : p + c]
-            counts[slot] = c
-            starts[slot] = p
-        firsts = self._chunk_call(tokens, counts, starts)
-        for slot in ready:
-            req = self._active.get(slot)
-            if req is None:
-                continue
-            self._progress[slot] += int(counts[slot])
-            if self._progress[slot] >= self._ptarget[slot]:
-                del self._progress[slot]
-                del self._ptarget[slot]
-                req.prefill_emitted += 1
-                self._record(slot, req, int(firsts[slot]), free, done)
+        for tier, slots in self._tier_groups(ready):
+            tokens = np.zeros((s, self._chunk), np.int32)
+            counts = np.zeros((s,), np.int32)
+            starts = np.zeros((s,), np.int32)
+            for slot in slots:
+                req = self._active[slot]
+                p = self._progress[slot]
+                c = min(self._chunk, self._ptarget[slot] - p)
+                tokens[slot, :c] = (req.prompt + req.out_tokens)[p : p + c]
+                counts[slot] = c
+                starts[slot] = p
+            firsts = self._chunk_call(tier, tokens, counts, starts)
+            for slot in slots:
+                req = self._active.get(slot)
+                if req is None:
+                    continue
+                self._progress[slot] += int(counts[slot])
+                if self._progress[slot] >= self._ptarget[slot]:
+                    del self._progress[slot]
+                    del self._ptarget[slot]
+                    req.prefill_emitted += 1
+                    self._record(slot, req, int(firsts[slot]), free, done)
 
     def _pre_decode(self, free: list[int]):
         """Grow each decode-phase slot's pages to cover this tick's KV write
@@ -484,22 +703,43 @@ class PagedServingEngine:
             self._active[s].max_new_tokens - len(self._active[s].out_tokens), s))
 
     def _evict(self, slot: int, free: list[int]):
-        """Return the slot's pages and re-queue its request; it re-prefills
-        prompt + generated tokens on re-admission."""
+        """Return the slot's pages and re-queue its request; it resumes by
+        re-prefilling prompt + generated tokens (or reattaching the pages it
+        published to the prefix cache)."""
         req = self._active.pop(slot)
         req.evictions += 1
         req.requeued_at = _now()
         self.evictions += 1
+        self._retire(slot, req)
         self._release(slot)
         self._queue.append(req)
         free.append(slot)
 
+    def _retire(self, slot: int, req: Request):
+        """Publish the slot's full written pages into the prefix cache (on
+        finish and on eviction); their references transfer to the index, so
+        ``_release`` then frees only the exclusive tail."""
+        if self._prefix is None:
+            return
+        pages = self._pages.get(slot)
+        if not pages:
+            return
+        ptoks = req.prompt + req.out_tokens
+        written = self._progress.get(slot, len(ptoks) - 1)
+        n_full = min(written // self._bs, len(pages))
+        if n_full <= 0:
+            return
+        self._prefix.publish(ptoks, pages[:n_full])
+        del pages[:n_full]
+
     def _release(self, slot: int):
         pages = self._pages.pop(slot, None)
         if pages:
+            # release, not free: attached pages fall back to the index
             self.allocator.release(pages)
         self._table[slot, :] = self.num_blocks
         self._table_dirty = True
+        self._len_reset.pop(slot, None)
         self._progress.pop(slot, None)
         self._ptarget.pop(slot, None)
 
@@ -516,16 +756,24 @@ class PagedServingEngine:
             req.done = True
             req.finished_at = now
             done.append(req)
+            self._retire(slot, req)
             del self._active[slot]
             free.append(slot)
             self._release(slot)
 
     def _decode_tick(self, active: np.ndarray, free: list[int], done: list[Request]):
+        """One decode per active tier over the shared cache, each masked to
+        that tier's slots."""
         s = self.ecfg.max_slots
         tokens = np.zeros((s, 1), np.int32)
-        for slot in np.nonzero(active)[0]:
+        decode_slots = [int(x) for x in np.nonzero(active)[0]]
+        for slot in decode_slots:
             tokens[slot, 0] = self._last_token[slot]
-        out = self._decode(tokens, active)
+        out = np.zeros((s,), np.int64)
+        for tier, slots in self._tier_groups(decode_slots):
+            mask = np.zeros((s,), bool)
+            mask[slots] = True
+            out[slots] = self._decode(tier, tokens, mask)[slots]
         for slot, req in list(self._active.items()):
             if slot not in self._progress:
                 self._record(slot, req, int(out[slot]), free, done)
@@ -540,6 +788,8 @@ class PagedServingEngine:
         self._admit(free, done)
         if not self._active:
             return done
+        self._update_tier_shift()
+        self._refresh_slot_tiers()
         self._prefill_progress(free, done)
         self._pre_decode(free)
         active = np.zeros((s,), bool)

@@ -1,18 +1,22 @@
 """Deployment-time SLR parameters (port of ``repro/serving/slr_params.py``).
 
-Formats ported so far:
+Formats:
   * ``dense``    - X_hat = L + S materialized (``core.admm.surrogate_params``)
   * ``factored`` - (p, vt) + COO S; linears run ``(x @ p) @ vt + x @ S``
+  * ``bsr``      - per-layer (p, vt) + block-CSC S through the low-rank and
+                   block-CSC kernels (``kernels/lowrank_matmul.py``,
+                   ``kernels/bsr_matmul.py``), one weight per layer
   * ``fused``    - one kernel per linear site: ``x @ P @ Vt + x @ S`` with
                    layer-stacked block-CSC tables (``kernels/slr_matmul.py``)
-The ``bsr`` format (per-matrix block-CSC through ``bsr_matmul``) and fused
-weights outside a layer stack (``slr_matmul_pallas``) come in a later slice.
+Fused weights outside a layer stack with both parts live need the unstacked
+``slr_matmul_pallas`` kernel, ported with the hybrid family; they raise.
 
 ``deployment_report`` accounts bytes per format with the JAX package's
 conventions (bf16 deploy baseline), so the two reports are equal.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
@@ -23,12 +27,12 @@ from ..core import sparse
 from ..core.admm import SLRState
 from ..core.selection import BlockInfo, path_str
 from ..kernels import ops
-from ..kernels.bsr_matmul import bsr_from_dense
+from ..kernels.bsr_matmul import BsrMatrix, bsr_from_dense
 from ..kernels.slr_matmul import BsrStack, stack_bsr
 from ..tree import tree_leaves_with_path
 
-__all__ = ["SLRLinear", "SLRLayerView", "coo_to_bsr_stack", "build_slr_linears",
-           "deployment_report"]
+__all__ = ["SLRLinear", "SLRLayerView", "coo_to_bsr", "coo_to_bsr_stack",
+           "build_slr_linears", "deployment_report"]
 
 
 @dataclass
@@ -43,33 +47,47 @@ class SLRLinear:
     shape: tuple[int, int]
     s_stack: BsrStack | None = None  # layer-stacked block-CSC (fused format)
     fuse: bool = False               # one fused kernel per apply
+    s_bsr: BsrMatrix | None = None   # per-matrix block-CSC (bsr format)
+    use_kernel: bool = False         # apply through the kernels
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """y = x @ (L + S) for an unstacked (or layer-sliced) weight."""
-        if self.fuse:
-            raise RuntimeError("stacked fused weights apply per layer: take at_layer(l)")
-        if self.p is None and self.s_coo is None:
+        if (self.p is None and self.s_coo is None and self.s_bsr is None
+                and self.s_stack is None):
+            # fully truncated (extreme HPA budgets, or an untrained state)
             return torch.zeros((*x.shape[:-1], self.shape[1]), dtype=x.dtype, device=x.device)
+        flat = x.reshape(-1, x.shape[-1]).contiguous()
+        if self.fuse:
+            if self.s_stack is not None:
+                raise RuntimeError("stacked fused weights apply per layer: take at_layer(l)")
+            y = ops.slr_matmul(flat, self.p, self.vt, self.s_bsr)
+            return y.reshape(*x.shape[:-1], self.shape[1])
         y = 0.0
         if self.p is not None:
-            y = (x @ self.p) @ self.vt
-        if self.s_coo is not None:
+            if self.use_kernel:
+                y = ops.lowrank_matmul(flat, self.p, self.vt).reshape(*x.shape[:-1], -1)
+            else:
+                y = (x @ self.p) @ self.vt
+        if self.s_bsr is not None and self.use_kernel:
+            y = y + ops.bsr_matmul(flat, self.s_bsr).reshape(*x.shape[:-1], self.shape[1])
+        elif self.s_coo is not None:
             y = y + x @ sparse.to_dense(self.s_coo).to(x.dtype)
         return y
 
     def at_layer(self, layer: int):
         """Layer ``layer`` of a stacked weight: an ``SLRLayerView`` for fused
-        weights (the stacked tables stay whole), a sliced ``SLRLinear``
+        weights with stacked tables (they stay whole), a sliced copy
         otherwise."""
-        if self.fuse:
+        if self.fuse and self.s_stack is not None:
             return SLRLayerView(self, layer)
         coo = self.s_coo
         if coo is not None:
             coo = sparse.CooMatrix(coo.values[layer], coo.idx[layer], coo.shape)
-        return SLRLinear(
+        return dataclasses.replace(
+            self,
             p=None if self.p is None else self.p[layer],
             vt=None if self.vt is None else self.vt[layer],
-            s_coo=coo, shape=self.shape,
+            s_coo=coo,
         )
 
     @property
@@ -87,9 +105,10 @@ class SLRLinear:
         if self.p is not None:
             total += self.p.numel() * self.p.element_size()
             total += self.vt.numel() * self.vt.element_size()
-        if self.s_stack is not None:
-            total += self.s_stack.vals.numel() * self.s_stack.vals.element_size()
-            total += self.s_stack.rows.numel() * 4 + self.s_stack.counts.numel() * 4
+        tables = self.s_stack if self.s_stack is not None else self.s_bsr
+        if tables is not None:
+            total += tables.vals.numel() * tables.vals.element_size()
+            total += tables.rows.numel() * 4 + tables.counts.numel() * 4
         elif self.s_coo is not None:
             nnz = int((self.s_coo.idx >= 0).sum())
             total += nnz * (self.s_coo.values.element_size() + 4)
@@ -120,6 +139,15 @@ def _fit_block(n: int, m: int, bsr_block: int) -> int:
     while (n % bs or m % bs) and bs > 8:
         bs //= 2
     return bs
+
+
+def coo_to_bsr(s_coo: sparse.CooMatrix, bsr_block: int) -> BsrMatrix:
+    """Dense-ify an unstacked COO matrix and re-tile it as block-CSC (f32
+    tables, as in the JAX package), on the COO's device. Ragged shapes
+    zero-pad their trailing partial blocks."""
+    dense_s = sparse.to_dense(s_coo).float().cpu().numpy()
+    n, m = dense_s.shape
+    return bsr_from_dense(dense_s, _fit_block(n, m, bsr_block), device=s_coo.values.device)
 
 
 def coo_to_bsr_stack(s_coo: sparse.CooMatrix, bsr_block: int) -> BsrStack:

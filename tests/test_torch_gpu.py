@@ -3,7 +3,8 @@
 Every test here carries the ``gpu`` marker and skips without a CUDA device.
 This file imports no JAX, so it also runs where JAX is absent:
 
-    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q \
+        -o "markers=gpu: needs a CUDA card"
 
 Tolerances: f32 1e-4 (the kernel and the plain version sum in different
 orders); bf16 3e-2 relative to the output scale (inputs rounded to bf16,
@@ -22,6 +23,7 @@ from repro_torch.kernels.bsr_matmul import bsr_from_dense
 from repro_torch.kernels.slr_matmul import stack_bsr
 from repro_torch.models import model as model_lib
 from repro_torch.serving.deployed import DeployedModel
+from repro_torch.serving.elastic import ModelBank
 from repro_torch.serving.engine import EngineConfig, PagedServingEngine
 from repro_torch.tree import tree_map
 
@@ -156,6 +158,76 @@ def test_paged_attention_kquery_matches_plain(cuda, dtype, b, hq, hkv, kq, d, bs
                  ref.paged_attention_kquery_ref(q, kp, vp, table, lengths), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,t,n,m,occ", [
+    (8, 1, 40, 36, 0.5), (16, 8, 64, 48, 0.7), (32, 33, 512, 1376, 0.4),
+    (32, 512, 1376, 512, 1.0), (64, 100, 200, 130, 0.6), (128, 512, 512, 512, 1.0),
+    (128, 3, 512, 512, 0.3),
+])
+def test_bsr_matmul_matches_plain(cuda, dtype, bs, t, n, m, occ):
+    """Every deployed block size, ragged T / n / m and per-column counts below
+    MAXB."""
+    rng = np.random.default_rng(bs * 7 + t)
+    mat = make_stack(rng, 1, n, m, bs, occ, cuda, dtype).at_layer(0)
+    x = torch.from_numpy(rng.standard_normal((t, n), dtype=np.float32)).to(cuda, dtype)
+    before = ops.launch_counts()["bsr_matmul"]
+    got = ops.bsr_matmul(x, mat)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bsr_matmul"] == before + 1
+    assert_close(got, ref.bsr_matmul_ref(x, mat), dtype)
+
+
+def test_bsr_matmul_empty_s_launches_nothing(cuda):
+    rng = np.random.default_rng(0)
+    mat = make_stack(rng, 1, 64, 40, 8, 0.0, cuda, torch.float32).at_layer(0)
+    assert mat.empty
+    ops.reset_launch_counts()
+    got = ops.bsr_matmul(torch.ones((5, 64), device=cuda), mat)
+    assert ops.launch_counts()["bsr_matmul"] == 0 and not bool(got.any())
+
+
+@pytest.mark.parametrize("dtype,tail", [(torch.float32, 64), (torch.bfloat16, 64),
+                                         (torch.int8, 64), (torch.float32, 1)])
+def test_page_copy_matches_plain(cuda, dtype, tail):
+    """Payload pools of each type and the (..., 1) scale pools; page 0 is a
+    real destination while (0, 0) pads ride along."""
+    rng = np.random.default_rng(tail)
+    pool = torch.from_numpy(rng.standard_normal((8, 40, 8, 16, tail), dtype=np.float32) * 50)
+    pool = pool.to(cuda, dtype)
+    src = torch.tensor([5, 9, 13, 0, 0, 0, 0, 0], dtype=torch.int32, device=cuda)
+    dst = torch.tensor([0, 30, 17, 0, 0, 0, 0, 0], dtype=torch.int32, device=cuda)
+    want = ref.page_copy_ref(pool.clone(), src, dst)
+    ops.reset_launch_counts()
+    got = ops.page_copy(pool, src, dst)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == pool.data_ptr()                 # in place
+    assert ops.launch_counts()["page_copy"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,t,s,d,causal", [
+    (2, 4, 2, 16, 16, 32, True), (8, 8, 8, 128, 128, 64, True), (1, 4, 2, 256, 256, 64, False),
+    (8, 8, 8, 512, 512, 64, True), (2, 4, 2, 128, 256, 64, True), (1, 2, 1, 48, 48, 256, True),
+    (3, 6, 3, 100, 100, 128, False),
+])
+def test_flash_attention_matches_plain(cuda, dtype, b, hq, hkv, t, s, d, causal):
+    rng = np.random.default_rng(t + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+               for shape in ((b, hq, t, d), (b, hkv, s, d), (b, hkv, s, d)))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert_close(got, ref.attention_ref(q, k, v, causal=causal, offset=0), dtype)
+
+
+def test_flash_attention_rejects_unpadded_lengths(cuda):
+    q = torch.zeros((1, 2, 200, 16), device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q, q, q)
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     x = torch.zeros((4, 8), device=cuda)
     p = torch.zeros((8, 2), device=cuda)
@@ -203,3 +275,54 @@ def test_engine_streams_on_card_match_cpu(cuda):
                 assert not any(counts.values())
     assert streams["cuda", "roomy"] == streams["cpu", "roomy"]
     assert streams["cuda", "tight"] == streams["cpu", "tight"]
+
+
+COUNTERS = ("evictions", "tier_switches", "downshift_ticks", "prefix_hits",
+            "prefix_hit_tokens", "cow_copies", "reattached_pages")
+
+
+def test_bank_streams_on_card_match_cpu(cuda):
+    """A three-tier bank of the reduced Llama: fused with one-shot prefill on
+    the flash kernel, the prefix cache (a copy-on-write repeat) and the
+    pressure policy on a tight pool; then the bsr format with chunked
+    prefill. Streams and counters on the card equal the CPU's."""
+    cfg = dataclasses.replace(get_arch("salaad_llama_60m").reduced(), kernel_impl="pallas")
+    params = model_lib.init_params(cfg, seed=0, device="cpu")
+    scfg = SalaadConfig(rho_constant=5.0, exact_svd=True)
+    state, blocks = init_slr_state(params, scfg)
+    for step in range(3):
+        state, _ = admm_update(params, state, blocks, scfg, step)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, 256, 16).tolist()
+    prompts = [shared + rng.integers(0, 256, n).tolist() for n in (12, 16, 2, 30, 7)]
+    prompts.append(prompts[1])                       # page-aligned repeat: CoW
+    runs = {
+        "fused": ("fused", EngineConfig(max_slots=3, max_len=64, block_size=8, num_blocks=16,
+                                        prefix_cache=True, tier_policy="pressure")),
+        "bsr": ("bsr", EngineConfig(max_slots=3, max_len=64, block_size=8,
+                                    prefill_chunk=16)),
+    }
+    want = {"fused": ("flash_attention", "page_copy", "paged_attention",
+                      "paged_attention_kquery", "slr_matmul_stacked"),
+            "bsr": ("bsr_matmul", "lowrank_matmul", "paged_attention",
+                    "paged_attention_kquery")}
+    got = {}
+    for dev in ("cpu", "cuda"):
+        moved = tree_map(lambda t: t.to(dev), (params, state))
+        for name, (fmt, ecfg) in runs.items():
+            bank = ModelBank.build(cfg, *moved, blocks, (1.0, 0.6, 0.3), fmt=fmt,
+                                   bsr_block=32)
+            ops.reset_launch_counts()
+            eng = PagedServingEngine(bank, ecfg)
+            for i, pr in enumerate(prompts):
+                eng.submit(pr, max_new_tokens=10, tier=i % 3)
+            streams = {r.uid: r.out_tokens for r in eng.run()}
+            got[dev, name] = (streams, {c: getattr(eng, c) for c in COUNTERS})
+            counts = ops.launch_counts()
+            if dev == "cuda":
+                assert all(counts[k] > 0 for k in want[name]), counts
+            else:
+                assert not any(counts.values())
+    for name in runs:
+        assert got["cuda", name] == got["cpu", name]
+    assert got["cuda", "fused"][1]["cow_copies"] > 0

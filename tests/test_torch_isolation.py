@@ -21,7 +21,9 @@ def test_every_module_imports_with_jax_blocked():
     """Each module imports in a fresh interpreter where ``import jax`` fails."""
     mods = port_modules()
     assert {"repro_torch.kernels.ops", "repro_torch.serving.engine",
-            "repro_torch.bridge"} <= set(mods)
+            "repro_torch.bridge", "repro_torch.core.hpa", "repro_torch.serving.elastic",
+            "repro_torch.serving.prefix_cache", "repro_torch.launch.serve",
+            "repro_torch.kernels.page_copy", "repro_torch.kernels.flash_attention"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"

@@ -144,6 +144,76 @@ def test_paged_attention_kquery_matches_pallas(kq):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("bs,t,k,m,occ", [
+    (8, 3, 40, 36, 0.5), (32, 17, 96, 70, 0.6), (128, 9, 256, 200, 0.7), (32, 5, 64, 64, 0.0),
+])
+def test_bsr_matmul_matches_pallas(bs, t, k, m, occ):
+    """Block sizes 8, 32 and 128, ragged T / n / m, ragged counts, and an
+    empty S (the dispatcher's zero fast path on both sides)."""
+    rng = np.random.default_rng(bs + t)
+    s = block_sparse(rng, k, m, bs, occ)
+    mat, jmat = bsr_from_dense(s, bs), jax_bsr_from_dense(s, bs)
+    assert mat.empty == (occ == 0.0)
+    if not mat.empty:
+        assert int(mat.counts.min()) < mat.rows.shape[1]
+    x = rng.standard_normal((t, k), dtype=np.float32)
+    got = ops.bsr_matmul(torch.from_numpy(x), mat)
+    want = jops.bsr_matmul(jnp.asarray(x), jmat, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "scale"])
+def test_page_copy_matches_pallas(dtype):
+    """Payload pools of each type and the (..., 1) f32 scale pools, with
+    (0, 0) pads; the port copies in place."""
+    rng = np.random.default_rng(4)
+    tail = 1 if dtype == "scale" else 8
+    base = rng.standard_normal((2, 10, 2, 4, tail)).astype(np.float32) * 50
+    np_dt = {"int8": np.int8}.get(dtype, np.float32)
+    pool_np = base.astype(np_dt)
+    src = np.array([3, 7, 0, 0], np.int32)
+    dst = np.array([9, 1, 0, 0], np.int32)
+    jpool = jnp.asarray(pool_np)
+    pool = torch.from_numpy(pool_np.copy())
+    if dtype == "bfloat16":
+        jpool, pool = jpool.astype(jnp.bfloat16), pool.to(torch.bfloat16)
+    want = jops.page_copy(jpool, jnp.asarray(src), jnp.asarray(dst), interpret=True)
+    got = ops.page_copy(pool, torch.from_numpy(src), torch.from_numpy(dst))
+    assert got is pool
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("t,s,causal", [(16, 16, True), (16, 16, False), (128, 128, True),
+                                        (256, 256, True), (256, 256, False), (128, 256, True)])
+def test_flash_attention_matches_pallas(t, s, causal):
+    """GQA group 2; T != S keeps the Pallas kernel's causal alignment."""
+    rng = np.random.default_rng(t + s)
+    q = rng.standard_normal((2, 4, t, 16), dtype=np.float32)
+    k = rng.standard_normal((2, 2, s, 16), dtype=np.float32)
+    v = rng.standard_normal((2, 2, s, 16), dtype=np.float32)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    want = jops.flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_flash_attention_rejects_what_pallas_rejects():
+    q = torch.zeros((1, 2, 200, 16))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ops.flash_attention(q, q, q)
+
+
+def test_unstacked_fused_weight_needs_the_hybrid_slice():
+    """Unstacked slr_matmul: the corners dispatch, both parts live raise."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, 16), dtype=np.float32))
+    mat = bsr_from_dense(block_sparse(rng, 16, 24, 8, 1.0), 8)
+    p, vt = torch.ones((16, 2)), torch.ones((2, 24))
+    torch.testing.assert_close(ops.slr_matmul(x, None, None, mat), ref.bsr_matmul_ref(x, mat))
+    torch.testing.assert_close(ops.slr_matmul(x, p, vt, None), ref.lowrank_matmul_ref(x, p, vt))
+    with pytest.raises(NotImplementedError, match="slr_matmul_pallas"):
+        ops.slr_matmul(x, p, vt, mat)
+
+
 def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     """A CPU tensor runs the plain version without launching; a tensor on any
     other non-CUDA device is refused, never silently computed."""

@@ -127,7 +127,7 @@ def test_deployment_report_equal(trained):
         jax_deployment_report(trained.params, trained.state, trained.blocks)
 
 
-@pytest.mark.parametrize("fmt", ["dense", "factored", "fused"])
+@pytest.mark.parametrize("fmt", ["dense", "factored", "fused", "bsr"])
 def test_deployed_forward_matches_jax(trained, fmt):
     toks = np.array([[3, 1, 4, 1, 5, 9, 2, 6], [5, 3, 5, 8, 9, 7, 9, 3]], np.int32)
     got = DeployedModel.build(trained.tcfg, trained.tparams, trained.tstate,
@@ -140,9 +140,21 @@ def test_deployed_forward_matches_jax(trained, fmt):
 
 
 def test_bsr_format_is_a_later_slice(trained):
-    with pytest.raises(NotImplementedError, match="bsr_matmul"):
-        DeployedModel.build(trained.tcfg, trained.tparams, trained.tstate,
-                            trained.tblocks, fmt="bsr")
+    """The bsr format builds (per-layer weights on the low-rank and block-CSC
+    kernels); what stays for a later slice is a fused weight outside a layer
+    stack with both parts live, which needs slr_matmul_pallas."""
+    dm = DeployedModel.build(trained.tcfg, trained.tparams, trained.tstate,
+                             trained.tblocks, fmt="bsr", bsr_block=32)
+    layers = dm.params["layers"]
+    assert isinstance(layers, list) and len(layers) == trained.tcfg.num_layers
+    assert layers[0]["q"].use_kernel and layers[0]["q"].s_bsr.block_size == 32
+    gate = DeployedModel.build(trained.tcfg, trained.tparams, trained.tstate,
+                               trained.tblocks, fmt="fused").params["layers"]["gate"]
+    unstacked = dataclasses.replace(gate.at_layer(0).lin, s_stack=None,
+                                    s_bsr=gate.s_stack.at_layer(0), p=gate.p[0],
+                                    vt=gate.vt[0])
+    with pytest.raises(NotImplementedError, match="slr_matmul_pallas"):
+        unstacked.apply(torch.zeros((2, gate.shape[0])))
 
 
 # ---------------------------------------------------------------- models ---
@@ -251,16 +263,21 @@ def test_oneshot_prefill_streams_match_jax(trained):
 
 
 def test_pallas_needs_chunked_prefill(trained):
+    """Under kernel_impl='pallas' one-shot prefill now runs the flash kernel,
+    so chunked prefill is no longer needed; the paged kernels still need the
+    KV pages in the model's dtype."""
     tcfg = dataclasses.replace(trained.tcfg, kernel_impl="pallas")
     dm = DeployedModel.build(tcfg, trained.tparams, trained.tstate, trained.tblocks,
                              fmt="factored")
-    with pytest.raises(ValueError, match="prefill_chunk"):
-        PagedServingEngine(dm, EngineConfig(max_slots=2, max_len=64, block_size=8))
+    eng = PagedServingEngine(dm, EngineConfig(max_slots=2, max_len=64, block_size=8))
+    eng.submit([3, 1, 4], max_new_tokens=2)
+    assert len(eng.run()) == 1 and eng.prefill_calls == 1 and eng.chunk_calls == 0
+    with pytest.raises(ValueError, match="kv_dtype"):
+        PagedServingEngine(dm, EngineConfig(kv_dtype="bfloat16"))
 
 
 @pytest.mark.parametrize("field,value,name", [
-    ("greedy", False, "sampling"), ("prefix_cache", True, "prefix_cache"),
-    ("tier_policy", "pressure", "elastic tiers"), ("spec_k", 3, "speculative"),
+    ("greedy", False, "sampling"), ("spec_k", 3, "speculative"),
     ("mesh", "model=2", "tensor-parallel"), ("adapters", True, "adapters"),
     ("telemetry", True, "telemetry"), ("trace", True, "tracer"),
     ("kv_dtype", "int8", "int8"),
@@ -272,7 +289,8 @@ def test_later_slice_features_raise(field, value, name):
 
 @pytest.mark.parametrize("kw", [dict(max_slots=0), dict(block_size=8, prefill_chunk=12),
                                 dict(num_blocks=0), dict(evict_policy="fifo"),
-                                dict(kv_dtype="float16"), dict(decode_reserve=0)])
+                                dict(kv_dtype="float16"), dict(decode_reserve=0),
+                                dict(prefix_min_hit_pages=0), dict(tier_policy="fifo")])
 def test_engine_config_rejects_bad_values(kw):
     with pytest.raises(ValueError):
         EngineConfig(**kw)
