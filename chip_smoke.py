@@ -13,8 +13,10 @@ error:
    SLR state from ``init_slr_state`` + exact-SVD ``admm_update`` steps,
    deployed in the ``fused`` format, and the HPA spectrum
    ``ModelBank.build(budgets=(1.0, 0.6, 0.3), kappa=0.7)`` in the ``fused``
-   and ``bsr`` formats over the same base parameters;
-3. kernels: each of the seven kernels against its plain PyTorch version on
+   and ``bsr`` formats over the same base parameters, and an ``AdapterBank``
+   of four tenants (HPA keeps 1.0 / 0.8 / 0.6 / 0.4 of the same state, each
+   adapterized onto the keep-1.0 base) with three device pool rows;
+3. kernels: each of the eight kernels against its plain PyTorch version on
    the card, at the main path's shapes (f32 and bf16) and at ragged shapes,
    then timed with CUDA events beside its plain version, a one-call PyTorch
    yardstick and its bound (bytes over 3.35 TB/s or f32 operations over
@@ -32,8 +34,15 @@ error:
       launch;
    c. the single fused model of the first slice serves 16 requests with
       chunked prefill of 64;
-   d. ``python -m repro_torch.launch.serve`` runs once and prints its line;
+   d. ``python -m repro_torch.launch.serve`` runs once as a bank and once
+      with ``--adapters 3 --max-resident-adapters 2``, and prints its lines;
    e. run (a) again under torch.profiler: device busy time and idle share;
+   f. the adapter bank serves 24 greedy requests round-robin over its four
+      tenants (the prompts of (a), one-shot prefill, the prefix cache, 8
+      slots) in ``batched`` mode: the per-slot SLR kernel must launch, and
+      the run must show LRU swaps and prefix hits; every stream must equal
+      the same request served alone through a plain ModelBank of its tenant,
+      and a ``grouped``-mode run of the same bank must give the same streams;
 5. parity: the first one-shot prefill's, the first chunk's and the first
    decode tick's logits on the card against the same model on the CPU.
 
@@ -61,6 +70,8 @@ N_BSR = 8                        # the bsr bank's run
 MAX_NEW = 32
 BUDGETS = (1.0, 0.6, 0.3)
 BANK_PAGES = 128                 # of the 256 a full pool of 8 x 512 tokens holds
+ADAPTER_KEEPS = (1.0, 0.8, 0.6, 0.4)   # the adapter bank's tenants
+ADAPTER_ROWS = 3                       # device pool rows: fewer than tenants, so LRU swaps
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # relative to the output's max |value|
@@ -129,7 +140,9 @@ def main() -> None:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.bsr_matmul import bsr_from_dense, bsr_to_dense
     from repro_torch.launch.serve import serve_batch
+    from repro_torch.core.hpa import hpa_keep_ratio
     from repro_torch.models import model as model_lib
+    from repro_torch.serving.adapters import AdapterBank, adapterize
     from repro_torch.serving.deployed import DeployedModel
     from repro_torch.serving.elastic import ModelBank
     from repro_torch.serving.engine import EngineConfig, PagedServingEngine
@@ -178,6 +191,16 @@ def main() -> None:
               f"{json.dumps(bank.report())}")
         if bank.shared_base_bytes() <= 0:
             fail(f"the {fmt} bank's tiers share no base leaves")
+    t0 = time.perf_counter()
+    tenant_models = [DeployedModel.build(cfg, params, hpa_keep_ratio(state, blocks, k, 0.7)[0],
+                                         blocks, fmt="fused") for k in ADAPTER_KEEPS]
+    tenants = [adapterize(tenant_models[0], m) for m in tenant_models]
+    adapter_bank = AdapterBank(tenant_models[0], tenants,
+                               names=[f"keep={k:g}" for k in ADAPTER_KEEPS],
+                               max_resident=ADAPTER_ROWS).materialize()
+    torch.cuda.synchronize()
+    print(f"adapter bank (built in {time.perf_counter() - t0:.3f} s): "
+          f"{json.dumps(adapter_bank.adapter_report())}")
 
     # ---- 3. kernels against their plain versions, then timed ----------------
     rng = np.random.default_rng(SEED)
@@ -467,6 +490,92 @@ def main() -> None:
             (slice(None), dst8.long()), pool[:, src8.long()])),
         bound=bound_ms(2 * 8 * cfg.num_layers * page_bytes + 2 * 8 * 4, 0),
     )
+    # 3h. per-slot SLR matmul over every site's pooled tables (3 rows of
+    # (adapter, layer) tables): 8 slots with repeated and permuted pool rows,
+    # T = 1, 8, 37, 64 per slot, f32 and bf16, the r = 0 and empty-S corners,
+    # and each slot bit for bit against the stacked kernel on its own rows
+    from repro_torch.serving.adapters import AdapterizedLinear
+    pooled = {k: v for k, v in adapter_bank.params(0)["layers"].items()
+              if isinstance(v, AdapterizedLinear)}
+    if sorted(pooled) != sorted(sites):
+        fail(f"expected 7 pooled sites, got {sorted(pooled)}")
+    ids_np = np.array([2, 0, 1, 1, 0, 2, 2, 0], np.int32)
+    ids = torch.from_numpy(ids_np).to(dev)
+    nl = cfg.num_layers
+    multi_err = 0.0
+    for name, lin in sorted(pooled.items()):
+        k_s = lin.shape[0]
+        for t_dim in (1, 8, 37, 64):
+            x = rand(8, t_dim, k_s)
+            multi_err = max(multi_err, check(
+                f"slr_matmul_multi {name} T={t_dim}",
+                ops.slr_matmul_multi(x, lin.p, lin.vt, lin.s_stack, ids, nl, lay),
+                ref.slr_matmul_multi_ref(x, lin.p, lin.vt, lin.s_stack, ids, nl, lay),
+                torch.float32))
+        x = rand(8, 37, k_s)
+        s_bf = dataclasses.replace(lin.s_stack, vals=bf(lin.s_stack.vals))
+        check(f"slr_matmul_multi {name} T=37", ops.slr_matmul_multi(
+            bf(x), bf(lin.p), bf(lin.vt), s_bf, ids, nl, lay), ref.slr_matmul_multi_ref(
+            bf(x), bf(lin.p), bf(lin.vt), s_bf, ids, nl, lay), torch.bfloat16)
+        zp = torch.zeros_like(lin.p[..., :1])
+        zvt = torch.zeros_like(lin.vt[:, :1])
+        multi_err = max(multi_err, check(
+            f"slr_matmul_multi {name} T=8 r=0 corner",
+            ops.slr_matmul_multi(x[:, :8].contiguous(), None, None, lin.s_stack, ids, nl, lay),
+            ref.slr_matmul_multi_ref(x[:, :8], zp, zvt, lin.s_stack, ids, nl, lay),
+            torch.float32))
+        multi_err = max(multi_err, check(
+            f"slr_matmul_multi {name} T=8 empty-S corner",
+            ops.slr_matmul_multi(x[:, :8].contiguous(), lin.p, lin.vt, None, ids, nl, lay),
+            ref.slr_matmul_multi_ref(x[:, :8], lin.p, lin.vt, None, ids, nl, lay),
+            torch.float32))
+        y = ops.slr_matmul_multi(x, lin.p, lin.vt, lin.s_stack, ids, nl, lay)
+        for b in range(8):
+            if not torch.equal(y[b], ops.slr_matmul_stacked(
+                    x[b].contiguous(), lin.p, lin.vt, lin.s_stack, int(ids_np[b]) * nl + lay)):
+                fail(f"slr_matmul_multi {name}: slot {b} differs from the stacked kernel")
+    print("  check slr_matmul_multi: every slot equals the stacked kernel on its rows, "
+          "bit for bit")
+
+    def multi_timing(name, t_dim):
+        """(ms, plain ms, library ms, bound) of one per-slot call on site
+        ``name`` with 8 slots of ``t_dim`` rows over 3 distinct pool rows.
+        Bound: x and y once, and each distinct row's P, Vt, live S tiles,
+        counts and rows once; operations per slot for its row's live tiles.
+        Library: torch.bmm over the slots' dense W, gathered beforehand."""
+        lin = pooled[name]
+        k_s, m_s = lin.shape
+        r_s, bs_s = lin.p.shape[-1], lin.s_stack.block_size
+        x = rand(8, t_dim, k_s)
+        tabs = ids_np.astype(np.int64) * nl + lay
+        live = {int(t): int(lin.s_stack.counts[t].sum()) for t in set(tabs.tolist())}
+        w_rows = {t: (lin.p[t] @ lin.vt[t] + bsr_to_dense(lin.s_stack.at_layer(t))).contiguous()
+                  for t in live}
+        w_g = torch.stack([w_rows[int(t)] for t in tabs]).contiguous()
+        jb_s = lin.s_stack.counts.shape[1]
+        nbytes = 4 * (8 * t_dim * (k_s + m_s) + 8) + sum(
+            4 * (k_s * r_s + r_s * m_s + n * bs_s * bs_s + jb_s + n) for n in live.values())
+        flops = sum(2 * t_dim * (k_s * r_s + r_s * m_s + live[int(t)] * bs_s * bs_s)
+                    for t in tabs)
+        return (time_ms(torch, lambda: ops.slr_matmul_multi(x, lin.p, lin.vt, lin.s_stack,
+                                                            ids, nl, lay)),
+                time_ms(torch, lambda: ref.slr_matmul_multi_ref(x, lin.p, lin.vt, lin.s_stack,
+                                                                ids, nl, lay), iters=10),
+                time_ms(torch, lambda: torch.bmm(x, w_g)),
+                bound_ms(nbytes, flops))
+
+    multi_rows = {f"slr_matmul_multi {n} 8 slots x T={t}": multi_timing(n, t)
+                  for n, t in (("q", 1), ("gate", 1), ("gate", 64))}
+    ms_, plain_, lib_, bnd_ = multi_rows["slr_matmul_multi gate 8 slots x T=1"]
+    results["slr_matmul_multi"] = dict(
+        shape=f"gate site, decode tick: 8 slots x T=1 over 3 pool rows, r="
+              f"{pooled['gate'].p.shape[-1]} bs={pooled['gate'].s_stack.block_size}",
+        max_abs_err=multi_err, ms=ms_, plain_ms=plain_, library_ms=lib_, bound=bnd_)
+    for name, (ms_, plain_, lib_, bnd_) in multi_rows.items():
+        print(f"  time {name}: kernel {ms_:.4f} ms, plain {plain_:.4f} ms, library "
+              f"{lib_:.4f} ms (torch.bmm, gathered dense W), bound {bnd_[0]:.4f} ms "
+              f"({bnd_[1]})")
+
     for name, r_ in results.items():
         print(f"  time {name} ({r_['shape']}): kernel {r_['ms']:.4f} ms, plain "
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, bound "
@@ -532,39 +641,133 @@ def main() -> None:
           ("slr_matmul_stacked", "paged_attention", "paged_attention_kquery"))
 
     cli = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "salaad_llama_60m",
-           "--keep-ratios", ",".join(map(str, BUDGETS)), "--fmt", "fused", "--prefix-cache",
-           "--tier-policy", "pressure"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cli, capture_output=True, text=True, timeout=600, cwd=ROOT,
-                          env={**os.environ, "PYTHONPATH": str(SRC)})
-    if proc.returncode:
-        fail(f"the serve launcher failed:\n{proc.stderr[-3000:]}")
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
-    if line["requests"] != 4 or line["tokens"] != 32 or "jit_retraces" in line:
-        fail(f"the serve launcher's line is off: {line}")
-    print(f"main path 4d launcher ({time.perf_counter() - t0:.1f} s): {json.dumps(line)}")
+           "--fmt", "fused"]
+    for extra in (["--keep-ratios", ",".join(map(str, BUDGETS)), "--prefix-cache",
+                   "--tier-policy", "pressure"],
+                  ["--adapters", "3", "--max-resident-adapters", "2"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cli + extra, capture_output=True, text=True, timeout=600,
+                              cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)})
+        if proc.returncode:
+            fail(f"the serve launcher failed:\n{proc.stderr[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        if line["requests"] != 4 or line["tokens"] != 32 or "jit_retraces" in line:
+            fail(f"the serve launcher's line is off: {line}")
+        if "--adapters" in extra and (line["adapters"]["swaps"] < 1
+                                      or sorted(line["tokens_by_adapter"]) != ["0", "1", "2"]):
+            fail(f"the adapter launcher's line is off: {line}")
+        print(f"main path 4d launcher {' '.join(extra)} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(line)}")
 
-    # 4e. where the time goes: the fused bank run under torch.profiler
+    # 4e. where the time goes: a run under torch.profiler (here 4a; 4f's
+    # batched run below)
     from torch.profiler import ProfilerActivity, profile
 
-    engine = PagedServingEngine(banks["fused"], bank_ecfg)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve_batch(engine, cfg.vocab_size, len(prompts), MAX_NEW, SEED,
-                    tiers=tuple(range(len(BUDGETS))), prompts=prompts)
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    device_events = [e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3
-    if busy_ms > 0:
-        print(f"profile 4a: wall {wall_prof * 1e3:.1f} ms under the profiler, device busy "
-              f"{busy_ms:.1f} ms, idle share {1 - busy_ms / (wall_prof * 1e3):.3f}")
+    def profiled(label: str, run) -> None:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - t0
+        device_events = [e for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3
+        if busy_ms <= 0:
+            print(f"profile {label}: the profiler recorded no device time (not measured)")
+            return
+        print(f"profile {label}: wall {wall_prof * 1e3:.1f} ms under the profiler, device "
+              f"busy {busy_ms:.1f} ms, idle share {1 - busy_ms / (wall_prof * 1e3):.3f}")
         for e in sorted(device_events, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"  device {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  "
                   f"{e.key[:90]}")
-    else:
-        print("profile: the profiler recorded no device time (not measured)")
+
+    engine = PagedServingEngine(banks["fused"], bank_ecfg)
+    profiled("4a", lambda: serve_batch(engine, cfg.vocab_size, len(prompts), MAX_NEW, SEED,
+                                       tiers=tuple(range(len(BUDGETS))), prompts=prompts))
+
+    # 4f. multi-tenant adapters: the adapter bank in batched mode (one decode
+    # call per tick over slots of different tenants), then the same bank's
+    # tenants each served alone through a plain ModelBank, then grouped mode
+    n_ten = len(ADAPTER_KEEPS)
+    ad_ecfg = dict(max_slots=8, max_len=512, block_size=16, prefix_cache=True)
+
+    def serve_adapters(label, bank) -> tuple[dict, dict, dict]:
+        engine = PagedServingEngine(bank, EngineConfig(**ad_ecfg, adapters=True,
+                                                       max_resident_adapters=ADAPTER_ROWS))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        swaps0 = bank.swaps
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        uids = [engine.submit(p, max_new_tokens=MAX_NEW, adapter=i % n_ten)
+                for i, p in enumerate(prompts)]
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        streams = {r.uid: list(r.out_tokens) for r in done}
+        if sorted(streams) != uids or any(len(v) != MAX_NEW for v in streams.values()):
+            fail(f"{label}: finished {len(streams)} of {len(uids)} requests")
+        if not all(0 <= t < cfg.vocab_size for v in streams.values() for t in v):
+            fail(f"{label}: generated token outside the vocabulary")
+        ttft = [r.first_token_at - r.submitted_at for r in done]
+        stats = {"tok_per_s": round(len(done) * MAX_NEW / wall, 2),
+                 "ttft_p50_ms": round(float(np.percentile(ttft, 50)) * 1e3, 1),
+                 "peak_mib": round(peak, 1), "swaps": bank.swaps - swaps0,
+                 "prefix_hits": engine.prefix_hits, "prefix_hit_tokens":
+                 engine.prefix_hit_tokens, "tokens_by_adapter": engine.adapter_tokens,
+                 "ticks": engine._steps, "prefill_calls": engine.prefill_calls,
+                 "chunk_calls": engine.chunk_calls, "decode_calls": engine.decode_calls,
+                 "pool_bytes": bank.adapter_report()["pool_bytes"]}
+        print(f"main path {label}: {len(done)} requests over {n_ten} tenants, "
+              f"{len(done) * MAX_NEW} tokens = {stats['tok_per_s']} tok/s; median TTFT "
+              f"{stats['ttft_p50_ms']} ms; peak memory {peak:.1f} MiB; pool "
+              f"{stats['pool_bytes']} B")
+        print(f"  stats: {json.dumps(stats)}")
+        print(f"  launch counts: {json.dumps(counts)}")
+        return streams, stats, counts
+
+    ad_streams, ad_stats, adapter_counts = serve_adapters("4f adapter bank, batched",
+                                                          adapter_bank)
+    if adapter_counts["slr_matmul_multi"] < 1 or ad_stats["swaps"] < 1 \
+            or ad_stats["prefix_hits"] < 1:
+        fail(f"the adapter run needs per-slot kernel launches, swaps and prefix hits: "
+             f"{ad_stats}, {adapter_counts}")
+    alone: dict[int, list[int]] = {}
+    t0 = time.perf_counter()
+    for a in range(n_ten):
+        engine = PagedServingEngine(ModelBank.single(cfg, tenants[a]),
+                                    EngineConfig(**{**ad_ecfg, "prefix_cache": False}))
+        for i in range(a, len(prompts), n_ten):
+            engine.submit(prompts[i], max_new_tokens=MAX_NEW)
+            (req,) = engine.run()
+            alone[i + 1] = req.out_tokens       # uid of request i in the adapter runs
+    torch.cuda.synchronize()
+    differ = [u for u in ad_streams if ad_streams[u] != alone[u]]
+    print(f"  streams vs each request alone through its tenant's ModelBank "
+          f"({time.perf_counter() - t0:.1f} s): {len(ad_streams) - len(differ)} of "
+          f"{len(ad_streams)} token-identical")
+    if differ:
+        fail(f"adapter streams differ from their single-tenant runs for requests {differ}")
+    grouped_bank = AdapterBank(tenant_models[0], tenants, max_resident=ADAPTER_ROWS,
+                               mode="grouped")
+    g_streams, _, g_counts = serve_adapters("4f adapter bank, grouped", grouped_bank)
+    if g_streams != ad_streams:
+        fail("the grouped-mode streams differ from the batched-mode streams")
+    if g_counts["slr_matmul_stacked"] < 1 or g_counts["slr_matmul_multi"]:
+        fail(f"grouped mode runs the stacked kernel per adapter: {g_counts}")
+    print("  grouped-mode streams equal the batched-mode streams")
+    del grouped_bank
+    engine = PagedServingEngine(adapter_bank, EngineConfig(
+        **ad_ecfg, adapters=True, max_resident_adapters=ADAPTER_ROWS))
+
+    def adapter_run():
+        for i, p in enumerate(prompts):
+            engine.submit(p, max_new_tokens=MAX_NEW, adapter=i % n_ten)
+        engine.run()
+
+    profiled("4f batched", adapter_run)
 
     # ---- 5. first one-shot prefill, chunk and decode tick: card vs CPU -----------
     cpu_params, cpu_state = tree_map(lambda t: t.cpu(), (params, state))
@@ -616,6 +819,8 @@ def main() -> None:
     meta = {
         "slr_matmul_stacked": ("src/repro_torch/kernels/csrc/slr_matmul.cu",
                                "src/repro/kernels/slr_matmul.py:316"),
+        "slr_matmul_multi": ("src/repro_torch/kernels/csrc/slr_matmul.cu",
+                             "src/repro/kernels/slr_matmul.py:448"),
         "lowrank_matmul": ("src/repro_torch/kernels/csrc/slr_matmul.cu",
                            "src/repro/kernels/lowrank_matmul.py:55"),
         "bsr_matmul": ("src/repro_torch/kernels/csrc/bsr_matmul.cu",
@@ -634,7 +839,7 @@ def main() -> None:
         r_ = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": fused_counts[name] + bsr_counts[name],
+            "launches": fused_counts[name] + bsr_counts[name] + adapter_counts[name],
             "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
             "plain_ms": r_["plain_ms"], "bound_ms": r_["bound"][0],
             "bound_by": r_["bound"][1], "library_ms": r_["library_ms"],

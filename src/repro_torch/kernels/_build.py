@@ -41,6 +41,9 @@ SIGNATURES = {
     "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
     # x, p, vt, counts, rows, vals, y, T, K, M, r, layer, JB, MAXB, bs, bt, dtype, stream
     "slr_matmul_stacked_launch": [_P] * 7 + [_I] * 10 + [_P],
+    # x, p, vt, counts, rows, vals, ids, y, B, T, K, M, r, layers, layer, N, JB, MAXB, bs,
+    # bt, dtype, stream
+    "slr_matmul_multi_launch": [_P] * 8 + [_I] * 13 + [_P],
     # x, p, vt, y, T, K, M, r, bt, dtype, stream
     "lowrank_matmul_launch": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, table, lengths, out, B, Hq, Hkv, D, N, bs, nb, dtype, stream

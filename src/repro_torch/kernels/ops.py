@@ -16,11 +16,14 @@ from .flash_attention import flash_attention
 from .lowrank_matmul import lowrank_matmul
 from .page_copy import page_copy
 from .paged_attention import paged_attention, paged_attention_kquery
-from .slr_matmul import BsrStack, slr_matmul_stacked as _slr_matmul_stacked_kernel
+from .slr_matmul import BsrStack
+from .slr_matmul import slr_matmul_multi as _slr_matmul_multi_kernel
+from .slr_matmul import slr_matmul_stacked as _slr_matmul_stacked_kernel
 
 __all__ = [
     "slr_matmul",
     "slr_matmul_stacked",
+    "slr_matmul_multi",
     "lowrank_matmul",
     "bsr_matmul",
     "paged_attention",
@@ -35,6 +38,7 @@ __all__ = [
 # kernel name -> wrapper holding its launch count
 KERNELS = {
     "slr_matmul_stacked": _slr_matmul_stacked_kernel,
+    "slr_matmul_multi": _slr_matmul_multi_kernel,
     "lowrank_matmul": lowrank_matmul,
     "bsr_matmul": _bsr_matmul_kernel,
     "paged_attention": paged_attention,
@@ -101,3 +105,26 @@ def slr_matmul_stacked(x: torch.Tensor, p, vt, stack: BsrStack | None,
         p = torch.zeros((num_l, x.shape[1], 1), dtype=x.dtype, device=x.device)
         vt = torch.zeros((num_l, 1, stack.shape[1]), dtype=x.dtype, device=x.device)
     return _slr_matmul_stacked_kernel(x, p, vt, stack, layer)
+
+
+def slr_matmul_multi(x: torch.Tensor, p, vt, stack: BsrStack | None, ids: torch.Tensor,
+                     layers: int = 1, layer: int = 0) -> torch.Tensor:
+    """Per-slot fused SLR matmul: slot ``b`` of x (B, T, K) runs table row
+    ``ids[b] * layers + layer`` of the pooled tables, with the corners of the
+    JAX dispatcher mirrored op for op, so each slot runs exactly what the
+    single-tenant tier runs: no factors and no S give zeros; an empty S is
+    the low-rank product per slot (one launch of the kernel's low-rank
+    instance, whose rows equal ``lowrank_matmul``'s); r == 0 with a live S
+    runs the fused kernel with rank-1 zero factors."""
+    r = 0 if p is None else p.shape[-1]
+    empty_s = stack is None or stack.empty
+    if empty_s and r == 0:
+        m = vt.shape[-1] if vt is not None else stack.shape[1]
+        return torch.zeros((*x.shape[:2], m), dtype=x.dtype, device=x.device)
+    if empty_s:
+        return _slr_matmul_multi_kernel(x, p, vt, None, ids, layers, layer)
+    if r == 0:
+        n_tab = stack.num_layers
+        p = torch.zeros((n_tab, x.shape[2], 1), dtype=x.dtype, device=x.device)
+        vt = torch.zeros((n_tab, 1, stack.shape[1]), dtype=x.dtype, device=x.device)
+    return _slr_matmul_multi_kernel(x, p, vt, stack, ids, layers, layer)

@@ -19,6 +19,7 @@ __all__ = [
     "bsr_matmul_ref",
     "slr_matmul_ref",
     "slr_matmul_stacked_ref",
+    "slr_matmul_multi_ref",
     "paged_attention_ref",
     "paged_attention_kquery_ref",
     "page_copy_ref",
@@ -57,6 +58,27 @@ def slr_matmul_stacked_ref(x: torch.Tensor, p, vt, stack, layer: int) -> torch.T
     bsr = None if stack is None or stack.empty else stack.at_layer(layer)
     return slr_matmul_ref(x, None if p is None else p[layer],
                           None if vt is None else vt[layer], bsr)
+
+
+def slr_matmul_multi_ref(x: torch.Tensor, p, vt, stack, ids, layers: int = 1,
+                         layer: int = 0) -> torch.Tensor:
+    """Slot ``b`` of x (B, T, K) runs the stacked oracle on table row
+    ``ids[b] * layers + layer``. Slots that share a row run as one batch of
+    rows (each row's value is the same either way); ``stack=None`` is the
+    empty-S corner, the low-rank oracle per row."""
+    b_dim, t_dim, k_dim = x.shape
+    tabs = (ids.long() * layers + layer).tolist()
+    m = vt.shape[-1] if vt is not None else stack.shape[1]
+    y = torch.empty((b_dim, t_dim, m), dtype=x.dtype, device=x.device)
+    for tab in sorted(set(tabs)):
+        sel = torch.tensor([b for b, t in enumerate(tabs) if t == tab], device=x.device)
+        rows = x[sel].reshape(-1, k_dim)
+        if stack is None:
+            out = lowrank_matmul_ref(rows, p[tab], vt[tab])
+        else:
+            out = slr_matmul_stacked_ref(rows, p, vt, stack, tab)
+        y[sel] = out.reshape(len(sel), t_dim, m)
+    return y
 
 
 def _gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,10 @@
 ``shape`` is the per-layer original dense (n, m); ``empty`` means no layer
 holds a live block.
 
-``slr_matmul_stacked`` runs the plain version for CPU tensors and the CUDA
-kernel ``csrc/slr_matmul.cu`` for CUDA tensors. The unstacked
-``slr_matmul_pallas`` and the multi-adapter kernel are later slices.
+``slr_matmul_stacked`` and ``slr_matmul_multi`` (per-slot tables, the port of
+``slr_matmul_multi_pallas``) run the plain version for CPU tensors and the
+CUDA kernel ``csrc/slr_matmul.cu`` for CUDA tensors. The unstacked
+``slr_matmul_pallas`` comes with the hybrid family.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from . import ref
 from ._build import check_cuda, dtype_code, launch
 from .bsr_matmul import BLOCK_SIZES, MAX_ROW_TILE, BsrMatrix, row_tile
 
-__all__ = ["BsrStack", "stack_bsr", "row_tile", "slr_matmul_stacked", "BLOCK_SIZES"]
+__all__ = ["BsrStack", "stack_bsr", "row_tile", "slr_matmul_stacked", "slr_matmul_multi",
+           "BLOCK_SIZES"]
 
 
 @dataclass(frozen=True)
@@ -121,3 +123,70 @@ def slr_matmul_stacked(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
 
 
 slr_matmul_stacked.launches = 0
+
+
+def slr_matmul_multi(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
+                     stack: BsrStack | None, ids: torch.Tensor, layers: int = 1,
+                     layer: int = 0) -> torch.Tensor:
+    """Per-slot fused SLR matmul: slot ``b`` of x (B, T, K) runs table row
+    ``ids[b] * layers + layer`` of p (N, K, r), vt (N, r, M) and ``stack``
+    (leading N) -> y (B, T, M) in x.dtype. ``stack=None`` runs the low-rank
+    instance of the kernel (the empty-S corner). ``ids`` (B,) int32 stays on
+    the device: the kernel reads it, so no slot assignment costs a host sync.
+    ``layers``/``layer`` select a layer inside pooled (adapter, layer) rows
+    as launch scalars."""
+    if x.device.type == "cpu":
+        return ref.slr_matmul_multi_ref(x, p, vt, stack, ids, layers, layer)
+    name = "slr_matmul_multi"
+    tabs = {} if stack is None else dict(counts=stack.counts, rows=stack.rows,
+                                         vals=stack.vals)
+    dev = check_cuda(name, x=x, p=p, vt=vt, ids=ids, **tabs)
+    code = dtype_code(x.dtype)
+    dtypes = {x.dtype, p.dtype, vt.dtype} | ({stack.vals.dtype} if stack is not None else set())
+    if len(dtypes) != 1:
+        raise TypeError(f"{name}: x, p, vt and vals must share one dtype, got "
+                        f"{sorted(map(str, dtypes))}")
+    if ids.dtype != torch.int32 or (stack is not None and (
+            stack.counts.dtype != torch.int32 or stack.rows.dtype != torch.int32)):
+        raise TypeError(f"{name}: ids, counts and rows must be int32")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (B, T, K), got {tuple(x.shape)}")
+    b_dim, t_dim, k_dim = x.shape
+    n_tab, _, r = p.shape
+    m_dim = vt.shape[-1]
+    expect = {"p": (tuple(p.shape), (n_tab, k_dim, r)),
+              "vt": (tuple(vt.shape), (n_tab, r, m_dim)),
+              "ids": (tuple(ids.shape), (b_dim,))}
+    bs = jb = maxb = 0
+    if stack is not None:
+        bs = stack.block_size
+        jb, maxb = -(-m_dim // bs), stack.rows.shape[-1]
+        expect.update({
+            "stack.shape": (tuple(stack.shape), (k_dim, m_dim)),
+            "counts": (tuple(stack.counts.shape), (n_tab, jb)),
+            "rows": (tuple(stack.rows.shape), (n_tab, jb, maxb)),
+            "vals": (tuple(stack.vals.shape), (n_tab, jb, maxb, bs, bs)),
+        })
+        if bs not in BLOCK_SIZES:
+            raise ValueError(f"{name}: block size {bs} not in {BLOCK_SIZES}")
+    for arg, (got, want) in expect.items():
+        if got != want:
+            raise ValueError(f"{name}: {arg} has shape {got}, expected {want}")
+    if r < 1:
+        raise ValueError(f"{name}: rank 0 goes through ops.slr_matmul_multi")
+    if layers < 1 or not 0 <= layer < layers or n_tab % layers:
+        raise ValueError(f"{name}: layer {layer} of {layers} does not index {n_tab} table rows")
+    y = torch.empty((b_dim, t_dim, m_dim), dtype=x.dtype, device=dev)
+    if b_dim == 0 or t_dim == 0:
+        return y
+    bt = row_tile(t_dim, x.dtype, cap=MAX_ROW_TILE)
+    tab_ptrs = (None, None, None) if stack is None else (
+        stack.counts.data_ptr(), stack.rows.data_ptr(), stack.vals.data_ptr())
+    launch("slr_matmul_multi_launch", dev, x.data_ptr(), p.data_ptr(), vt.data_ptr(),
+           *tab_ptrs, ids.data_ptr(), y.data_ptr(), b_dim, t_dim, k_dim, m_dim, r, layers,
+           layer, n_tab, jb, maxb, bs, bt, code)
+    slr_matmul_multi.launches += 1
+    return y
+
+
+slr_matmul_multi.launches = 0

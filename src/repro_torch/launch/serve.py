@@ -9,12 +9,19 @@ engine runs one decode per active tier over the shared paged KV, and
 before evicting. Without a checkpoint the SLR state is the fresh all-zero
 one, so every SLR site takes the zero corner, as in the JAX launcher.
 
+``--adapters N`` serves N tenants instead: HPA views of the state at keeps
+``linspace(1.0, 0.4, N)``, each adapterized onto the keep-1.0 base, as ONE
+``AdapterBank`` (``--max-resident-adapters`` rows on the device; fewer than
+N turns on LRU swaps), requests round-robin over the tenants.
+
 It prints one JSON line with the JAX launcher's keys, less ``jit_retraces``
 (PyTorch runs eagerly: there is no tracing compiler to count retraces of).
 TTFT percentiles come from the requests' timestamps.
 
   python -m repro_torch.launch.serve --arch salaad_llama_60m \\
       --keep-ratios 1.0,0.6,0.3 --fmt fused --prefix-cache --tier-policy pressure
+  python -m repro_torch.launch.serve --arch salaad_llama_60m --fmt fused \\
+      --adapters 3 --max-resident-adapters 2
 
 Tensors live on the card unless ``--device cpu`` is given (with
 ``--reduced``, for a run of the plain versions on the CPU).
@@ -33,6 +40,7 @@ from ..core.hpa import hpa_keep_ratio
 from ..core.selection import SelectionConfig
 from ..device import resolve_device
 from ..models import model as model_lib
+from ..serving.adapters import AdapterBank, adapterize
 from ..serving.deployed import DeployedModel
 from ..serving.elastic import ModelBank, format_capability_table
 from ..serving.engine import EngineConfig, PagedServingEngine
@@ -45,9 +53,6 @@ _LATER = {
     "ckpt_dir": "--ckpt-dir (the checkpoint loader comes with the training slice)",
     "spec_k": "--spec-k (speculative decoding is a later slice)",
     "spec_adaptive": "--spec-adaptive (speculative decoding is a later slice)",
-    "adapters": "--adapters (multi-tenant adapters are a later slice)",
-    "max_resident_adapters": "--max-resident-adapters (multi-tenant adapters are a "
-                             "later slice)",
     "mesh": "--mesh (tensor-parallel serving is a later slice)",
     "trace_out": "--trace-out (the request tracer comes with the telemetry slice)",
     "trace_events": "--trace-events (the request tracer comes with the telemetry slice)",
@@ -57,11 +62,12 @@ _LATER = {
 
 
 def serve_batch(engine, vocab: int, requests: int, max_new: int, seed: int,
-                slo_ms: float | None = None, tiers=(None,),
+                slo_ms: float | None = None, tiers=(None,), adapters=(None,),
                 prompts: list[list[int]] | None = None) -> dict:
     """Drive one engine over a random trace (or over ``prompts``), requests
-    spread round-robin over ``tiers``; per-tier token counts ride in the
-    stats. With the prefix cache on, every random prompt opens with the same
+    spread round-robin over ``tiers`` and, on an AdapterBank engine, over
+    ``adapters``; per-tier and per-adapter token counts ride in the stats.
+    With the shared prefix cache on, every random prompt opens with the same
     two-page "system prompt"."""
     rng = np.random.RandomState(seed)
     if prompts is None:
@@ -74,7 +80,7 @@ def serve_batch(engine, vocab: int, requests: int, max_new: int, seed: int,
     for i, prompt in enumerate(prompts):
         engine.submit(prompt, max_new_tokens=max_new,
                       deadline=None if slo_ms is None else submitted + slo_ms / 1e3,
-                      tier=tiers[i % len(tiers)])
+                      tier=tiers[i % len(tiers)], adapter=adapters[i % len(adapters)])
     t0 = time.monotonic()
     done = engine.run()
     dt = time.monotonic() - t0
@@ -91,6 +97,12 @@ def serve_batch(engine, vocab: int, requests: int, max_new: int, seed: int,
         by_tier[r.tier] = by_tier.get(r.tier, 0) + len(r.out_tokens)
     if len(by_tier) > 1 or (by_tier and next(iter(by_tier)) != 0):
         stats["tokens_by_tier"] = {str(k): v for k, v in sorted(by_tier.items())}
+    by_adapter: dict[int, int] = {}
+    for r in done:
+        if r.adapter is not None:
+            by_adapter[r.adapter] = by_adapter.get(r.adapter, 0) + len(r.out_tokens)
+    if by_adapter:
+        stats["tokens_by_adapter"] = {str(k): v for k, v in sorted(by_adapter.items())}
     ttft = [r.first_token_at - r.submitted_at for r in done if r.first_token_at]
     if ttft:
         stats["ttft_p50_ms"] = round(float(np.percentile(ttft, 50)) * 1e3, 1)
@@ -170,8 +182,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-port", type=int, default=None)
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--mesh", default=None)
-    ap.add_argument("--adapters", type=int, default=0)
-    ap.add_argument("--max-resident-adapters", type=int, default=None)
+    ap.add_argument("--adapters", type=int, default=0,
+                    help="multi-tenant mode: register N SLR adapters (HPA views at spread "
+                         "budgets) over ONE shared base and serve them through one "
+                         "AdapterBank engine, requests round-robin across tenants")
+    ap.add_argument("--max-resident-adapters", type=int, default=None,
+                    help="device adapter-pool rows; fewer than --adapters turns on LRU "
+                         "swapping (None = all resident)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -203,7 +220,25 @@ def main(argv=None):
         num_blocks=args.num_blocks, kv_dtype=args.kv_dtype,
         prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
         prefix_min_hit_pages=args.prefix_min_hit, tier_policy=args.tier_policy,
+        adapters=args.adapters > 0, max_resident_adapters=args.max_resident_adapters,
     )
+
+    if args.adapters:
+        # N tenants as HPA views at spread budgets over ONE shared base, each
+        # adapterized onto it: only the SLR sites differ per tenant
+        slr_c, _ = hpa_keep_ratio(slr, blocks, 1.0, args.kappa)
+        base = DeployedModel.build(cfg, params, slr_c, blocks, fmt=args.fmt)
+        tenants = []
+        for keep in np.linspace(1.0, 0.4, args.adapters):
+            slr_k, _ = hpa_keep_ratio(slr, blocks, float(keep), args.kappa)
+            tenants.append(adapterize(base, DeployedModel.build(cfg, params, slr_k, blocks,
+                                                                fmt=args.fmt)))
+        bank = AdapterBank(base, tenants, names=[f"tenant{i}" for i in range(args.adapters)])
+        engine = PagedServingEngine(bank, ecfg)
+        stats = serve_batch(engine, cfg.vocab_size, args.requests, args.max_new, args.seed,
+                            args.slo_ms, adapters=tuple(range(args.adapters)))
+        print(json.dumps({"fmt": args.fmt, "adapters": bank.adapter_report(), **stats}))
+        return
 
     if args.keep_ratios is None:
         engine = PagedServingEngine(ModelBank.single(cfg, params), ecfg)

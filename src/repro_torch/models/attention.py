@@ -79,7 +79,9 @@ def attention_block(
     cache: PagedLayerCache | None = None,
     kernel_impl: str = "blockwise",
 ):
-    """Projections + RoPE + attention + output projection.
+    """Projections + RoPE + attention + output projection. The four
+    projections get (B, T, .) activations, unflattened, so a batched adapter
+    site (``serving/adapters.py``) can pick each slot's tables.
 
     Without a cache returns ``(out, (kh, vh))`` - the rotated KV heads, so a
     one-shot prefill can fill pages without re-projecting. With a paged cache

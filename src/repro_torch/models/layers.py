@@ -15,7 +15,9 @@ __all__ = ["apply_weight", "rmsnorm", "rope_freqs", "apply_rope", "swiglu", "emb
 
 def apply_weight(x: torch.Tensor, w) -> torch.Tensor:
     """y = x @ w for a dense tensor OR any deployed-format weight object with
-    an ``apply`` method (``serving.slr_params.SLRLinear`` / ``SLRLayerView``)."""
+    an ``apply`` method (``serving.slr_params.SLRLinear`` / ``SLRLayerView``,
+    ``serving.adapters.AdapterizedLinear`` and its layer view), which gets x
+    in its own (B, T, K) shape."""
     if hasattr(w, "apply"):
         return w.apply(x)
     return x @ w

@@ -5,8 +5,11 @@ Parameters keep the JAX package's tree: ``embed/embedding``, ``layers/...``
 stacked on a leading layer axis, ``final_norm/norm_scale`` and
 ``lm_head/w``. The layer stack runs as a Python loop over layer indices -
 the counterpart of JAX's scan by index: ``layer_view`` hands each layer plain
-tensor slices and, for stacked fused SLR weights, an ``SLRLayerView`` that
-keeps the stacked tables whole and passes the layer index to the kernel. The
+tensor slices and, for stacked fused SLR weights and pooled adapter sites
+(``serving/adapters.py``), an ``at_layer`` view that keeps the stacked tables
+whole and passes the layer index to the kernel. Every view's ``apply`` takes
+the (B, T, K) activations as they are: a batched adapter site selects its
+tables per slot, so rows are never flattened across slots on its way. The
 ``bsr`` format unrolls ``layers`` into a list of per-layer dicts, which the
 same loop walks directly (JAX's ``_forward_unrolled``).
 """

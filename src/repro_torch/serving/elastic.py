@@ -7,6 +7,8 @@
     produced by HPA truncation of the same state. Tier 0 is the largest
     capacity. Leaves HPA does not touch (norms, any unselected block) are the
     same tensor objects in every tier; ``shared_base_bytes`` reports them.
+    ``serving.adapters.AdapterBank`` is the one-tier subclass that serves a
+    pool of adapters over one base.
 
 ``Engine`` (protocol)
     ``submit / step / run / has_work / capabilities`` - the contract the

@@ -27,12 +27,23 @@ Without ``prefill_chunk`` an admission prefills the whole prompt in one
 no-cache forward (the flash attention kernel under ``kernel_impl='pallas'``)
 and scatters whole pages.
 
+Multi-tenant adapters (``serving/adapters.py``): an engine built on an
+:class:`~repro_torch.serving.adapters.AdapterBank` with
+``EngineConfig(adapters=True)`` serves N registered (L + S) adapters over one
+shared base. A request picks its adapter at ``submit``; admission pins it
+into the bank's device pool (an LRU swap when it is not resident). In
+``batched`` mode one program call serves slots that run different adapters
+(the per-slot SLR kernel reads the slot -> pool-row map on the device); in
+``grouped`` mode the engine runs one call per (tier, pool row). With the
+prefix cache on, each adapter has its own radix index (KV pages depend on
+the adapter's weights) over the one shared allocator.
+
 Not ported yet, each rejected with a ``ValueError`` that names it:
-multi-tenant adapters, speculative decoding, tensor-parallel meshes, int8
-pages, sampling with a temperature, and the telemetry registry and tracer.
-The counters the JAX engine keeps in its registry (prefix lookups, hits, hit
-tokens, copy-on-write copies, reattached pages, tier switches, downshift
-ticks) are plain integers here.
+speculative decoding, tensor-parallel meshes, int8 pages, sampling with a
+temperature, and the telemetry registry and tracer. The counters the JAX
+engine keeps in its registry (prefix lookups, hits, hit tokens, copy-on-write
+copies, reattached pages, tier switches, downshift ticks, adapter swaps,
+resident adapters, tokens by adapter) are plain integers here.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ import torch
 
 from ..models import model as model_lib
 from ..models import transformer as transformer_lib
+from .adapters import AdapterBank, AdapterError
 from .deployed import DeployedModel
 from .elastic import ModelBank, TierController
 from .prefix_cache import PrefixCache
@@ -61,8 +73,8 @@ _EVICT_POLICIES = ("longest_remaining", "lru")
 
 class RequestRejected(ValueError):
     """Raised by ``submit`` when a request can never be served by this engine
-    (too long for the cache, larger than the whole page pool, or pinned to a
-    tier the bank does not have)."""
+    (too long for the cache, larger than the whole page pool, pinned to a
+    tier the bank does not have, or naming an adapter it does not serve)."""
 
 
 @dataclass
@@ -82,6 +94,7 @@ class Request:
     evictions: int = 0
     requeued_at: float = 0.0
     prefill_emitted: int = 0         # tokens emitted by prefill/chunk programs
+    adapter: int | None = None       # AdapterBank adapter id (multi-tenant serving)
 
 
 @dataclass
@@ -103,7 +116,8 @@ class EngineConfig:
     greedy: bool = True
     spec_k: int = 0
     mesh: str | None = None
-    adapters: bool = False
+    adapters: bool = False             # serve an AdapterBank (serving/adapters.py)
+    max_resident_adapters: int | None = None  # device adapter-pool rows; None = all
     telemetry: bool = False
     trace: bool = False
 
@@ -137,11 +151,18 @@ class EngineConfig:
         if self.tier_policy not in ("static", "pressure"):
             raise ValueError(f"unknown tier_policy {self.tier_policy!r}; expected "
                              "'static' or 'pressure'")
+        if self.max_resident_adapters is not None:
+            if not isinstance(self.max_resident_adapters, int) \
+                    or self.max_resident_adapters < 1:
+                raise ValueError(f"max_resident_adapters={self.max_resident_adapters!r} must "
+                                 "be a positive int (at least one adapter resident)")
+            if not self.adapters:
+                raise ValueError("max_resident_adapters sizes the AdapterBank device pool "
+                                 "and needs adapters=True")
         later = {
             "greedy=False (sampling with a temperature)": not self.greedy,
             "spec_k (speculative decoding)": self.spec_k != 0,
             "mesh (tensor-parallel serving)": self.mesh is not None,
-            "adapters (multi-tenant adapters)": self.adapters,
             "telemetry (metrics registry)": self.telemetry,
             "trace (request tracer)": self.trace,
         }
@@ -160,7 +181,7 @@ def _validate_request(prompt: list[int], max_new_tokens: int, max_len: int):
 
 def _resolve_engine_args(name: str, model, ecfg) -> tuple[ModelBank, EngineConfig]:
     """``Engine(bank, ecfg)``; a bare ``DeployedModel`` is wrapped as a
-    one-tier bank."""
+    one-tier bank. An ``AdapterBank`` and ``ecfg.adapters`` must agree."""
     if isinstance(model, DeployedModel):
         model = ModelBank.single(model.cfg, model)
     if not isinstance(model, ModelBank):
@@ -169,7 +190,13 @@ def _resolve_engine_args(name: str, model, ecfg) -> tuple[ModelBank, EngineConfi
     if ecfg is not None and not isinstance(ecfg, EngineConfig):
         raise TypeError(f"{name}(bank, ecfg): ecfg must be an EngineConfig, got "
                         f"{type(ecfg).__name__}")
-    return model, ecfg if ecfg is not None else EngineConfig()
+    ecfg = ecfg if ecfg is not None else EngineConfig()
+    # neither a silently ignored AdapterBank nor a flag with no pool
+    if ecfg.adapters != isinstance(model, AdapterBank):
+        raise ValueError("adapters=True needs an AdapterBank (serving.adapters) as the "
+                         "engine's bank, and an AdapterBank needs adapters=True; got "
+                         f"adapters={ecfg.adapters} with {type(model).__name__}")
+    return model, ecfg
 
 
 class BlockAllocator:
@@ -254,6 +281,9 @@ class PagedServingEngine:
             raise ValueError(f"kernel_impl='pallas' needs kv_dtype equal to the "
                              f"model dtype {cfg.param_dtype}, got {ecfg.kv_dtype!r}")
         self.cfg, self.ecfg, self.bank = cfg, ecfg, bank
+        self._adapters: AdapterBank | None = bank if ecfg.adapters else None
+        if self._adapters is not None:
+            self._adapters.materialize(ecfg.max_resident_adapters)
         self._tier_params = [t.params for t in bank]
         self.params = self._tier_params[0]
         self.device = self.params["embed"]["embedding"].device
@@ -284,11 +314,21 @@ class PagedServingEngine:
         self._last_token = np.zeros(ecfg.max_slots, np.int64)
         # effective tier per slot (requested tier + controller downshift)
         self._slot_tier = np.zeros(ecfg.max_slots, np.int64)
+        # multi-tenant: pool row per slot (batched calls bind this map as it
+        # is, so an idle slot keeps a valid row) and the adapter each slot
+        # pinned (unpinned when the slot releases)
+        self._slot_pool = np.zeros(ecfg.max_slots, np.int32)
+        self._slot_adapter: dict[int, int] = {}
         self._tier_shift = 0
         self.tier_controller = None
         if ecfg.tier_policy == "pressure":
             self.tier_controller = TierController(len(bank))
-        self._prefix = PrefixCache(self.allocator, bs) if ecfg.prefix_cache else None
+        # prefix sharing; multi-tenant serving keeps one radix index PER
+        # ADAPTER (cached KV depends on its weights), created on first use,
+        # all holding references in the one shared allocator
+        self._prefix = PrefixCache(self.allocator, bs) \
+            if ecfg.prefix_cache and self._adapters is None else None
+        self._prefix_caches: dict[int, PrefixCache] = {}
         self.decode_calls = 0
         self.prefill_calls = 0
         self.chunk_calls = 0
@@ -300,6 +340,10 @@ class PagedServingEngine:
         self.prefix_hit_tokens = 0      # prompt tokens served from the index
         self.cow_copies = 0             # pages privatized by copy-on-write
         self.reattached_pages = 0       # pages evicted slots got back on resume
+        self.adapter_swaps = 0          # pool rows swapped in at admission
+        self.adapter_tokens: dict[int, int] = {}   # emitted tokens by adapter id
+        self.resident_adapters = 0 if self._adapters is None \
+            else len(self._adapters.resident)
 
     @classmethod
     def capabilities(cls) -> dict:
@@ -319,7 +363,7 @@ class PagedServingEngine:
                 "tier_pressure_controller": True,
                 "prefix_caching": True,
                 "tensor_parallel": False,
-                "multi_tenant_adapters": False,
+                "multi_tenant_adapters": True,
             },
         }
 
@@ -333,7 +377,9 @@ class PagedServingEngine:
 
     def submit(self, prompt: list[int], max_new_tokens: int = 16,
                deadline: float | None = None, tier: int | None = None,
-               submitted_at: float | None = None) -> int:
+               submitted_at: float | None = None, adapter: int | None = None) -> int:
+        """Enqueue a request; ``adapter`` picks a registered AdapterBank
+        adapter (None = the bank's default; rejected on plain banks)."""
         _validate_request(prompt, max_new_tokens, self.ecfg.max_len)
         need = -(-(len(prompt) + max_new_tokens) // self._bs)
         if need > self.num_blocks:
@@ -343,11 +389,27 @@ class PagedServingEngine:
             tier = self.bank.resolve(0 if tier is None else tier)
         except ValueError as e:
             raise RequestRejected(str(e)) from None
+        adapter = self._resolve_adapter(adapter)
         self._uid += 1
         self._queue.append(Request(
             self._uid, list(prompt), max_new_tokens, deadline=deadline, tier=tier,
-            submitted_at=_now() if submitted_at is None else submitted_at))
+            submitted_at=_now() if submitted_at is None else submitted_at, adapter=adapter))
         return self._uid
+
+    def _resolve_adapter(self, adapter: int | None) -> int | None:
+        """Validated adapter id (None = the bank's default). An adapter
+        unregistered after submit is caught at admission: the request then
+        finishes rejected."""
+        if self._adapters is None:
+            if adapter is not None:
+                raise RequestRejected(f"adapter={adapter} needs an AdapterBank engine "
+                                      "(serving.adapters); this engine serves a plain "
+                                      "ModelBank")
+            return None
+        aid = self._adapters.default_adapter if adapter is None else adapter
+        if aid not in self._adapters.registry:
+            raise RequestRejected(f"unknown adapter id {aid}")
+        return aid
 
     @property
     def has_work(self) -> bool:
@@ -371,9 +433,8 @@ class PagedServingEngine:
         away from the pool."""
         if self.tier_controller is None:
             return
-        free_like = self.allocator.free_blocks
-        if self._prefix is not None:
-            free_like += self._prefix.reclaimable_pages
+        free_like = self.allocator.free_blocks + sum(
+            pc.reclaimable_pages for pc in self._all_prefixes())
         self._tier_shift = self.tier_controller.update(free_like / self.num_blocks)
         if self._tier_shift > 0:
             self.downshift_ticks += 1
@@ -387,12 +448,72 @@ class PagedServingEngine:
                 self.tier_switches += 1
                 self._slot_tier[slot] = eff
 
-    def _tier_groups(self, slots) -> list[tuple[int, list[int]]]:
-        """Slots grouped by effective tier, ascending."""
-        groups: dict[int, list[int]] = {}
+    def _tier_groups(self, slots) -> list[tuple]:
+        """Slots grouped by program key, ascending: the effective tier,
+        widened in grouped adapter mode to ``(tier, pool row)`` so that every
+        call serves ONE adapter. Batched adapter mode keeps the tier key: one
+        call covers slots of different adapters."""
+        grouped = self._adapters is not None and self._adapters.mode == "grouped"
+        groups: dict = {}
         for s in slots:
-            groups.setdefault(int(self._slot_tier[s]), []).append(s)
+            key = (int(self._slot_tier[s]), int(self._slot_pool[s])) if grouped \
+                else int(self._slot_tier[s])
+            groups.setdefault(key, []).append(s)
         return sorted(groups.items())
+
+    # ---------------------------------------------------------- adapters ---
+
+    def _adapter_admit(self, req: Request, done: list[Request]) -> tuple[str, int | None]:
+        """Acquire and pin ``req``'s adapter in the device pool: ``("ok",
+        row)`` (row None on plain banks); ``("busy", None)`` when every pool
+        row is pinned by a streaming slot (keep it queued); ``("gone", None)``
+        when the adapter was unregistered after submit (it finishes
+        rejected)."""
+        if self._adapters is None:
+            return "ok", None
+        try:
+            row, swapped = self._adapters.acquire(req.adapter)
+        except AdapterError:
+            req.done = True
+            req.finished_at = _now()
+            done.append(req)
+            return "gone", None
+        if row is None:
+            return "busy", None
+        if swapped:
+            self.adapter_swaps += 1
+        self._adapters.pin(req.adapter)
+        self.resident_adapters = len(self._adapters.resident)
+        return "ok", row
+
+    def _call_params(self, key, rows=None):
+        """The parameter tree for ONE program call: the tier's tree on plain
+        banks; on an AdapterBank a fresh ``bind`` of the pool - a grouped key
+        carries its pool row, batched calls bind ``rows`` (slot-indexed for
+        decode and chunk calls, group-indexed for one-shot prefill)."""
+        if self._adapters is None:
+            return self._tier_params[key]
+        if isinstance(key, tuple):
+            return self._adapters.bind(key[1])
+        return self._adapters.bind(rows)
+
+    def _prefix_of(self, aid: int | None) -> PrefixCache | None:
+        """The radix index serving adapter ``aid``: the shared one on plain
+        banks, one per adapter under multi-tenant serving. None with the
+        cache off."""
+        if not self.ecfg.prefix_cache:
+            return None
+        if self._adapters is None:
+            return self._prefix
+        pc = self._prefix_caches.get(aid)
+        if pc is None:
+            pc = self._prefix_caches[aid] = PrefixCache(self.allocator, self._bs)
+        return pc
+
+    def _all_prefixes(self) -> list[PrefixCache]:
+        if self._prefix is not None:
+            return [self._prefix]
+        return list(self._prefix_caches.values())
 
     # ----------------------------------------------------- device programs ---
 
@@ -410,10 +531,10 @@ class PagedServingEngine:
             self._len_reset.clear()
         return self.cache
 
-    def _decode(self, tier: int, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
+    def _decode(self, key, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
         cache = self._device_cache()
-        logits, new = model_lib.decode_step(self._tier_params[tier], self._to_dev(tokens),
-                                            cache, self.cfg)
+        logits, new = model_lib.decode_step(self._call_params(key, self._slot_pool),
+                                            self._to_dev(tokens), cache, self.cfg)
         # only active slots advance; inactive slots wrote a junk row at their
         # frozen position (unmapped pages drop it; the next insert overwrites)
         length = torch.where(self._to_dev(active), new.length, cache.length)
@@ -421,7 +542,7 @@ class PagedServingEngine:
         self.decode_calls += 1
         return logits[:, -1].argmax(-1).cpu().numpy()
 
-    def _chunk_call(self, tier: int, tokens, counts, starts) -> np.ndarray:
+    def _chunk_call(self, key, tokens, counts, starts) -> np.ndarray:
         """One chunk over all slots: rows with counts > 0 reset their length
         to the host-tracked progress (a fresh slot may inherit a stale device
         length) and insert there; rows with counts == 0 keep their length and
@@ -430,18 +551,19 @@ class PagedServingEngine:
         counts_d = self._to_dev(counts)
         n0 = torch.where(counts_d > 0, self._to_dev(starts), cache.length)
         logits, self.cache = model_lib.chunk_prefill_step(
-            self._tier_params[tier], self._to_dev(tokens), counts_d,
+            self._call_params(key, self._slot_pool), self._to_dev(tokens), counts_d,
             cache._replace(length=n0), self.cfg)
         self.chunk_calls += 1
         last = torch.from_numpy(np.maximum(counts - 1, 0).astype(np.int64)).to(self.device)
         rows = torch.arange(len(counts), device=self.device)
         return logits[rows, last].argmax(-1).cpu().numpy()
 
-    def _prefill_call(self, tier: int, tokens, lengths, slot_ids, page_map) -> np.ndarray:
+    def _prefill_call(self, key, tokens, lengths, slot_ids, page_map, rows) -> np.ndarray:
         """One-shot prefill of admitted prompts: no-cache forward, whole
-        prompt pages scattered into the pool; padded rows drop."""
+        prompt pages scattered into the pool; padded rows drop. ``rows`` is
+        the group-indexed pool-row map (batched adapter mode)."""
         cache = self._device_cache()
-        logits, kvs = model_lib._forward(self._tier_params[tier],
+        logits, kvs = model_lib._forward(self._call_params(key, rows),
                                          {"tokens": self._to_dev(tokens)}, self.cfg,
                                          collect_kv=True)
         transformer_lib.scatter_prefill_pages(cache, kvs, self._to_dev(page_map))
@@ -479,19 +601,26 @@ class PagedServingEngine:
         free list cannot cover ``n``, index-only cached pages are reclaimed
         LRU first, before any caller evicts a live slot."""
         pages = self.allocator.alloc(n)
-        if pages is None and self._prefix is not None:
-            self._prefix.reclaim(n - self.allocator.free_blocks)
+        if pages is None:
+            # every adapter's index, those of unregistered adapters too: that
+            # is how their orphaned pages drain
+            for pc in self._all_prefixes():
+                pc.reclaim(n - self.allocator.free_blocks)
+                if self.allocator.free_blocks >= n:
+                    break
             pages = self.allocator.alloc(n)
         return pages
 
     def _match(self, req: Request, ptoks: list[int]) -> tuple[list[int], int]:
         """Prefix-cache lookup at admission: the attachable hit pages and the
-        position ``s0`` prefill resumes at (0 without a hit)."""
-        if self._prefix is None:
+        position ``s0`` prefill resumes at (0 without a hit), in the index of
+        the request's adapter."""
+        pc = self._prefix_of(req.adapter)
+        if pc is None:
             return [], 0
         self.prefix_lookups += 1
         plen = len(ptoks)
-        hit = self._prefix.match(ptoks)
+        hit = pc.match(ptoks)
         if len(hit) < self.ecfg.prefix_min_hit_pages:
             return [], 0
         # the last prompt position is always recomputed - its logits give the
@@ -523,6 +652,12 @@ class PagedServingEngine:
         cow_pairs: list[tuple[int, int]] = []
         while self._queue and free:
             req = self._queue[0]
+            astat, arow = self._adapter_admit(req, done)
+            if astat == "gone":          # unregistered after submit: finished rejected
+                self._queue.pop(0)
+                continue
+            if astat == "busy":          # every pool row pinned: retry next tick
+                break
             ptoks = req.prompt + req.out_tokens      # evicted requests resume
             plen = len(ptoks)
             hit, s0 = self._match(req, ptoks)
@@ -540,6 +675,8 @@ class PagedServingEngine:
             if fresh is None:
                 if hit:
                     self.allocator.release(hit)
+                if self._adapters is not None:      # undo the admission pin
+                    self._adapters.unpin(req.adapter)
                 break                   # pool full: stay queued
             pages = list(hit)
             if cow:
@@ -554,6 +691,9 @@ class PagedServingEngine:
             req.admitted_at = _now()
             self._active[slot] = req
             self._slot_tier[slot] = self._effective_tier(req)
+            if arow is not None:
+                self._slot_pool[slot] = arow
+                self._slot_adapter[slot] = req.adapter
             self._pages[slot] = pages
             self._table[slot, : len(pages)] = pages
             self._table_dirty = True
@@ -577,27 +717,29 @@ class PagedServingEngine:
             return
         s = self.ecfg.max_slots
         whole = {slot: (req, pages, plen) for slot, req, pages, plen, s0 in admitted if s0 == 0}
-        for tier, slots in self._tier_groups(whole):
+        for key, slots in self._tier_groups(whole):
             bucket = self._bucket(max(whole[x][2] for x in slots))
             tokens = np.zeros((s, bucket), np.int32)
             lengths = np.ones((s,), np.int32)
             slot_ids = np.full((s,), s, np.int32)
             page_map = np.full((s, bucket // self._bs), self.num_blocks, np.int32)
+            rows = np.zeros((s,), np.int32)      # group-indexed pool rows
             for i, slot in enumerate(slots):
                 req, pages, plen = whole[slot]
                 tokens[i, :plen] = req.prompt + req.out_tokens
                 lengths[i] = plen
                 slot_ids[i] = slot
+                rows[i] = self._slot_pool[slot]
                 nblk = -(-plen // self._bs)
                 page_map[i, :nblk] = pages[:nblk]
-            firsts = self._prefill_call(tier, tokens, lengths, slot_ids, page_map)
+            firsts = self._prefill_call(key, tokens, lengths, slot_ids, page_map, rows)
             for i, slot in enumerate(slots):
                 req = whole[slot][0]
                 req.prefill_emitted += 1
                 self._record(slot, req, int(firsts[i]), free, done)
         # prefix hits prefill only their suffix, through the chunk program
         hits = {slot: (req, plen, s0) for slot, req, _, plen, s0 in admitted if s0 > 0}
-        for tier, slots in self._tier_groups(hits):
+        for key, slots in self._tier_groups(hits):
             width = self._bucket(max(hits[x][1] - hits[x][2] for x in slots))
             tokens = np.zeros((s, width), np.int32)
             counts = np.zeros((s,), np.int32)
@@ -607,7 +749,7 @@ class PagedServingEngine:
                 tokens[slot, : plen - s0] = (req.prompt + req.out_tokens)[s0:]
                 counts[slot] = plen - s0
                 starts[slot] = s0
-            firsts = self._chunk_call(tier, tokens, counts, starts)
+            firsts = self._chunk_call(key, tokens, counts, starts)
             for slot in slots:
                 req = hits[slot][0]
                 req.prefill_emitted += 1
@@ -655,7 +797,7 @@ class PagedServingEngine:
         if not ready:
             return
         s = self.ecfg.max_slots
-        for tier, slots in self._tier_groups(ready):
+        for key, slots in self._tier_groups(ready):
             tokens = np.zeros((s, self._chunk), np.int32)
             counts = np.zeros((s,), np.int32)
             starts = np.zeros((s,), np.int32)
@@ -666,7 +808,7 @@ class PagedServingEngine:
                 tokens[slot, :c] = (req.prompt + req.out_tokens)[p : p + c]
                 counts[slot] = c
                 starts[slot] = p
-            firsts = self._chunk_call(tier, tokens, counts, starts)
+            firsts = self._chunk_call(key, tokens, counts, starts)
             for slot in slots:
                 req = self._active.get(slot)
                 if req is None:
@@ -716,10 +858,12 @@ class PagedServingEngine:
         free.append(slot)
 
     def _retire(self, slot: int, req: Request):
-        """Publish the slot's full written pages into the prefix cache (on
-        finish and on eviction); their references transfer to the index, so
-        ``_release`` then frees only the exclusive tail."""
-        if self._prefix is None:
+        """Publish the slot's full written pages into the prefix cache of the
+        request's adapter (on finish and on eviction); their references
+        transfer to the index, so ``_release`` then frees only the exclusive
+        tail."""
+        pc = self._prefix_of(req.adapter)
+        if pc is None:
             return
         pages = self._pages.get(slot)
         if not pages:
@@ -729,10 +873,15 @@ class PagedServingEngine:
         n_full = min(written // self._bs, len(pages))
         if n_full <= 0:
             return
-        self._prefix.publish(ptoks, pages[:n_full])
+        pc.publish(ptoks, pages[:n_full])
         del pages[:n_full]
 
     def _release(self, slot: int):
+        if self._adapters is not None:
+            # LRU residency may swap the adapter out once no slot streams it
+            aid = self._slot_adapter.pop(slot, None)
+            if aid is not None:
+                self._adapters.unpin(aid)
         pages = self._pages.pop(slot, None)
         if pages:
             # release, not free: attached pages fall back to the index
@@ -750,6 +899,8 @@ class PagedServingEngine:
         req.token_times.append(now)
         if req.first_token_at == 0.0:
             req.first_token_at = now
+        if req.adapter is not None:
+            self.adapter_tokens[req.adapter] = self.adapter_tokens.get(req.adapter, 0) + 1
         self._last_token[slot] = tok
         if len(req.out_tokens) >= req.max_new_tokens or (
                 self.ecfg.eos_token is not None and tok == self.ecfg.eos_token):
@@ -770,10 +921,10 @@ class PagedServingEngine:
         for slot in decode_slots:
             tokens[slot, 0] = self._last_token[slot]
         out = np.zeros((s,), np.int64)
-        for tier, slots in self._tier_groups(decode_slots):
+        for key, slots in self._tier_groups(decode_slots):
             mask = np.zeros((s,), bool)
             mask[slots] = True
-            out[slots] = self._decode(tier, tokens, mask)[slots]
+            out[slots] = self._decode(key, tokens, mask)[slots]
         for slot, req in list(self._active.items()):
             if slot not in self._progress:
                 self._record(slot, req, int(out[slot]), free, done)

@@ -18,10 +18,12 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core.admm import SalaadConfig, admm_update, init_slr_state
+from repro_torch.core.hpa import hpa_keep_ratio
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bsr_matmul import bsr_from_dense
 from repro_torch.kernels.slr_matmul import stack_bsr
 from repro_torch.models import model as model_lib
+from repro_torch.serving.adapters import AdapterBank, adapterize
 from repro_torch.serving.deployed import DeployedModel
 from repro_torch.serving.elastic import ModelBank
 from repro_torch.serving.engine import EngineConfig, PagedServingEngine
@@ -101,6 +103,60 @@ def test_slr_matmul_corners(cuda, dtype):
     got = ops.slr_matmul_stacked(x, None, None, stack, 0)
     assert ops.launch_counts()["slr_matmul_stacked"] == 1
     assert_close(got, ref.slr_matmul_stacked_ref(x, None, None, stack, 0), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,t,k,m,r,layers", [
+    (8, 1, 40, 36, 5, 2), (16, 8, 64, 48, 16, 1), (32, 37, 512, 1376, 128, 8),
+    (64, 3, 200, 130, 17, 2), (128, 64, 512, 512, 130, 8), (128, 1, 512, 512, 128, 8),
+])
+def test_slr_matmul_multi_matches_plain(cuda, dtype, bs, t, k, m, r, layers):
+    """Eight slots over three pooled adapters (repeated and permuted ids),
+    every layer of the rows, ragged T / K / M; each slot equals the stacked
+    kernel on its own rows bit for bit."""
+    rng = np.random.default_rng(bs * 3 + t)
+    n_tab = 3 * layers
+    x = torch.from_numpy(rng.standard_normal((8, t, k), dtype=np.float32)).to(cuda, dtype)
+    p = torch.from_numpy(rng.standard_normal((n_tab, k, r), dtype=np.float32) / 8).to(cuda, dtype)
+    vt = torch.from_numpy(rng.standard_normal((n_tab, r, m), dtype=np.float32) / 8).to(cuda, dtype)
+    stack = make_stack(rng, n_tab, k, m, bs, 0.6, cuda, dtype)
+    ids = torch.tensor([2, 0, 1, 1, 0, 2, 2, 0], dtype=torch.int32, device=cuda)
+    for layer in range(layers):
+        before = ops.launch_counts()["slr_matmul_multi"]
+        got = ops.slr_matmul_multi(x, p, vt, stack, ids, layers, layer)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["slr_matmul_multi"] == before + 1
+        assert_close(got, ref.slr_matmul_multi_ref(x, p, vt, stack, ids, layers, layer), dtype)
+        for b in range(8):
+            row = int(ids[b]) * layers + layer
+            assert torch.equal(got[b], ops.slr_matmul_stacked(x[b].contiguous(), p, vt, stack,
+                                                               row))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slr_matmul_multi_corners(cuda, dtype):
+    """Empty S: one launch of the low-rank instance, each slot equal to the
+    low-rank kernel bit for bit; r == 0: zero factors; a row outside the
+    pool gives NaN rows, never a read past it."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((4, 9, 64), dtype=np.float32)).to(cuda, dtype)
+    p = torch.from_numpy(rng.standard_normal((6, 64, 12), dtype=np.float32)).to(cuda, dtype)
+    vt = torch.from_numpy(rng.standard_normal((6, 12, 40), dtype=np.float32)).to(cuda, dtype)
+    stack = make_stack(rng, 6, 64, 40, 8, 0.5, cuda, dtype)
+    empty = make_stack(rng, 6, 64, 40, 8, 0.0, cuda, dtype)
+    ids = torch.tensor([5, 0, 5, 2], dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.slr_matmul_multi(x, p, vt, empty, ids)
+    assert ops.launch_counts()["slr_matmul_multi"] == 1
+    for b, i in enumerate(ids.tolist()):
+        assert torch.equal(got[b], ops.lowrank_matmul(x[b].contiguous(), p[i], vt[i]))
+    got = ops.slr_matmul_multi(x, None, None, stack, ids)
+    assert_close(got, ref.slr_matmul_multi_ref(x, torch.zeros_like(p[..., :1]),
+                                               torch.zeros_like(vt[:, :1]), stack, ids), dtype)
+    bad = ops.slr_matmul_multi(x, p, vt, stack, torch.tensor([0, 6, 1, 2], dtype=torch.int32,
+                                                             device=cuda))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(bad[1]).all()) and bool(torch.isfinite(bad[[0, 2, 3]]).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -326,3 +382,46 @@ def test_bank_streams_on_card_match_cpu(cuda):
     for name in runs:
         assert got["cuda", name] == got["cpu", name]
     assert got["cuda", "fused"][1]["cow_copies"] > 0
+
+
+def test_adapter_streams_on_card_match_cpu(cuda):
+    """Three adapters of the reduced Llama (fused, HPA views of one state)
+    over two pool rows with the prefix cache on, in batched and grouped mode:
+    the card's streams and counters equal the CPU's, batched mode launches
+    the per-slot kernel and grouped mode the stacked one."""
+    cfg = dataclasses.replace(get_arch("salaad_llama_60m").reduced(), kernel_impl="pallas")
+    params = model_lib.init_params(cfg, seed=0, device="cpu")
+    scfg = SalaadConfig(rho_constant=5.0, exact_svd=True)
+    state, blocks = init_slr_state(params, scfg)
+    for step in range(3):
+        state, _ = admm_update(params, state, blocks, scfg, step)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, 256, 16).tolist()
+    prompts = [shared + rng.integers(0, 256, n).tolist() for n in (12, 16, 2, 30, 7, 9)]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p_, s_ = tree_map(lambda t: t.to(dev), (params, state))
+        models = [DeployedModel.build(cfg, p_, s_, blocks, fmt="fused", bsr_block=32)]
+        for keep in (0.7, 0.4):
+            models.append(DeployedModel.build(cfg, p_, hpa_keep_ratio(s_, blocks, keep, 0.7)[0],
+                                              blocks, fmt="fused", bsr_block=32))
+        tenants = [adapterize(models[0], m) for m in models]
+        for mode in ("batched", "grouped"):
+            eng = PagedServingEngine(AdapterBank(models[0], tenants, mode=mode), EngineConfig(
+                max_slots=3, max_len=64, block_size=8, prefix_cache=True, adapters=True,
+                max_resident_adapters=2))
+            ops.reset_launch_counts()
+            for i, pr in enumerate(prompts):
+                eng.submit(pr, max_new_tokens=8, adapter=i % 3)
+            streams = {r.uid: r.out_tokens for r in eng.run()}
+            got[dev, mode] = (streams, eng.bank.swaps, eng.prefix_hits, eng.adapter_tokens)
+            counts = ops.launch_counts()
+            if dev == "cuda":
+                kernel = "slr_matmul_multi" if mode == "batched" else "slr_matmul_stacked"
+                assert counts[kernel] > 0 and counts["flash_attention"] > 0, counts
+            else:
+                assert not any(counts.values())
+    for mode in ("batched", "grouped"):
+        assert got["cuda", mode] == got["cpu", mode]
+    assert got["cuda", "batched"][0] == got["cuda", "grouped"][0]
+    assert got["cuda", "batched"][1] >= 1 and got["cuda", "batched"][2] >= 1

@@ -23,7 +23,8 @@ def test_every_module_imports_with_jax_blocked():
     assert {"repro_torch.kernels.ops", "repro_torch.serving.engine",
             "repro_torch.bridge", "repro_torch.core.hpa", "repro_torch.serving.elastic",
             "repro_torch.serving.prefix_cache", "repro_torch.launch.serve",
-            "repro_torch.kernels.page_copy", "repro_torch.kernels.flash_attention"} <= set(mods)
+            "repro_torch.kernels.page_copy", "repro_torch.kernels.flash_attention",
+            "repro_torch.serving.adapters"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"

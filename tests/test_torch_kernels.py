@@ -233,3 +233,80 @@ def test_row_tile_matches_jax():
         for tdt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
             assert row_tile(t, tdt) == jax_row_tile(t, jdt)
             assert row_tile(t, tdt, cap=32) == jax_row_tile(t, jdt, cap=32)
+
+
+def pooled_tables(rng, n_tab, k, m, r, bs, occupancy):
+    """Pooled (adapter, layer) tables of both sides: p, vt and a block-CSC
+    stack over ``n_tab`` rows, each row with its own ragged live pattern."""
+    p = rng.standard_normal((n_tab, k, r), dtype=np.float32) / 4
+    vt = rng.standard_normal((n_tab, r, m), dtype=np.float32) / 4
+    stack, jstack = both_stacks(rng, n_tab, k, m, bs, occupancy)
+    return p, vt, stack, jstack
+
+
+@pytest.mark.parametrize("bs,t,k,m,r,layers,ids", [
+    (8, 3, 40, 36, 5, 2, [2, 0, 1]),
+    (32, 1, 96, 70, 12, 1, [1, 1, 0, 2]),
+    (128, 5, 256, 200, 9, 1, [0, 2]),
+])
+def test_slr_matmul_multi_matches_pallas(bs, t, k, m, r, layers, ids):
+    """The port's per-slot product against the Pallas multi kernel in
+    interpret mode, at a pool of three adapters: ragged T, K and M, ragged
+    counts, repeated and permuted slot ids, every layer of the rows."""
+    rng = np.random.default_rng(bs + t)
+    n_tab = 3 * layers
+    p, vt, stack, jstack = pooled_tables(rng, n_tab, k, m, r, bs, 0.6)
+    x = rng.standard_normal((len(ids), t, k), dtype=np.float32)
+    ids_np = np.asarray(ids, np.int32)
+    for layer in range(layers):
+        got = ops.slr_matmul_multi(torch.from_numpy(x), torch.from_numpy(p),
+                                   torch.from_numpy(vt), stack, torch.from_numpy(ids_np),
+                                   layers, layer)
+        want = jops.slr_matmul_multi(jnp.asarray(x), jnp.asarray(p), jnp.asarray(vt), jstack,
+                                     jnp.asarray(ids_np * layers + layer), interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("corner", ["fused", "empty_s", "rank_0", "both_empty"])
+def test_slr_matmul_multi_corners_match_reference(corner):
+    """The dispatcher's corners against the JAX dispatcher (its reference
+    off the TPU) at a pool of eight rows, slots permuted: an empty S is the
+    low-rank product per slot, r == 0 the fused product with zero factors,
+    neither part gives zeros."""
+    rng = np.random.default_rng(7)
+    n_tab, k, m, r = 8, 48, 40, 6
+    p, vt, stack, jstack = pooled_tables(rng, n_tab, k, m, r, 8,
+                                         0.0 if corner in ("empty_s", "both_empty") else 0.5)
+    x = rng.standard_normal((5, 9, k), dtype=np.float32)
+    ids = np.array([7, 3, 0, 3, 5], np.int32)
+    tp, tvt, jp, jvt = torch.from_numpy(p), torch.from_numpy(vt), jnp.asarray(p), jnp.asarray(vt)
+    if corner in ("rank_0", "both_empty"):
+        tp = tvt = jp = jvt = None
+        if corner == "both_empty":
+            tvt, jvt = torch.zeros((n_tab, 0, m)), jnp.zeros((n_tab, 0, m))
+    got = ops.slr_matmul_multi(torch.from_numpy(x), tp, tvt, stack, torch.from_numpy(ids))
+    want = jops.slr_matmul_multi(jnp.asarray(x), jp, jvt, jstack, jnp.asarray(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if corner == "empty_s":
+        for b, i in enumerate(ids):
+            torch.testing.assert_close(got[b], ref.lowrank_matmul_ref(
+                torch.from_numpy(x[b]), tp[i], tvt[i]), rtol=0, atol=0)
+
+
+def test_slr_matmul_multi_slot_permutation():
+    """Permuting the slots permutes the output; a one-row pool equals the
+    stacked product on the flattened rows, bit for bit on the CPU."""
+    rng = np.random.default_rng(11)
+    n_tab, k, m, r = 4, 64, 48, 7
+    p, vt, stack, _ = pooled_tables(rng, n_tab, k, m, r, 16, 0.5)
+    x = torch.from_numpy(rng.standard_normal((6, 4, k), dtype=np.float32))
+    ids = torch.tensor([3, 1, 1, 0, 2, 3], dtype=torch.int32)
+    perm = torch.tensor([4, 0, 5, 2, 1, 3])
+    tp, tvt = torch.from_numpy(p), torch.from_numpy(vt)
+    y = ops.slr_matmul_multi(x, tp, tvt, stack, ids)
+    torch.testing.assert_close(ops.slr_matmul_multi(x[perm], tp, tvt, stack, ids[perm]),
+                               y[perm], rtol=0, atol=0)
+    same = torch.full((6,), 2, dtype=torch.int32)
+    torch.testing.assert_close(
+        ops.slr_matmul_multi(x, tp, tvt, stack, same).reshape(-1, m),
+        ops.slr_matmul_stacked(x.reshape(-1, k), tp, tvt, stack, 2), rtol=0, atol=0)

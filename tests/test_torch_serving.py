@@ -278,7 +278,7 @@ def test_pallas_needs_chunked_prefill(trained):
 
 @pytest.mark.parametrize("field,value,name", [
     ("greedy", False, "sampling"), ("spec_k", 3, "speculative"),
-    ("mesh", "model=2", "tensor-parallel"), ("adapters", True, "adapters"),
+    ("mesh", "model=2", "tensor-parallel"),
     ("telemetry", True, "telemetry"), ("trace", True, "tracer"),
     ("kv_dtype", "int8", "int8"),
 ])
