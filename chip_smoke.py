@@ -16,11 +16,13 @@ error:
    and ``bsr`` formats over the same base parameters, and an ``AdapterBank``
    of four tenants (HPA keeps 1.0 / 0.8 / 0.6 / 0.4 of the same state, each
    adapterized onto the keep-1.0 base) with three device pool rows;
-3. kernels: each of the eight kernels against its plain PyTorch version on
+3. kernels: each of the nine kernels against its plain PyTorch version on
    the card, at the main path's shapes (f32 and bf16) and at ragged shapes,
    then timed with CUDA events beside its plain version, a one-call PyTorch
    yardstick and its bound (bytes over 3.35 TB/s or f32 operations over
-   67 TFLOP/s, whichever is larger, for this run's data);
+   67 TFLOP/s, whichever is larger, for this run's data); 3i holds the
+   ADMM S-update's soft_threshold at the embedding and layer-stack shapes
+   with NaN, +-inf, a zero and an above-max threshold;
 4. main path, with every launch count set to 0 just before each run and read
    just after:
    a. the fused bank serves 24 greedy requests through ``serve_batch``
@@ -43,18 +45,33 @@ error:
       the run must show LRU swaps and prefix hits; every stream must equal
       the same request served alone through a plain ModelBank of its tenant,
       and a ``grouped``-mode run of the same bank must give the same streams;
+   g. SALAAD training at full width: ``Trainer.fit`` of salaad_llama_60m
+      (f32, seq 256, batch 8, lr 1e-3, K = 5, 20 steps = 4 ADMM steps on
+      the randomized SVD); soft_threshold must launch 8 times per ADMM step,
+      every loss and statistic must be finite and the loss must fall; then
+      one train step and one ADMM step under torch.profiler;
+   h. 4g's state saved with ``train/checkpoint.py`` and served by
+      ``python -m repro_torch.launch.serve --ckpt-dir`` (in process, so the
+      launch counts are read): ``slr_params > 0`` and the stacked SLR and
+      paged kernels launch;
 5. parity: the first one-shot prefill's, the first chunk's and the first
-   decode tick's logits on the card against the same model on the CPU.
+   decode tick's logits on the card against the same model on the CPU; then
+   (5b) five train steps and one ADMM step from one full-width state on the
+   card and on the CPU, the same batches and CPU-drawn sketches.
 
 Output: the card's name and power limit, build time, per-phase lines, then
 one ``{"kernels": [...]}`` line and, last, the device line the harness reads.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import os
 import subprocess
+import tempfile
 import sys
 import time
 from pathlib import Path
@@ -72,6 +89,9 @@ BUDGETS = (1.0, 0.6, 0.3)
 BANK_PAGES = 128                 # of the 256 a full pool of 8 x 512 tokens holds
 ADAPTER_KEEPS = (1.0, 0.8, 0.6, 0.4)   # the adapter bank's tenants
 ADAPTER_ROWS = 3                       # device pool rows: fewer than tenants, so LRU swaps
+TRAIN_STEPS, TRAIN_K = 20, 5     # 4g: 4 ADMM steps
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 256, 8, 1e-3
+PARITY_BATCH = 4                 # 5b: card vs CPU training
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # relative to the output's max |value|
@@ -147,6 +167,15 @@ def main() -> None:
     from repro_torch.serving.elastic import ModelBank
     from repro_torch.serving.engine import EngineConfig, PagedServingEngine
     from repro_torch.tree import tree_map
+    from repro_torch.core.selection import SelectionConfig
+    from repro_torch.data.synthetic import DataConfig, SyntheticC4
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import checkpoint
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.core.selection import select_blocks
+    from repro_torch.core.sparse import to_dense as sparse_dense
+    from repro_torch.tree import leaf_by_path
 
     dev = torch.device("cuda")
     card = card_line()
@@ -576,6 +605,67 @@ def main() -> None:
               f"{lib_:.4f} ms (torch.bmm, gathered dense W), bound {bnd_[0]:.4f} ms "
               f"({bnd_[1]})")
 
+    # 3i. soft_threshold, the ADMM S-update: x (nb, n, m) with one threshold
+    # per slice, at the embedding leaf and the layer stacks, and ragged
+    def soft_check(shape, dt) -> float:
+        nb = shape[0]
+        x = rand(*shape, scale=3.0).to(dt)
+        flat = x.view(nb, -1)
+        flat[:, 0] = float("nan")
+        flat[:, 1] = float("inf")
+        flat[:, -1] = -float("inf")
+        tau = torch.rand(nb, device=dev) * 2
+        if nb > 1:
+            tau[0], tau[-1] = 0.0, 100.0            # identity; above max |x|
+        got = ops.soft_threshold(x, tau).float()
+        want = ref.soft_threshold_ref(x, tau).float()
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            fail(f"soft_threshold {shape}: NaN positions differ from the plain version")
+        keep = ~torch.isnan(want)
+        diff = (got[keep] - want[keep]).nan_to_num(posinf=1e30, neginf=-1e30).abs()
+        err = float(diff.max())
+        # exact in both dtypes: each side computes |x| - tau in f32 from the
+        # same operands (tau rounded to x's dtype first) and rounds once to
+        # x's dtype; abs, the clamp at 0 and the sign are exact
+        tol = 0.0
+        ident = nb == 1 or torch.equal(got[0][~torch.isnan(got[0])],
+                                       x[0].float()[~torch.isnan(got[0])])
+        # the slice above max |x| keeps only its NaN and infinities
+        zeros = nb == 1 or int(torch.count_nonzero(
+            got[-1].nan_to_num(nan=0.0, posinf=0.0, neginf=0.0))) == 0
+        status = "ok" if err <= tol and ident and zeros else "MISMATCH"
+        print(f"  check soft_threshold {shape} [{str(dt).split('.')[-1]}]: max_abs_err "
+              f"{err:.3e} (tol {tol:g}), tau=0 slice identical {ident}, tau>max slice "
+              f"zero {zeros}, NaN and inf written through: {status}")
+        if status != "ok":
+            fail(f"soft_threshold {shape} disagrees with its plain version")
+        return err
+
+    st_err = 0.0
+    for shape in ((1, 32000, 512), (8, 512, 1376), (8, 1376, 512), (3, 37, 61)):
+        for dt in (torch.float32, torch.bfloat16):
+            err = soft_check(shape, dt)
+            st_err = max(st_err, err) if dt == torch.float32 else st_err
+    soft_rows = {}
+    for shape, what in (((1, 32000, 512), "the embedding leaf"),
+                        ((8, 512, 1376), "the gate stack")):
+        x = rand(*shape)
+        tau = torch.rand(shape[0], device=dev) * 0.5
+        lam = float(tau[0])
+        soft_rows[shape] = dict(
+            shape=f"{shape} f32, {what}",
+            max_abs_err=st_err,
+            ms=time_ms(torch, lambda: ops.soft_threshold(x, tau)),
+            plain_ms=time_ms(torch, lambda: ref.soft_threshold_ref(x, tau)),
+            library_ms=time_ms(torch, lambda: F.softshrink(x, lam)),
+            bound=bound_ms(2 * 4 * x.numel() + 4 * shape[0], 0))
+    results["soft_threshold"] = soft_rows[(1, 32000, 512)]
+    r_ = soft_rows[(8, 512, 1376)]
+    print(f"  time soft_threshold ({r_['shape']}): kernel {r_['ms']:.4f} ms, plain "
+          f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms (F.softshrink, one "
+          f"scalar tau), bound {r_['bound'][0]:.4f} ms ({r_['bound'][1]})")
+
     for name, r_ in results.items():
         print(f"  time {name} ({r_['shape']}): kernel {r_['ms']:.4f} ms, plain "
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, bound "
@@ -768,6 +858,107 @@ def main() -> None:
         engine.run()
 
     profiled("4f batched", adapter_run)
+    # free the serving phases' banks, so 4g's peak memory is training's own
+    del engine, adapter_bank, tenants, tenant_models, banks
+    torch.cuda.empty_cache()
+
+    # 4g. SALAAD training at full width (Algorithm 1: K Adam steps on the
+    # coupled loss, then one ADMM prox sweep on the randomized SVD)
+    tcfg_arch = get_arch("salaad_llama_60m")           # kernel_impl blockwise: flash_vjp
+    train_scfg = SalaadConfig(selection=SelectionConfig(min_dim=16), update_every=TRAIN_K)
+    trainer = Trainer(tcfg_arch, TrainerConfig(
+        total_steps=TRAIN_STEPS, log_every=1, salaad=train_scfg,
+        adam=AdamConfig(lr=TRAIN_LR)), device=dev)
+    t_state = trainer.init(seed=SEED)
+    init_cpu = tree_map(lambda t: t.cpu(), t_state.params)     # for 5b
+    data = SyntheticC4(DataConfig(tcfg_arch.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    admm_ms, admm_stats, admm_end = [], [], []
+    inner_admm = trainer._admm_step
+
+    def timed_admm(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner_admm(state)
+        torch.cuda.synchronize()
+        admm_end.append(time.perf_counter())
+        admm_ms.append((admm_end[-1] - t0) * 1e3)
+        admm_stats.append(out[1])
+        return out
+
+    trainer._admm_step = timed_admm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    t_state = trainer.fit(t_state, data)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_counts = ops.launch_counts()
+    train_peak = torch.cuda.max_memory_allocated() / 2**20
+    trainer._admm_step = inner_admm
+    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
+    step_ms = [m["sec"] * 1e3 for m in trainer.metrics_log if "loss" in m]
+    recon = [m["admm_recon_err"] for m in trainer.metrics_log if "admm_recon_err" in m]
+    n_admm = TRAIN_STEPS // TRAIN_K
+    med_step = float(np.median(step_ms[2:]))
+    # training tokens/s on the wall clock over whole phases of Algorithm 1
+    # (K train steps, the ADMM sweep, batch generation and the host between),
+    # from the end of the first sweep to the end of the last, so the first
+    # phase's warm-up stays out; beside it the whole run's rate
+    phase_tok = (n_admm - 1) * TRAIN_K * TRAIN_SEQ * TRAIN_BATCH
+    tok_s = phase_tok / (admm_end[-1] - admm_end[0]) if n_admm > 1 else float("nan")
+    run_tok_s = TRAIN_STEPS * TRAIN_SEQ * TRAIN_BATCH / train_wall
+    admm_list = ", ".join(f"{t:.3f}" for t in admm_ms)
+    print(f"main path 4g training: {tcfg_arch.name} f32, seq {TRAIN_SEQ} x batch "
+          f"{TRAIN_BATCH}, lr {TRAIN_LR:g}, K={TRAIN_K}, {TRAIN_STEPS} steps in "
+          f"{train_wall:.3f} s; {tok_s:.1f} training tokens/s over phases 2-{n_admm} "
+          f"(wall clock, ADMM sweeps included), {run_tok_s:.1f} over the whole run "
+          f"(first phase's warm-up included); median train step {med_step:.3f} ms "
+          f"(steps 2-{TRAIN_STEPS - 1}; host clock around a step that ends in a sync); "
+          f"ADMM steps {admm_list} ms (median {float(np.median(admm_ms)):.3f}); peak "
+          f"memory {train_peak:.1f} MiB")
+    print(f"  losses per step: {json.dumps([round(x, 5) for x in losses])}")
+    print(f"  ADMM mean recon err per phase: {json.dumps([round(x, 6) for x in recon])}")
+    for i, st in enumerate(admm_stats):
+        row = {name: {k: [round(float(v), 6) for v in st[name][k].float().reshape(-1)[:2].cpu()]
+                      for k in ("rank_ratio", "density", "alpha", "beta")}
+               for name in ("embed/embedding", "layers/gate")}
+        print(f"  ADMM phase {i} (first slices): {json.dumps(row)}")
+    print(f"  launch counts: {json.dumps(train_counts)}")
+    finite = all(math.isfinite(x) for x in losses + recon) and all(
+        bool(torch.isfinite(v).all()) for st in admm_stats for blk in st.values()
+        for v in (blk.values() if isinstance(blk, dict) else [blk]))
+    if len(admm_ms) != n_admm or train_counts["soft_threshold"] != 8 * n_admm:
+        fail(f"4g: expected {n_admm} ADMM steps with 8 soft_threshold launches each, got "
+             f"{len(admm_ms)} and {train_counts['soft_threshold']}")
+    if not finite:
+        fail("4g: a loss or an ADMM statistic is not finite")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fail(f"4g: the loss did not fall: {losses}")
+    profiled("4g one train step", lambda: trainer._train_step(t_state, data.batch(TRAIN_STEPS)))
+    profiled("4g one ADMM step", lambda: trainer._admm_step(t_state))
+
+    # 4h. train -> checkpoint -> serve: 4g's state served by the launcher
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        checkpoint.save(ckpt_dir, t_state.step, t_state)
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            serve_main(["--arch", "salaad_llama_60m", "--ckpt-dir", ckpt_dir, "--fmt",
+                        "fused", "--keep-ratios", "1.0,0.6", "--requests", "8"])
+        torch.cuda.synchronize()
+        ckpt_counts = ops.launch_counts()
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"main path 4h serve --ckpt-dir ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(line)}")
+    print(f"  launch counts: {json.dumps(ckpt_counts)}")
+    if line["requests"] != 8 or not all(t["slr_params"] > 0 for t in line["tiers"]):
+        fail(f"4h: the trained checkpoint served no SLR parameters: {line}")
+    for name in ("slr_matmul_stacked", "paged_attention"):
+        if ckpt_counts[name] < 1:
+            fail(f"4h never launched {name}: {ckpt_counts}")
+    del trainer
 
     # ---- 5. first one-shot prefill, chunk and decode tick: card vs CPU -----------
     cpu_params, cpu_state = tree_map(lambda t: t.cpu(), (params, state))
@@ -815,6 +1006,71 @@ def main() -> None:
     compare("first chunk", logits["card"][0][mask], logits["cpu"][0][mask])
     compare("first decode tick", logits["card"][1], logits["cpu"][1])
 
+    # 5b. training, card against CPU: K = 5 train steps and one ADMM step from
+    # 4g's initial state, the same batches, the same CPU-drawn sketches
+    runs = {}
+    for name, d_ in (("card", dev), ("cpu", torch.device("cpu"))):
+        tr = Trainer(tcfg_arch, TrainerConfig(
+            total_steps=TRAIN_K, log_every=1, salaad=train_scfg,
+            adam=AdamConfig(lr=TRAIN_LR)), device=d_)
+        st0 = tr.init(params=tree_map(lambda t: t.to(d_), init_cpu))
+        t0 = time.perf_counter()
+        st = tr.fit(st0, SyntheticC4(DataConfig(tcfg_arch.vocab_size, TRAIN_SEQ, PARITY_BATCH,
+                                                seed=SEED)))
+        runs[name] = (tree_map(lambda t: t.cpu(), st),
+                      [m["loss"] for m in tr.metrics_log if "loss" in m])
+        print(f"parity 5b training on the {name}: {TRAIN_K} steps + 1 ADMM step in "
+              f"{time.perf_counter() - t0:.1f} s")
+    (g_st, g_loss), (c_st, c_loss) = runs["card"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(g_loss, c_loss))
+    print(f"parity 5b losses: card {json.dumps([round(x, 6) for x in g_loss])} cpu "
+          f"{json.dumps([round(x, 6) for x in c_loss])}: max relative error {loss_err:.3e} "
+          f"(tol 1e-4)")
+    if loss_err > 1e-4:
+        fail("5b: the card's training losses disagree with the CPU's")
+    # ADMM state, through products (the SVD factors' signs are free):
+    #   L = p @ vt and Z: 1e-4 of the tensor's largest value (Z away from
+    #   positions where S swapped);
+    #   S dense: 1e-4 of its largest value, except for swaps at the COO cap's
+    #   boundary (the cap keeps the top 15% by magnitude, and two entries
+    #   within rounding of the cap-th magnitude may trade places): at most
+    #   1 in 10^5 of the positions, each zero on one side;
+    #   Y = Y + rho (X - L - S) is rho times rounding after the first sweep
+    #   (beta = 0 makes S the whole residual): 1e-5 of rho * max |X|;
+    #   alpha, beta: the controller reads an integer rank count and a live
+    #   count, so one count apart is allowed: rho * dalpha / min(n, m) and
+    #   rho * dbeta / (n m), plus 1e-5 relative.
+    worst = {}
+    ccfg = train_scfg.controller
+    for info in select_blocks(c_st.params, train_scfg.selection):
+        g, c = g_st.slr[info.name], c_st.slr[info.name]
+        x = leaf_by_path(c_st.params, info.path).float()
+        nb = info.num_blocks
+        rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)  # noqa: E731
+        lg, lc = g.p @ g.vt, c.p @ c.vt
+        sg = sparse_dense(g.s_coo).reshape(nb, -1)
+        sc = sparse_dense(c.s_coo).reshape(nb, -1)
+        s_scale = float(sc.abs().max())
+        swapped = (sg - sc).abs() > 1e-4 * s_scale
+        n_swap = int(swapped.sum())
+        if n_swap > max(2, sg.numel() // 10**5) or bool(((sg != 0) & (sc != 0) & swapped).any()):
+            fail(f"5b {info.name}: S differs beyond cap-boundary swaps ({n_swap} positions)")
+        keep = ~swapped.reshape(g.z.shape)
+        z_err = float((g.z - c.z)[keep].abs().max()) / float(c.z.abs().max())
+        y_err = float((g.y - c.y).abs().max()) / (c.rho * float(x.abs().max()))
+        a_tol = c.rho * ccfg.dalpha / min(info.n, info.m) + 1e-5 * float(c.alpha.abs().max())
+        b_tol = c.rho * ccfg.dbeta / (info.n * info.m) + 1e-5 * float(c.beta.abs().max())
+        a_err = float((g.alpha - c.alpha).abs().max())
+        b_err = float((g.beta - c.beta).abs().max())
+        worst[info.name] = dict(L=rel(lg, lc), S_swaps=n_swap, Z=z_err, Y=y_err,
+                                alpha=a_err, beta=b_err)
+        if worst[info.name]["L"] > 1e-4 or z_err > 1e-4 or y_err > 1e-5 or a_err > a_tol \
+                or b_err > b_tol:
+            fail(f"5b {info.name}: the card's ADMM state disagrees with the CPU's: "
+                 f"{worst[info.name]} (alpha tol {a_tol:.3g}, beta tol {b_tol:.3g})")
+    print(f"parity 5b ADMM state (relative errors; S positions swapped at the cap): "
+          f"{json.dumps(worst)}")
+
     # ---- result lines -------------------------------------------------------------
     meta = {
         "slr_matmul_stacked": ("src/repro_torch/kernels/csrc/slr_matmul.cu",
@@ -833,13 +1089,16 @@ def main() -> None:
                             "src/repro/kernels/flash_attention.py:75"),
         "page_copy": ("src/repro_torch/kernels/csrc/page_copy.cu",
                       "src/repro/kernels/page_copy.py:38"),
+        "soft_threshold": ("src/repro_torch/kernels/csrc/soft_threshold.cu",
+                           "src/repro/kernels/soft_threshold.py:26"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r_ = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": fused_counts[name] + bsr_counts[name] + adapter_counts[name],
+            "launches": (fused_counts[name] + bsr_counts[name] + adapter_counts[name]
+                         + train_counts[name]),
             "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
             "plain_ms": r_["plain_ms"], "bound_ms": r_["bound"][0],
             "bound_by": r_["bound"][1], "library_ms": r_["library_ms"],

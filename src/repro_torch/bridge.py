@@ -1,10 +1,12 @@
-"""Bridge from the JAX package's parameters and SLR state to the port's.
+"""Bridge from the JAX package's parameters, SLR state and training state to
+the port's.
 
 The JAX side hands everything over as numpy arrays (a test flattens its
 pytrees with ``np.asarray``), so this module imports neither JAX nor the JAX
 package. Objects are read by attribute (``p``, ``vt``, ``s_coo.values``,
 ...), so a ``BlockSLR`` whose leaves were mapped to numpy, or any object of
-that shape, converts.
+that shape, converts. The checkpoint format (``train/checkpoint.py``) is the
+second bridge, through files, in both directions.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from .core.admm import BlockSLR, SLRState
 from .device import resolve_device
 
 __all__ = ["tensor_from_numpy", "params_from_numpy", "coo_from_numpy",
-           "slr_state_from_numpy"]
+           "slr_state_from_numpy", "train_state_from_numpy"]
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -64,3 +66,20 @@ def slr_state_from_numpy(state: dict, device=None) -> SLRState:
             rho=float(blk.rho),
         )
     return out
+
+
+def train_state_from_numpy(state, device=None):
+    """A JAX ``TrainState`` whose leaves were mapped to numpy (``params``,
+    ``opt.mu`` / ``opt.nu`` / ``opt.count``, ``slr``, ``step``) -> the port's
+    ``TrainState``; the step and the optimizer count become host integers."""
+    from .optim.adam import AdamState
+    from .train.state import TrainState
+
+    opt = state.opt
+    return TrainState(
+        params=params_from_numpy(state.params, device),
+        opt=AdamState(mu=params_from_numpy(opt.mu, device),
+                      nu=params_from_numpy(opt.nu, device), count=int(opt.count)),
+        slr=slr_state_from_numpy(state.slr, device),
+        step=int(state.step),
+    )

@@ -3,8 +3,9 @@ port serves so far: the paper's dense Llama family (``salaad_llama_*``).
 
 Field names, defaults and ``reduced()`` follow ``repro/configs/base.py`` so a
 test can build the same architecture on both sides. Only the fields the dense
-Llama family sets are here (RMSNorm, SwiGLU, RoPE, no biases, an untied LM
-head); the other families and their fields come with their slices.
+Llama family sets (RMSNorm, SwiGLU, RoPE, no biases, an untied LM head) and
+the execution fields the trainer reads are here; the other families and
+their fields come with their slices.
 """
 from __future__ import annotations
 
@@ -30,11 +31,24 @@ class ArchConfig:
     vocab_size: int = 32000
     rope_theta: float = 1e4
     param_dtype: Any = torch.bfloat16
-    # dense | blockwise: plain masked-softmax attention without a cache;
-    # pallas: the paged CUDA kernels for cached attention (the no-cache
-    # flash kernel is a later slice and raises)
+    # recompute each layer's activations in the backward pass
+    # (torch.utils.checkpoint): memory, not numbers
+    remat: bool = True
+    # attention without a cache: blockwise = the flash forward/backward in
+    # PyTorch (models/flash_vjp.py), dense = masked softmax, pallas = the
+    # CUDA flash kernel (forward only); with a paged cache: pallas = the
+    # CUDA paged kernels, otherwise gather + masked softmax
     kernel_impl: str = "blockwise"
+    attn_q_block: int = 512
+    attn_kv_block: int = 1024
+    causal_scheme: str = "full"         # full; balanced is a later slice
     source: str = ""
+
+    def __post_init__(self):
+        if self.causal_scheme != "full":
+            raise ValueError(
+                f"causal_scheme={self.causal_scheme!r} is not ported yet: the "
+                "triangle-only flash scheme (models/flash_balanced.py) is a later slice")
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test scale: same family/topology, tiny dims (the numbers of
@@ -57,7 +71,10 @@ class ArchConfig:
             d_ff=128 if self.d_ff else 0,
             vocab_size=256,
             param_dtype=torch.float32,
+            remat=False,
             kernel_impl="dense",
+            attn_q_block=32,
+            attn_kv_block=32,
         )
 
 

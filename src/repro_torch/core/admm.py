@@ -1,5 +1,11 @@
-"""Stage 2 of Algorithm 1 (the closed-form prox sweep) and the SLR state it
-updates (port of ``repro/core/admm.py``).
+"""Two-stage ADMM for SLR induction, Algorithm 1 of the paper (port of
+``repro/core/admm.py``).
+
+Stage 1 (guided learning) lives in the training loop: K optimizer steps on
+the coupled loss ``l(X) + sum_i rho_i/2 ||X_i - Z_i||_F^2``; ``penalty``
+gives that term with the target ``Z = L + S - Y/rho`` held constant (it is
+cached by every ``admm_update`` and detached). Stage 2 is ``admm_update``,
+the closed-form prox sweep
 
     L <- SVT_{alpha/rho}(X - S + Y/rho)
     S <- shrink_{beta/rho}(X - L + Y/rho)
@@ -8,49 +14,51 @@ updates (port of ``repro/core/admm.py``).
 followed by the I-controller update of (alpha, beta). L is stored factored
 (``p = U diag(s_thr)``, ``vt``), S as a capped COO list, Y dense. Stacked
 leaves ``(L, n, m)`` run as one batch of independent blocks, each with its
-own (alpha, beta) — the batch dimension stands in for JAX's ``vmap``.
+own (alpha, beta) - the batch dimension stands in for JAX's ``vmap``.
 
-Only the exact-SVD path (``torch.linalg.svd``, as the JAX package's
-``jnp.linalg.svd``) is ported: that is all the serving slice needs to build a
-non-trivial SLR state. The randomized SVD of the training path, and the
-stage-1 penalty, come with the training slice.
+The SVD is the randomized range finder (``rsvd.randomized_svd``) unless
+``exact_svd`` asks for ``torch.linalg.svd``. Its sketches are drawn on the
+CPU from keys (step, block index, slice, sweep), so a restart replays a step
+exactly and the card draws what the CPU draws; a caller may hand its own
+sketches in. The S shrinkage runs through ``kernels.ops.soft_threshold``:
+the hand-written CUDA kernel on the card, its plain version on the CPU.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
 import torch
 
+from ..kernels import ops
 from ..tree import leaf_by_path, replace_by_path
 from . import sparse
 from .controller import ControllerConfig, controller_update
-from .prox import effective_rank_ratio_from_singular_values, soft_threshold
-from .rsvd import rank_cap
+from .prox import effective_rank_ratio_from_singular_values
+from .rsvd import randomized_svd, rank_cap, sketch
 from .scaling import PAPER_RHO_CONSTANT, rho_for_block
 from .selection import BlockInfo, SelectionConfig, path_str, select_blocks, total_logical_blocks
 
-__all__ = ["SalaadConfig", "BlockSLR", "SLRState", "init_slr_state",
-           "admm_update", "surrogate_params"]
+__all__ = ["SalaadConfig", "BlockSLR", "SLRState", "init_slr_state", "penalty",
+           "admm_update", "block_sketches", "surrogate_params", "slr_param_count"]
 
 
 @dataclass(frozen=True)
 class SalaadConfig:
-    rho_constant: float = PAPER_RHO_CONSTANT
+    """Everything that parameterizes Algorithm 1 (the JAX package's fields
+    and defaults)."""
+
+    rho_constant: float = PAPER_RHO_CONSTANT   # proportionality in Eq. (7)
     controller: ControllerConfig = field(default_factory=ControllerConfig)
     selection: SelectionConfig = field(default_factory=SelectionConfig)
-    rank_cap_ratio: float = 0.25
-    coo_cap_density: float = 0.15
-    admm_inner_steps: int = 1
+    rank_cap_ratio: float = 0.25     # randomized-SVD sketch cap (vs min(n, m))
+    coo_cap_density: float = 0.15    # S capacity (vs n * m)
+    rsvd_iters: int = 2              # power iterations in the range finder
+    admm_inner_steps: int = 1        # J in Algorithm 1
+    update_every: int = 40           # K in Algorithm 1
     surrogate_dtype: Any = torch.float32
-    exact_svd: bool = False
-
-    def __post_init__(self):
-        if not self.exact_svd:
-            raise NotImplementedError(
-                "SalaadConfig(exact_svd=False) selects the randomized SVD, "
-                "which is ported with the training slice; pass exact_svd=True"
-            )
+    exact_svd: bool = False          # torch.linalg.svd instead of the rSVD
 
 
 @dataclass(frozen=True)
@@ -98,8 +106,35 @@ def init_slr_state(params: Any, cfg: SalaadConfig) -> tuple[SLRState, list[Block
     return state, blocks
 
 
-def _update_leaf(x: torch.Tensor, blk: BlockSLR, info: BlockInfo, cfg: SalaadConfig):
-    """One J-sweep for every slice of one leaf, as a batch of (n, m) blocks."""
+def penalty(params: Any, state: SLRState, blocks: list[BlockInfo]) -> torch.Tensor:
+    """Stage-1 coupled-loss term ``sum_i rho_i/2 ||X_i - Z_i||_F^2`` in f32,
+    against the cached target Z, detached: it is a constant within a
+    guided-learning phase."""
+    total = None
+    for info in blocks:
+        blk = state[info.name]
+        x = leaf_by_path(params, info.path).float()
+        term = 0.5 * blk.rho * ((x - blk.z.detach().float()) ** 2).sum()
+        total = term if total is None else total + term
+    if total is None:
+        return torch.zeros((), dtype=torch.float32)
+    return total
+
+
+def block_sketches(step: int, index: int, info: BlockInfo, rank: int, sweeps: int,
+                   device) -> torch.Tensor:
+    """The rSVD sketches of selected leaf number ``index`` at ``step``:
+    (num_blocks, sweeps, m, rank), slice b's sweep j keyed (step, index, b, j)."""
+    omega = torch.stack([
+        torch.stack([sketch((step, index, b, j), info.m, rank) for j in range(sweeps)])
+        for b in range(info.num_blocks)])
+    return omega.to(device)
+
+
+def _update_leaf(x: torch.Tensor, blk: BlockSLR, info: BlockInfo, cfg: SalaadConfig,
+                 omega: torch.Tensor | None = None):
+    """One J-sweep for every slice of one leaf, as a batch of (n, m) blocks;
+    ``omega`` (nb, J, m, r) are the rSVD sketches (unused by the exact SVD)."""
     n, m = info.n, info.m
     stack = info.stack_dims
     nb = info.num_blocks
@@ -118,14 +153,17 @@ def _update_leaf(x: torch.Tensor, blk: BlockSLR, info: BlockInfo, cfg: SalaadCon
     p_new = torch.zeros((nb, n, r), device=x.device)
     vt_new = torch.zeros((nb, r, m), device=x.device)
     s_thr = torch.zeros((nb, r), device=x.device)
-    for _ in range(cfg.admm_inner_steps):
+    for j in range(cfg.admm_inner_steps):
         mmat = x32 - s_dense + y32 / rho
-        u, s, v = torch.linalg.svd(mmat, full_matrices=False)
-        u, s, vt_new = u[..., :r], s[..., :r], v[..., :r, :]
+        if cfg.exact_svd:
+            u, s, v = torch.linalg.svd(mmat, full_matrices=False)
+            u, s, vt_new = u[..., :r], s[..., :r], v[..., :r, :]
+        else:
+            u, s, vt_new = randomized_svd(mmat, omega[:, j], cfg.rsvd_iters)
         s_thr = torch.clamp_min(s - (alpha / rho)[:, None], 0.0)
         p_new = u * s_thr[:, None, :]
         l_dense = p_new @ vt_new
-        s_dense = soft_threshold(x32 - l_dense + y32 / rho, (beta / rho)[:, None, None])
+        s_dense = ops.soft_threshold((x32 - l_dense + y32 / rho).contiguous(), beta / rho)
         y32 = y32 + rho * (x32 - l_dense - s_dense)
 
     coo = sparse.from_dense(s_dense, cap)
@@ -152,15 +190,24 @@ def _update_leaf(x: torch.Tensor, blk: BlockSLR, info: BlockInfo, cfg: SalaadCon
 
 @torch.no_grad()
 def admm_update(params: Any, state: SLRState, blocks: list[BlockInfo],
-                cfg: SalaadConfig, step: int = 0) -> tuple[SLRState, dict]:
-    """Stage 2 + I-controller for every block. ``step`` keys the randomized
-    SVD in the JAX package; the exact path is deterministic without it."""
+                cfg: SalaadConfig, step: int = 0,
+                sketches: dict[str, torch.Tensor] | None = None) -> tuple[SLRState, dict]:
+    """Stage 2 + I-controller for every block. Deterministic in ``step``: the
+    rSVD sketches of leaf i are ``block_sketches(step, i, ...)`` unless
+    ``sketches`` maps the leaf's name to its own (num_blocks, J, m, r)."""
     new_state: SLRState = {}
     all_stats: dict = {}
-    for info in blocks:
+    for i, info in enumerate(blocks):
         x = leaf_by_path(params, info.path).float()
-        new_state[info.name], all_stats[info.name] = _update_leaf(
-            x, state[info.name], info, cfg)
+        blk = state[info.name]
+        omega = None
+        if not cfg.exact_svd:
+            if sketches is not None and info.name in sketches:
+                omega = sketches[info.name].to(x.device, torch.float32)
+            else:
+                omega = block_sketches(int(step), i, info, blk.p.shape[-1],
+                                       cfg.admm_inner_steps, x.device)
+        new_state[info.name], all_stats[info.name] = _update_leaf(x, blk, info, cfg, omega)
     recon = [s["recon_err"].mean() for s in all_stats.values()]
     all_stats["_mean_recon_err"] = torch.stack(recon).mean() if recon else torch.zeros(())
     return new_state, all_stats
@@ -179,3 +226,20 @@ def surrogate_params(params: Any, state: SLRState, blocks: list[BlockInfo]) -> A
         return leaf
 
     return replace_by_path(params, replace_leaf)
+
+
+def slr_param_count(state: SLRState, blocks: list[BlockInfo]) -> dict:
+    """Deployment parameter accounting (factored L + COO S), per block and
+    total: live ranks times (n + m), plus live S entries."""
+    out: dict = {}
+    total = 0
+    for info in blocks:
+        blk = state[info.name]
+        rank_live = (blk.s_vals > 0).sum(-1).cpu().numpy()
+        nnz_live = sparse.nnz(blk.s_coo).cpu().numpy()
+        l_params = int(np.sum(rank_live) * (info.n + info.m))
+        s_params = int(np.sum(nnz_live))
+        out[info.name] = {"L": l_params, "S": s_params}
+        total += l_params + s_params
+    out["_total"] = total
+    return out

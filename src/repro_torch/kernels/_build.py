@@ -50,6 +50,8 @@ SIGNATURES = {
     "paged_attention_launch": [_P] * 6 + [_I] * 8 + [_P],
     # q, k, v, table, lengths, out, B, Hq, Hkv, kq, D, N, bs, nb, dtype, stream
     "paged_attention_kquery_launch": [_P] * 6 + [_I] * 9 + [_P],
+    # x, tau, out, nb, per, dtype, stream
+    "soft_threshold_launch": [_P] * 3 + [_I, _L, _I, _P],
 }
 
 

@@ -19,6 +19,7 @@ from .paged_attention import paged_attention, paged_attention_kquery
 from .slr_matmul import BsrStack
 from .slr_matmul import slr_matmul_multi as _slr_matmul_multi_kernel
 from .slr_matmul import slr_matmul_stacked as _slr_matmul_stacked_kernel
+from .soft_threshold import soft_threshold
 
 __all__ = [
     "slr_matmul",
@@ -30,6 +31,7 @@ __all__ = [
     "paged_attention_kquery",
     "page_copy",
     "flash_attention",
+    "soft_threshold",
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
@@ -45,6 +47,7 @@ KERNELS = {
     "paged_attention_kquery": paged_attention_kquery,
     "page_copy": page_copy,
     "flash_attention": flash_attention,
+    "soft_threshold": soft_threshold,
 }
 
 

@@ -15,6 +15,7 @@ import torch
 NEG_INF = -1e30
 
 __all__ = [
+    "soft_threshold_ref",
     "lowrank_matmul_ref",
     "bsr_matmul_ref",
     "slr_matmul_ref",
@@ -25,6 +26,15 @@ __all__ = [
     "page_copy_ref",
     "attention_ref",
 ]
+
+
+def soft_threshold_ref(x: torch.Tensor, tau) -> torch.Tensor:
+    """sign(x) * max(|x| - tau, 0) in x's dtype, tau cast to it first; tau is
+    a scalar or one threshold per leading slice (nb,). NaN stays NaN."""
+    tau = torch.as_tensor(tau, device=x.device).to(x.dtype)
+    if tau.dim():
+        tau = tau.reshape(-1, *([1] * (x.dim() - 1)))
+    return torch.sign(x) * torch.clamp_min(x.abs() - tau, 0)
 
 
 def lowrank_matmul_ref(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:

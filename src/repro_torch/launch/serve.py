@@ -6,7 +6,9 @@ of ``repro/launch/serve.py``, ``--engine paged``).
 spread round-robin across the tiers (pin them all with ``--tier``); the
 engine runs one decode per active tier over the shared paged KV, and
 ``--tier-policy pressure`` downshifts the serving tier under page pressure
-before evicting. Without a checkpoint the SLR state is the fresh all-zero
+before evicting. ``--ckpt-dir`` serves the parameters and SLR state of the
+latest training checkpoint there (the JAX package's format, written by
+either package's trainer); without one the SLR state is the fresh all-zero
 one, so every SLR site takes the zero corner, as in the JAX launcher.
 
 ``--adapters N`` serves N tenants instead: HPA views of the state at keeps
@@ -24,15 +26,21 @@ TTFT percentiles come from the requests' timestamps.
       --adapters 3 --max-resident-adapters 2
 
 Tensors live on the card unless ``--device cpu`` is given (with
-``--reduced``, for a run of the plain versions on the CPU).
+``--reduced``, for a run of the plain versions on the CPU). On the card the
+model runs the CUDA attention kernels (``kernel_impl='pallas'``: flash
+prefill, paged decode and k-query) when ``--kv-dtype`` is the model's dtype,
+since those kernels read KV pages in it; pages in another dtype, and the
+CPU, keep the config's attention path (gather + masked softmax).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
 import numpy as np
+import torch
 
 from ..configs import get_arch
 from ..core.admm import SalaadConfig, init_slr_state
@@ -45,12 +53,12 @@ from ..serving.deployed import DeployedModel
 from ..serving.elastic import ModelBank, format_capability_table
 from ..serving.engine import EngineConfig, PagedServingEngine
 from ..serving.slr_params import deployment_report
+from ..train import checkpoint
 
 ENGINES = {"paged": PagedServingEngine}
 
 # switches whose code paths come with later slices of the port
 _LATER = {
-    "ckpt_dir": "--ckpt-dir (the checkpoint loader comes with the training slice)",
     "spec_k": "--spec-k (speculative decoding is a later slice)",
     "spec_adaptive": "--spec-adaptive (speculative decoding is a later slice)",
     "mesh": "--mesh (tensor-parallel serving is a later slice)",
@@ -137,7 +145,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device for weights and KV (default: the card; 'cpu' "
                          "runs the kernels' plain versions)")
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the latest training checkpoint in this directory")
     ap.add_argument("--keep-ratios", default=None,
                     help="comma-separated HPA budgets materialized as ONE ModelBank's "
                          "tiers, largest first, e.g. 1.0,0.6,0.3 (omit: serve dense init)")
@@ -204,6 +213,14 @@ def _reject_later_slices(ap: argparse.ArgumentParser, args):
         raise ValueError(f"not ported yet: {'; '.join(asked)}")
 
 
+def attention_impl(cfg, device, kv_dtype: str) -> str:
+    """The attention path the launcher serves ``cfg`` with: the CUDA kernels
+    on the card when the pages hold the model's dtype, else the config's."""
+    if device.type == "cuda" and getattr(torch, kv_dtype) == cfg.param_dtype:
+        return "pallas"
+    return cfg.kernel_impl
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -212,9 +229,14 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     device = resolve_device(args.device)
+    cfg = dataclasses.replace(cfg, kernel_impl=attention_impl(cfg, device, args.kv_dtype))
     params = model_lib.init_params(cfg, seed=args.seed, device=device)
-    scfg = SalaadConfig(selection=SelectionConfig(min_dim=16), exact_svd=True)
+    scfg = SalaadConfig(selection=SelectionConfig(min_dim=16))
     slr, blocks = init_slr_state(params, scfg)
+    if args.ckpt_dir:
+        # serving reads only these two parts of the saved TrainState
+        restored = checkpoint.restore(args.ckpt_dir, {"params": params, "slr": slr})
+        params, slr = restored["params"], restored["slr"]
     ecfg = EngineConfig(
         max_slots=args.max_slots, max_len=args.max_len, block_size=args.block_size,
         num_blocks=args.num_blocks, kv_dtype=args.kv_dtype,

@@ -3,9 +3,11 @@
 
 Paths, one set of weights:
   * no cache, ``kernel_impl='pallas'``: the CUDA flash attention kernel
-    (``kernels/ops.py``), causal;
-  * no cache otherwise (dense or blockwise): plain causal masked softmax
-    (the blockwise flash-style memory bound comes with the training slice);
+    (``kernels/ops.py``), causal, forward only: it has no backward (nor has
+    the Pallas kernel), so asking for gradients through it raises;
+  * no cache, ``kernel_impl='blockwise'``: the flash forward and backward in
+    PyTorch (``models/flash_vjp.py``), the JAX trainer's path;
+  * no cache, ``kernel_impl='dense'``: plain causal masked softmax;
   * paged cache, ``kernel_impl='pallas'``: the CUDA paged kernels
     (``kernels/ops.py``), single-query for decode and k-query for chunks;
   * paged cache otherwise: gather the slot's pages, then masked einsum.
@@ -23,6 +25,7 @@ import torch
 
 from ..kernels import ops
 from ..kernels.ref import NEG_INF, _gather_pages, attention_ref
+from .flash_vjp import flash_attention_vjp
 from .layers import apply_rope, apply_weight
 
 __all__ = ["PagedLayerCache", "paged_insert", "paged_gather", "attention_block"]
@@ -78,6 +81,8 @@ def attention_block(
     rope_theta: float = 1e4,
     cache: PagedLayerCache | None = None,
     kernel_impl: str = "blockwise",
+    q_block: int = 512,
+    kv_block: int = 1024,
 ):
     """Projections + RoPE + attention + output projection. The four
     projections get (B, T, .) activations, unflattened, so a batched adapter
@@ -100,10 +105,16 @@ def attention_block(
 
     if cache is None:
         if kernel_impl == "pallas":
+            if torch.is_grad_enabled() and any(t.requires_grad for t in (qh, kh, vh)):
+                raise NotImplementedError(
+                    "the CUDA flash attention kernel (kernel_impl='pallas') has no "
+                    "backward; train with kernel_impl='blockwise'")
             out = ops.flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
                                       causal=True)
-        else:
+        elif kernel_impl == "dense":
             out = attention_ref(qh, kh, vh, causal=True)
+        else:
+            out = flash_attention_vjp(qh, kh, vh, True, q_block, kv_block)
         new_cache = (kh, vh)
     else:
         new_cache = paged_insert(cache, kh, vh)

@@ -6,6 +6,8 @@
     decode_step(params, tokens, cache, cfg)         -> (logits, cache)
     chunk_prefill_step(params, tokens, counts, cache, cfg) -> (logits, cache)
     init_paged_cache(cfg, ...)                      -> PagedKVCache
+    cross_entropy(logits, labels, mask)             -> mean next-token NLL
+    loss_fn(params, batch, cfg)                     -> (loss, metrics)
 
 The moe, ssm, hybrid, encdec and vlm families come with their slices and
 raise here.
@@ -17,7 +19,8 @@ import torch
 from ..device import resolve_device
 from . import transformer
 
-__all__ = ["init_params", "decode_step", "chunk_prefill_step", "init_paged_cache"]
+__all__ = ["init_params", "decode_step", "chunk_prefill_step", "init_paged_cache",
+           "cross_entropy", "loss_fn"]
 
 
 def _require_dense(cfg):
@@ -36,6 +39,33 @@ def _forward(params, batch: dict, cfg, cache=None, position_offset=0, collect_kv
     _require_dense(cfg)
     return transformer.forward(params, batch["tokens"], cfg, cache=cache,
                                position_offset=position_offset, collect_kv=collect_kv)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token negative log-likelihood in f32, over ``mask`` where
+    given (the JAX package's max-shifted log-sum-exp; the gold logit comes
+    from a gather, which equals its masked reduction)."""
+    logits = logits.float()
+    m = logits.amax(-1, keepdim=True).detach()
+    shifted = logits - m
+    logz = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0]
+    gold = torch.gather(shifted, -1, labels.long()[..., None])[..., 0] + m[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
+
+
+def loss_fn(params, batch: dict, cfg, aux_weight: float = 0.01):
+    """Next-token CE plus ``aux_weight`` times the auxiliary loss, which is 0
+    for the dense family (the MoE load-balance term comes with that family).
+    Returns ``(loss, {"ce": ..., "aux": ...})``."""
+    logits, _ = _forward(params, batch, cfg)
+    loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 @torch.no_grad()

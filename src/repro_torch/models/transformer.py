@@ -12,6 +12,12 @@ the (B, T, K) activations as they are: a batched adapter site selects its
 tables per slot, so rows are never flattened across slots on its way. The
 ``bsr`` format unrolls ``layers`` into a list of per-layer dicts, which the
 same loop walks directly (JAX's ``_forward_unrolled``).
+
+The no-cache path is what training differentiates: it writes nothing in
+place, the per-layer slices accumulate their gradients into the stacked
+leaves, and under ``cfg.remat`` each layer runs inside
+``torch.utils.checkpoint`` (its activations are recomputed in the backward
+pass, as ``jax.checkpoint`` recomputes them in the JAX package).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .attention import PagedLayerCache, attention_block
@@ -101,7 +108,7 @@ def _layer_apply(lp: dict, x, cfg, positions, cache):
     attn_out, kv = attention_block(
         lp, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
         positions=positions, rope_theta=cfg.rope_theta, cache=cache,
-        kernel_impl=cfg.kernel_impl,
+        kernel_impl=cfg.kernel_impl, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
     )
     x = x + attn_out
     h = rmsnorm(x, lp["pre_mlp"]["norm_scale"])
@@ -128,13 +135,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     layers = params["layers"]
     unrolled = isinstance(layers, (list, tuple))
     kvs = []
+    remat = cfg.remat and cache is None and not collect_kv and torch.is_grad_enabled()
     for l in range(cfg.num_layers):
         lp = layers[l] if unrolled else layer_view(layers, l)
         layer_cache = None
         if cache is not None:
             layer_cache = PagedLayerCache(cache.k[l], cache.v[l], cache.block_table,
                                           cache.length)
-        x, kv = _layer_apply(lp, x, cfg, positions, layer_cache)
+        if remat:
+            x, kv = checkpoint(_layer_apply, lp, x, cfg, positions, None,
+                               use_reentrant=False)
+        else:
+            x, kv = _layer_apply(lp, x, cfg, positions, layer_cache)
         if cache is None and collect_kv:
             kvs.append(kv)
 

@@ -4,14 +4,22 @@ launcher's ``jit_retraces``) and the same request, token, tier, adapter,
 prefix-cache and byte counts. Both launchers serve a fresh all-zero SLR
 state, so every SLR site takes the zero corner and the streams agree exactly;
 only the timings differ.
+
+``python -m repro_torch.launch.train`` writes checkpoints that the serve
+launcher's ``--ckpt-dir`` serves, and a checkpoint the JAX package's trainer
+wrote serves through both launchers with the same line.
 """
 import json
+import os
 import sys
 
 import pytest
+import torch
 
 from repro.launch import serve as jax_serve
-from repro_torch.launch import serve
+from repro.launch import train as jax_train
+from repro_torch.configs import get_arch
+from repro_torch.launch import serve, train
 
 TIMED = {"tok_per_s", "ttft_p50_ms", "ttft_p99_ms", "slo_attainment"}
 
@@ -52,10 +60,66 @@ def test_cli_matches_jax(flags, monkeypatch, capsys):
         assert sum(got["tokens_by_adapter"].values()) == got["tokens"]
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-dir", "ckpt"], ["--engine", "speculative"],
+@pytest.mark.parametrize("flag", [["--engine", "reference"], ["--engine", "speculative"],
                                   ["--spec-k", "2"], ["--mesh", "model=2"],
                                   ["--kv-dtype", "int8"], ["--trace-out", "t.json"],
                                   ["--metrics-port", "0"]])
 def test_later_slice_switches_raise(flag):
     with pytest.raises(ValueError, match="not ported yet"):
         serve.main(["--arch", "salaad_llama_60m", "--reduced", "--device", "cpu", *flag])
+
+
+TRAIN = ["--arch", "salaad_llama_60m", "--reduced", "--steps", "10", "--update-every", "5",
+         "--ckpt-every", "10", "--seq-len", "16", "--batch", "4"]
+SERVE = ["--arch", "salaad_llama_60m", "--reduced", "--keep-ratios", "1.0,0.6", "--fmt",
+         "fused", "--requests", "4", "--max-new", "4"]
+
+
+def test_train_then_serve_checkpoint(tmp_path, monkeypatch, capsys):
+    """Ten reduced steps (two ADMM phases) on the CPU write a checkpoint at
+    step 10; the serve launcher serves its parameters and SLR state."""
+    ckpt = str(tmp_path)
+    train.main(TRAIN + ["--device", "cpu", "--ckpt-dir", ckpt])
+    out = json.loads(capsys.readouterr().out)
+    assert [m["step"] for m in out["metrics"] if "admm_recon_err" in m] == [4, 9]
+    assert sorted(os.listdir(ckpt)) == ["manifest.json", "step_0000000010"]
+    got = run_cli(serve.main, SERVE + ["--device", "cpu", "--ckpt-dir", ckpt], monkeypatch,
+                  capsys)
+    assert got["requests"] == 4 and got["tokens"] == 16
+    assert all(t["slr_params"] > 0 for t in got["tiers"])
+    assert got["tiers"][1]["slr_params"] < got["tiers"][0]["slr_params"]
+
+
+def test_serve_jax_checkpoint_matches_jax(tmp_path, monkeypatch, capsys):
+    """The JAX package's trainer writes the checkpoint; both serve launchers
+    serve it with the same keys (less ``jit_retraces``) and the same counts,
+    bytes and greedy sample."""
+    ckpt = str(tmp_path)
+    monkeypatch.setattr(sys, "argv", ["train", *TRAIN, "--ckpt-dir", ckpt])
+    jax_train.main()
+    capsys.readouterr()
+    argv = SERVE + ["--ckpt-dir", ckpt]
+    got = run_cli(serve.main, argv + ["--device", "cpu"], monkeypatch, capsys)
+    want = run_cli(jax_serve.main, argv, monkeypatch, capsys)
+    assert set(got) == set(want) - {"jit_retraces"}
+    for key in set(got) - TIMED:
+        assert got[key] == want[key], key
+    assert got["tiers"][0]["slr_params"] > 0
+
+
+def test_attention_impl_on_card_needs_model_dtype_pages():
+    """On the card the launcher takes the CUDA attention kernels only for KV
+    pages in the model's dtype; other pages, and the CPU, keep the config's
+    attention path."""
+    cfg = get_arch("salaad_llama_60m")
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    assert cfg.param_dtype == torch.float32 and cfg.kernel_impl != "pallas"
+    assert serve.attention_impl(cfg, card, "float32") == "pallas"
+    assert serve.attention_impl(cfg, card, "bfloat16") == cfg.kernel_impl
+    assert serve.attention_impl(cfg, cpu, "float32") == cfg.kernel_impl
+
+
+def test_train_launcher_later_slice_switch_raises():
+    with pytest.raises(ValueError, match="not ported yet"):
+        train.main(["--arch", "salaad_llama_60m", "--reduced", "--device", "cpu",
+                    "--distributed"])

@@ -425,3 +425,101 @@ def test_adapter_streams_on_card_match_cpu(cuda):
         assert got["cuda", mode] == got["cpu", mode]
     assert got["cuda", "batched"][0] == got["cuda", "grouped"][0]
     assert got["cuda", "batched"][1] >= 1 and got["cuda", "batched"][2] >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 32000, 512), (8, 512, 1376), (8, 1376, 512),
+                                   (3, 37, 61), (2, 1, 3), (5, 7, 9)])
+def test_soft_threshold_matches_plain(cuda, dtype, shape):
+    """Per-slice thresholds with one slice at 0 (the identity, exactly) and
+    one above max |x| (all zeros), NaN and +-inf written through; slices
+    whose length is no multiple of the vector width start unaligned and run
+    the scalar path. Exact in both dtypes: each side computes |x| - tau in
+    f32 from the same operands and rounds once to x's dtype."""
+    rng = np.random.default_rng(sum(shape))
+    nb = shape[0]
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 3)
+    flat = x.view(nb, -1)
+    flat[:, 0] = float("nan")
+    flat[:, -1] = float("inf")
+    flat[0, min(1, flat.shape[1] - 1)] = -float("inf")
+    tau = torch.from_numpy(rng.random(nb).astype(np.float32) * 2)
+    tau[0] = 0.0
+    if nb > 1:
+        tau[-1] = 100.0
+    x, tau = x.to(cuda, dtype), tau.to(cuda)
+    ops.reset_launch_counts()
+    got = ops.soft_threshold(x, tau)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["soft_threshold"] == 1
+    want = ref.soft_threshold_ref(x, tau)
+    assert got.dtype == dtype and got.shape == x.shape
+    g, w = got.float(), want.float()
+    assert torch.equal(torch.isnan(g), torch.isnan(w))
+    fin = ~torch.isnan(w)
+    assert torch.equal(g[fin], w[fin])
+    assert torch.equal(g[0][~torch.isnan(g[0])], x[0].float()[~torch.isnan(g[0])])
+    if nb > 1:
+        assert int(torch.count_nonzero(g[-1].nan_to_num(nan=0.0, posinf=0.0))) == 0
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """Five train steps and one ADMM step (rSVD, sketches drawn on the CPU)
+    of the reduced Llama on the card against the same on the CPU, from one
+    state on the same batches: losses at 1e-4 relative; L = p @ vt within
+    1e-3 of its scale; the ADMM step launched soft_threshold once per
+    selected leaf."""
+    from repro_torch.core.selection import SelectionConfig
+    from repro_torch.data.synthetic import DataConfig, SyntheticC4
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_arch("salaad_llama_60m").reduced(), kernel_impl="blockwise")
+    data = SyntheticC4(DataConfig(cfg.vocab_size, 32, 4, seed=0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        trainer = Trainer(cfg, TrainerConfig(
+            total_steps=5, log_every=1, adam=AdamConfig(lr=1e-2),
+            salaad=SalaadConfig(update_every=5, selection=SelectionConfig(min_dim=16))),
+            device=dev)
+        state = trainer.init(params=model_lib.init_params(cfg, seed=0, device=dev))
+        ops.reset_launch_counts()
+        state = trainer.fit(state, data)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["soft_threshold"] == len(trainer.blocks)
+        runs[dev] = (state, [m["loss"] for m in trainer.metrics_log if "loss" in m])
+    (cs, cl), (gs, gl) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    for name, blk in gs.slr.items():
+        want = cs.slr[name]
+        lw = (want.p @ want.vt)
+        assert float(((blk.p @ blk.vt).cpu() - lw).abs().max()) <= 1e-3 * float(lw.abs().max())
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_serve_launcher_on_card_serves_checkpoint(cuda, kv_dtype, tmp_path, capsys):
+    """The serve launcher on the card serves a checkpoint written by the train
+    launcher: pages in the model's dtype (f32) go through the CUDA paged
+    kernels, bf16 pages through the gather path, and both finish every
+    request with SLR parameters in every tier."""
+    import json
+
+    from repro_torch.launch import serve, train
+
+    arch = ["--arch", "salaad_llama_60m", "--reduced"]
+    train.main(arch + ["--device", "cpu", "--steps", "10", "--update-every", "5",
+                       "--ckpt-every", "10", "--seq-len", "16", "--batch", "4",
+                       "--ckpt-dir", str(tmp_path)])
+    capsys.readouterr()
+    ops.reset_launch_counts()
+    serve.main(arch + ["--ckpt-dir", str(tmp_path), "--keep-ratios", "1.0,0.6", "--fmt",
+                       "fused", "--kv-dtype", kv_dtype, "--requests", "4", "--max-new", "4"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["requests"] == 4 and line["tokens"] == 16
+    assert all(t["slr_params"] > 0 for t in line["tiers"])
+    assert counts["slr_matmul_stacked"] >= 1
+    paged = counts["paged_attention"] + counts["paged_attention_kquery"]
+    assert (paged >= 1) if kv_dtype == "float32" else (paged == 0)

@@ -24,7 +24,13 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.bridge", "repro_torch.core.hpa", "repro_torch.serving.elastic",
             "repro_torch.serving.prefix_cache", "repro_torch.launch.serve",
             "repro_torch.kernels.page_copy", "repro_torch.kernels.flash_attention",
-            "repro_torch.serving.adapters"} <= set(mods)
+            "repro_torch.serving.adapters", "repro_torch.kernels.soft_threshold",
+            "repro_torch.core.rsvd", "repro_torch.core.salaad", "repro_torch.core.prox",
+            "repro_torch.models.flash_vjp", "repro_torch.optim.adam",
+            "repro_torch.optim.schedule", "repro_torch.data.synthetic",
+            "repro_torch.train.state", "repro_torch.train.steps",
+            "repro_torch.train.checkpoint", "repro_torch.train.fault",
+            "repro_torch.train.trainer", "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"

@@ -310,3 +310,30 @@ def test_slr_matmul_multi_slot_permutation():
     torch.testing.assert_close(
         ops.slr_matmul_multi(x, tp, tvt, stack, same).reshape(-1, m),
         ops.slr_matmul_stacked(x.reshape(-1, k), tp, tvt, stack, 2), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_soft_threshold_matches_pallas(dtype):
+    """A batch of three ragged (37, 61) blocks with a threshold each: 0 (the
+    identity), a shrink, and one above max |x| (all zeros); NaN stays NaN and
+    +-inf stays +-inf. The Pallas kernel shrinks one block by one scalar, so
+    it runs per block; tau is cast to x's dtype on both sides, and the two
+    agree exactly (the one rounding is that of |x| - tau)."""
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((3, 37, 61)) * 2).astype(np.float32)
+    x[0, 0, :4] = [np.nan, np.inf, -np.inf, 0.0]
+    x[1, 3, 5:8] = [np.nan, np.inf, -np.inf]
+    x[2, 36, 60] = np.nan
+    tau = np.array([0.0, 0.7, 100.0], np.float32)
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    tx = torch.from_numpy(x).to(tdt)
+    got = ops.soft_threshold(tx, torch.from_numpy(tau)).float().numpy()
+    want = np.stack([np.asarray(jops.soft_threshold(jnp.asarray(x[b], jdt), float(tau[b]),
+                                                    interpret=True), np.float32)
+                     for b in range(3)])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[0], tx[0].float().numpy())      # tau = 0
+    assert np.isnan(got[2, 36, 60]) and np.count_nonzero(np.nan_to_num(got[2])) == 0
+    assert got[1, 3, 6] == np.inf and got[1, 3, 7] == -np.inf and np.isnan(got[1, 3, 5])
+    assert ops.soft_threshold.launches == 0          # the CPU runs the plain version

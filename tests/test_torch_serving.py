@@ -108,8 +108,13 @@ def test_admm_update_matches_jax(trained, step):
 
 
 def test_exact_svd_is_required():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        SalaadConfig()
+    """The exact SVD is no longer required: the randomized SVD is ported, and
+    ``SalaadConfig()`` selects it with the JAX package's defaults."""
+    cfg, jcfg = SalaadConfig(), JaxSalaadConfig()
+    assert not cfg.exact_svd and not jcfg.exact_svd
+    for f in ("rsvd_iters", "update_every", "admm_inner_steps", "rank_cap_ratio",
+              "coo_cap_density", "rho_constant"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
 
 
 def test_surrogate_params_match_jax(trained):
