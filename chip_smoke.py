@@ -22,7 +22,10 @@ error:
    yardstick and its bound (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s, whichever is larger, for this run's data); 3i holds the
    ADMM S-update's soft_threshold at the embedding and layer-stack shapes
-   with NaN, +-inf, a zero and an above-max threshold;
+   with NaN, +-inf, a zero and an above-max threshold; 3j holds the
+   unstacked fused SLR kernel (the hybrid's shared block) at zamba2's q,
+   gate and down shapes and a ragged one, f32, bf16 and bf16 activations
+   over f32 tables, bs 128 and 32, T = 1, 8 and 37;
 4. main path, with every launch count set to 0 just before each run and read
    just after:
    a. the fused bank serves 24 greedy requests through ``serve_batch``
@@ -54,10 +57,26 @@ error:
       ``python -m repro_torch.launch.serve --ckpt-dir`` (in process, so the
       launch counts are read): ``slr_params > 0`` and the stacked SLR and
       paged kernels launch;
+   i. the hybrid at full width: zamba2_2p7b (54 layers, d_model 2560, bf16)
+      from a numpy seed, one randomized-SVD ADMM sweep on the card (leaf by
+      leaf, with the sketches one ``admm_update`` call draws; its matmuls
+      and the tiers' dense products in TF32), HPA tiers keep 1.0 / 0.5 in
+      the ``fused`` format as one ModelBank, 6 greedy requests (prompts of
+      8-40 tokens, 16 new tokens, tiers round-robin) on ``ReferenceEngine``
+      (4 slots, max_len 128): the unstacked SLR kernel must launch for every
+      tier, 63 times per decode call when every shared-block site has both
+      parts live; then one short request under torch.profiler;
+   j. ``python -m repro_torch.launch.serve --arch zamba2_2p7b`` (the
+      fallback note, then the reference engine) and ``--engine reference``
+      on salaad_llama_60m;
 5. parity: the first one-shot prefill's, the first chunk's and the first
    decode tick's logits on the card against the same model on the CPU; then
    (5b) five train steps and one ADMM step from one full-width state on the
-   card and on the CPU, the same batches and CPU-drawn sketches.
+   card and on the CPU, the same batches and CPU-drawn sketches; (5c) one
+   fused tier of the hybrid at full width and one group (6 layers, f32) on
+   the card and on the CPU: ReferenceEngine streams token-identical, decode
+   logits within 1e-3, and on the card prefill(15) + one decode step against
+   the no-cache forward (JAX's ``test_decode_consistency``).
 
 Output: the card's name and power limit, build time, per-phase lines, then
 one ``{"kernels": [...]}`` line and, last, the device line the harness reads.
@@ -92,10 +111,22 @@ ADAPTER_ROWS = 3                       # device pool rows: fewer than tenants, s
 TRAIN_STEPS, TRAIN_K = 20, 5     # 4g: 4 ADMM steps
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 256, 8, 1e-3
 PARITY_BATCH = 4                 # 5b: card vs CPU training
+HYBRID = "zamba2_2p7b"
+HYBRID_BUDGETS = (1.0, 0.5)
+N_HYBRID, HYBRID_MAX_NEW = 6, 16  # 4i: requests, new tokens each
+N_HYBRID_CPU = 4                 # 5c: requests, MAX_NEW_CPU new tokens each
+MAX_NEW_CPU = 8
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # relative to the output's max |value|
 LOGIT_TOL = 1e-3                            # card vs CPU, relative to max |logit|
+
+
+T_START = time.perf_counter()
+
+
+def phase(name: str):
+    print(f"[{time.perf_counter() - T_START:.1f} s] phase {name}")
 
 
 def fail(msg: str):
@@ -165,7 +196,9 @@ def main() -> None:
     from repro_torch.serving.adapters import AdapterBank, adapterize
     from repro_torch.serving.deployed import DeployedModel
     from repro_torch.serving.elastic import ModelBank
-    from repro_torch.serving.engine import EngineConfig, PagedServingEngine
+    from repro_torch.serving.engine import EngineConfig, PagedServingEngine, ReferenceEngine
+    from repro_torch.serving.slr_params import deployment_report
+    from repro_torch.core.admm import block_sketches
     from repro_torch.tree import tree_map
     from repro_torch.core.selection import SelectionConfig
     from repro_torch.data.synthetic import DataConfig, SyntheticC4
@@ -183,11 +216,13 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    phase("1")
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.3f} s ({_build.build().name})")
 
+    phase("2")
     # ---- 2. model -------------------------------------------------------------
     cfg = dataclasses.replace(get_arch("salaad_llama_60m"), kernel_impl="pallas")
     t0 = time.perf_counter()
@@ -231,6 +266,7 @@ def main() -> None:
     print(f"adapter bank (built in {time.perf_counter() - t0:.3f} s): "
           f"{json.dumps(adapter_bank.adapter_report())}")
 
+    phase("3")
     # ---- 3. kernels against their plain versions, then timed ----------------
     rng = np.random.default_rng(SEED)
 
@@ -666,6 +702,60 @@ def main() -> None:
           f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms (F.softshrink, one "
           f"scalar tau), bound {r_['bound'][0]:.4f} ms ({r_['bound'][1]})")
 
+    phase("3j")
+    # 3j. the unstacked fused SLR kernel (the hybrid's shared block) at
+    # zamba2's q (2560 -> 2560), gate (2560 -> 10240) and down (10240 -> 2560)
+    # shapes with r 640 and a full S at bs 128 (4i's tables: a 15%-dense S
+    # leaves no 128 x 128 block empty), a bs 32 S and a ragged K/M; f32, bf16
+    # and bf16 activations over f32 tables (4i's dtypes)
+    f32, b16 = torch.float32, torch.bfloat16
+    un_shapes = {"q": (2560, 2560, 640, 128, 1.0), "gate": (2560, 10240, 640, 128, 1.0),
+                 "down": (10240, 2560, 640, 128, 1.0),
+                 "gate bs=32": (2560, 10240, 320, 32, 0.3), "ragged": (300, 260, 130, 32, 0.5)}
+    un_err, un_tabs = 0.0, {}
+    for name, (k_u, m_u, r_u, bs_u, occ) in un_shapes.items():
+        ib, jb_u = -(-k_u // bs_u), -(-m_u // bs_u)
+        live_u = rng.random((ib, jb_u)) < occ
+        s_np = rng.standard_normal((ib * bs_u, jb_u * bs_u)).astype(np.float32) * 0.05
+        s_np *= np.repeat(np.repeat(live_u, bs_u, 0), bs_u, 1)
+        mat = bsr_from_dense(s_np[:k_u, :m_u], bs_u, device=dev)
+        p_u, vt_u = rand(k_u, r_u, scale=0.05), rand(r_u, m_u, scale=0.05)
+        for xdt, wdt in ((f32, f32), (b16, b16), (b16, f32)):
+            tabs = (p_u.to(wdt), vt_u.to(wdt), dataclasses.replace(mat, vals=mat.vals.to(wdt)))
+            for t_dim in (1, 8, 37):
+                x = rand(t_dim, k_u).to(xdt)
+                err = check(f"slr_matmul {name} T={t_dim} [{str(wdt)[6:]} tables]",
+                            ops.slr_matmul(x, *tabs), ref.slr_matmul_ref(x, *tabs), xdt)
+                if xdt == f32:
+                    un_err = max(un_err, err)
+        un_tabs[name] = (p_u, vt_u, mat)
+    un_rows = {}
+    for name in ("q", "gate", "down"):
+        p_u, vt_u, mat = un_tabs[name]
+        k_u, m_u, r_u, bs_u, _ = un_shapes[name]
+        live_u = int(mat.counts.sum())
+        w_u = (p_u @ vt_u + bsr_to_dense(mat)).to(b16).contiguous()
+        for t_dim in (1, 8):
+            x = rand(t_dim, k_u).to(b16)
+            un_rows[f"{name} T={t_dim}"] = (
+                time_ms(torch, lambda: ops.slr_matmul(x, p_u, vt_u, mat)),
+                time_ms(torch, lambda: ref.slr_matmul_ref(x, p_u, vt_u, mat), iters=10),
+                time_ms(torch, lambda: torch.matmul(x, w_u)),
+                bound_ms(2 * t_dim * (k_u + m_u) + 4 * (k_u * r_u + r_u * m_u
+                                                        + live_u * bs_u * bs_u)
+                         + 4 * (mat.counts.numel() + live_u),
+                         2 * t_dim * (k_u * r_u + r_u * m_u + live_u * bs_u * bs_u)))
+    ms_, plain_, lib_, bnd_ = un_rows["gate T=1"]
+    results["slr_matmul"] = dict(
+        shape="gate site, decode tick: T=1, K=2560 M=10240 r=640, full S at bs=128, bf16 x "
+              "over f32 tables", max_abs_err=un_err, ms=ms_, plain_ms=plain_, library_ms=lib_,
+        bound=bnd_)
+    for name, (ms_, plain_, lib_, bnd_) in un_rows.items():
+        print(f"  time slr_matmul {name} (bf16 x, f32 tables, full S at bs=128): kernel "
+              f"{ms_:.4f} ms, plain {plain_:.4f} ms, library {lib_:.4f} ms (torch.matmul, dense "
+              f"bf16 W), bound {bnd_[0]:.4f} ms ({bnd_[1]})")
+    del un_tabs
+
     for name, r_ in results.items():
         print(f"  time {name} ({r_['shape']}): kernel {r_['ms']:.4f} ms, plain "
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, bound "
@@ -674,6 +764,7 @@ def main() -> None:
         print(f"  time {name} (decode tick): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"library {lib:.4f} ms (torch.matmul, dense W), bound {b_ms:.4f} ms ({b_by})")
 
+    phase("4a")
     # ---- 4. main path -------------------------------------------------------------
     def serve(label: str, engine, prompts, tiers, need: tuple[str, ...]) -> tuple[dict, dict]:
         torch.cuda.synchronize()
@@ -775,6 +866,7 @@ def main() -> None:
     profiled("4a", lambda: serve_batch(engine, cfg.vocab_size, len(prompts), MAX_NEW, SEED,
                                        tiers=tuple(range(len(BUDGETS))), prompts=prompts))
 
+    phase("4f")
     # 4f. multi-tenant adapters: the adapter bank in batched mode (one decode
     # call per tick over slots of different tenants), then the same bank's
     # tenants each served alone through a plain ModelBank, then grouped mode
@@ -862,6 +954,7 @@ def main() -> None:
     del engine, adapter_bank, tenants, tenant_models, banks
     torch.cuda.empty_cache()
 
+    phase("4g")
     # 4g. SALAAD training at full width (Algorithm 1: K Adam steps on the
     # coupled loss, then one ADMM prox sweep on the randomized SVD)
     tcfg_arch = get_arch("salaad_llama_60m")           # kernel_impl blockwise: flash_vjp
@@ -938,6 +1031,7 @@ def main() -> None:
     profiled("4g one train step", lambda: trainer._train_step(t_state, data.batch(TRAIN_STEPS)))
     profiled("4g one ADMM step", lambda: trainer._admm_step(t_state))
 
+    phase("4h")
     # 4h. train -> checkpoint -> serve: 4g's state served by the launcher
     with tempfile.TemporaryDirectory() as ckpt_dir:
         checkpoint.save(ckpt_dir, t_state.step, t_state)
@@ -958,8 +1052,167 @@ def main() -> None:
     for name in ("slr_matmul_stacked", "paged_attention"):
         if ckpt_counts[name] < 1:
             fail(f"4h never launched {name}: {ckpt_counts}")
-    del trainer
+    del trainer, t_state
 
+    phase("4i")
+    # 4i. the hybrid at full width: zamba2_2p7b, 54 layers, bf16
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zcfg = get_arch(HYBRID)
+    zscfg = SalaadConfig(selection=SelectionConfig(min_dim=16))
+    t0 = time.perf_counter()
+    zparams = model_lib.init_params(zcfg, seed=SEED)
+    zstate, zblocks = init_slr_state(zparams, zscfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    # one rSVD sweep, leaf by leaf so that a leaf's old state is freed once its
+    # new one exists; each leaf gets the sketches one admm_update call at step
+    # 0 draws for it. TF32 products (the sweep's and the tiers' dense
+    # L + S): about 23 TFLOP that f32 on the CUDA cores would take minutes for
+    torch.backends.cuda.matmul.allow_tf32 = True
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    recon = []
+    for i, info in enumerate(zblocks):
+        r_i = zstate[info.name].p.shape[-1]
+        new, st = admm_update(zparams, {info.name: zstate[info.name]}, [info], zscfg, 0,
+                              sketches={info.name: block_sketches(0, i, info, r_i, 1, dev)})
+        zstate[info.name] = new[info.name]
+        recon.append(float(st[info.name]["recon_err"].mean()))
+    torch.cuda.synchronize()
+    t_sweep = time.perf_counter() - t0
+    sweep_counts = ops.launch_counts()
+    sweep_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"main path 4i build: {zcfg.name} {zcfg.num_layers} layers d_model {zcfg.d_model} "
+          f"{str(zcfg.param_dtype)[6:]}, init {t_init:.1f} s; one rSVD sweep over {len(zblocks)} leaves "
+          f"({sum(b.num_blocks for b in zblocks)} blocks) in {t_sweep:.1f} s, mean recon err "
+          f"{float(np.mean(recon)):.6g}, soft_threshold launches "
+          f"{sweep_counts['soft_threshold']}; peak memory {sweep_peak:.2f} GiB")
+    print(f"  selected: {json.dumps({b.name: list(b.stack_dims) for b in zblocks})}")
+    zmodels, ztier_rows = [], []
+    t0 = time.perf_counter()
+    for keep in HYBRID_BUDGETS:
+        slr_k, rep = hpa_keep_ratio(zstate, zblocks, keep, 0.7)
+        zmodels.append(DeployedModel.build(zcfg, zparams, slr_k, zblocks, fmt="fused"))
+        dep = deployment_report(zparams, slr_k, zblocks)
+        ztier_rows.append({"keep": keep, "slr_params": rep["params_after"],
+                           "slr_total_bytes": dep["slr_total_bytes"],
+                           "dense_total_bytes": dep["dense_total_bytes"],
+                           "compression": round(dep["compression"], 3)})
+        del slr_k
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del zstate, new, st                         # the bank holds what it serves
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zbank = ModelBank(zcfg, zmodels, keeps=HYBRID_BUDGETS)
+    print(f"  tiers (HPA + fused deployment in {time.perf_counter() - t0:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held after the SLR state is freed): "
+          f"{json.dumps(ztier_rows)}")
+    print(f"  bank: {json.dumps(zbank.report())}")
+    corners = {}
+    for tier in zbank:
+        shared = tier.params["shared_attn"]
+        row = {}
+        for site in ("q", "k", "v", "o", "gate", "up", "down"):
+            lin = shared[site]
+            r_s = 0 if lin.p is None else lin.p.shape[-1]
+            mat = lin.s_bsr
+            live_s = 0 if mat is None or mat.empty else int(mat.counts.sum())
+            row[site] = {"shape": list(lin.shape), "r": r_s,
+                         "bs": None if mat is None else mat.block_size,
+                         "live_tiles": live_s,
+                         "of": None if mat is None else mat.rows.numel()}
+            if r_s == 0 or live_s == 0:
+                corners.setdefault(tier.name, []).append(site)
+        print(f"  tier {tier.name} shared-block sites: {json.dumps(row)}")
+    print(f"  corner sites (one part empty): {json.dumps(corners) if corners else 'none'}")
+
+    zrng = np.random.default_rng(SEED + 1)
+    zprompts = [zrng.integers(0, zcfg.vocab_size, int(n)).tolist()
+                for n in zrng.integers(8, 41, N_HYBRID)]
+    zeng = ReferenceEngine(zbank, EngineConfig(max_slots=4, max_len=128))
+    tier_launches = {t.index: 0 for t in zbank}
+    tier_calls = {t.index: 0 for t in zbank}
+    inner_step = zeng._step_slot
+
+    def counted_step(slot, token):
+        tier = zeng._active[slot].tier
+        before = ops.KERNELS["slr_matmul"].launches
+        out = inner_step(slot, token)
+        tier_launches[tier] += ops.KERNELS["slr_matmul"].launches - before
+        tier_calls[tier] += 1
+        return out
+
+    zeng._step_slot = counted_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    zstats = serve_batch(zeng, zcfg.vocab_size, N_HYBRID, HYBRID_MAX_NEW, SEED,
+                         tiers=tuple(range(len(zbank))), prompts=zprompts)
+    torch.cuda.synchronize()
+    hybrid_counts = ops.launch_counts()
+    zpeak = torch.cuda.max_memory_allocated() / 2**30
+    if zstats["requests"] != N_HYBRID or zstats["tokens"] != N_HYBRID * HYBRID_MAX_NEW:
+        fail(f"4i: finished {zstats['requests']} of {N_HYBRID} requests: {zstats}")
+    if not all(0 <= t < zcfg.vocab_size for t in zstats["sample"]):
+        fail("4i: generated token outside the vocabulary")
+    groups = zcfg.num_layers // zcfg.attn_every
+    for tier in zbank:
+        n_corner = len(corners.get(tier.name, []))
+        want = (7 - n_corner) * groups * tier_calls[tier.index]
+        if tier_launches[tier.index] < 1 or tier_launches[tier.index] != want:
+            fail(f"4i tier {tier.name}: {tier_launches[tier.index]} slr_matmul launches over "
+                 f"{tier_calls[tier.index]} decode calls, expected {want}")
+    print(f"main path 4i hybrid bank on ReferenceEngine: {N_HYBRID} requests, prompts "
+          f"{min(map(len, zprompts))}-{max(map(len, zprompts))} tokens, {zstats['tokens']} "
+          f"tokens generated = {zstats['tok_per_s']} tok/s; median TTFT {zstats['ttft_p50_ms']} "
+          f"ms; decode calls {zeng.decode_calls}; slr_matmul launches per tier "
+          f"{json.dumps({str(k): v for k, v in tier_launches.items()})} over decode calls "
+          f"{json.dumps({str(k): v for k, v in tier_calls.items()})} "
+          f"({7 * groups} per call with every site live); peak memory {zpeak:.2f} GiB")
+    print(f"  stats: {json.dumps({k: v for k, v in zstats.items() if k != 'sample'})}")
+    print(f"  launch counts: {json.dumps(hybrid_counts)}")
+    # a short steady window: one request of 8 prompt tokens (23 decode calls;
+    # the profiler's event processing grows with the ~3000 ops of each call)
+    zeng2 = ReferenceEngine(zbank, EngineConfig(max_slots=4, max_len=128))
+    profiled("4i (1 request)", lambda: serve_batch(
+        zeng2, zcfg.vocab_size, 1, HYBRID_MAX_NEW, SEED, prompts=[zprompts[0][:8]]))
+    del zeng, zeng2, zbank, zmodels, zparams
+    torch.cuda.empty_cache()
+
+    phase("4j")
+    # 4j. the launcher: the hybrid falls back to the reference engine after the
+    # note line; --engine reference serves the Llama (all-zero SLR states)
+    bank_keys = {"fmt", "bank", "tier_policy", "requests", "tokens", "tok_per_s", "sample",
+                 "steps", "tokens_by_tier", "ttft_p50_ms", "ttft_p99_ms", "tiers"}
+    for args_j in (["--arch", HYBRID, "--keep-ratios", "1.0,0.5"],
+                   ["--arch", "salaad_llama_60m", "--engine", "reference",
+                    "--keep-ratios", "1.0,0.6"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args_j,
+                               "--fmt", "fused", "--requests", "4", "--max-new", "8"],
+                              capture_output=True, text=True, timeout=600, cwd=ROOT,
+                              env={**os.environ, "PYTHONPATH": str(SRC)})
+        if proc.returncode:
+            fail(f"4j: the serve launcher failed:\n{proc.stderr[-3000:]}")
+        lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+        line = lines[-1]
+        if set(line) != bank_keys or line["requests"] != 4 or line["tokens"] != 32:
+            fail(f"4j: the serve launcher's line is off: {line}")
+        if HYBRID in args_j:
+            note = lines[0] if len(lines) == 2 else {}
+            if "falling back to the reference engine" not in note.get("note", "") \
+                    or note["capabilities"]["engine"] != "ReferenceEngine":
+                fail(f"4j: the hybrid launcher printed no fallback note: {lines}")
+            print(f"main path 4j launcher note: {json.dumps(note)}")
+        elif len(lines) != 1:
+            fail(f"4j: --engine reference printed more than its line: {lines}")
+        print(f"main path 4j launcher {' '.join(args_j)} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(line)}")
+
+    phase("5")
     # ---- 5. first one-shot prefill, chunk and decode tick: card vs CPU -----------
     cpu_params, cpu_state = tree_map(lambda t: t.cpu(), (params, state))
     cpu_dm = DeployedModel.build(cfg, cpu_params, cpu_state, blocks, fmt="fused")
@@ -1006,6 +1259,7 @@ def main() -> None:
     compare("first chunk", logits["card"][0][mask], logits["cpu"][0][mask])
     compare("first decode tick", logits["card"][1], logits["cpu"][1])
 
+    phase("5b")
     # 5b. training, card against CPU: K = 5 train steps and one ADMM step from
     # 4g's initial state, the same batches, the same CPU-drawn sketches
     runs = {}
@@ -1071,8 +1325,73 @@ def main() -> None:
     print(f"parity 5b ADMM state (relative errors; S positions swapped at the cap): "
           f"{json.dumps(worst)}")
 
+    phase("5c")
+    # 5c. the hybrid, card against CPU: full width at one group (6 layers),
+    # f32, TF32 off; one fused tier (keep 0.5) built on the card and copied
+    ccfg = dataclasses.replace(get_arch(HYBRID), num_layers=6, param_dtype=torch.float32)
+    t0 = time.perf_counter()
+    cparams = model_lib.init_params(ccfg, seed=SEED)
+    cstate, cblocks = init_slr_state(cparams, zscfg)
+    torch.backends.cuda.matmul.allow_tf32 = True        # the build only
+    cstate, _ = admm_update(cparams, cstate, cblocks, zscfg, 0)
+    slr_c, _ = hpa_keep_ratio(cstate, cblocks, 0.5, 0.7)
+    card_dm = DeployedModel.build(ccfg, cparams, slr_c, cblocks, fmt="fused")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del cstate, slr_c
+    host_dm = DeployedModel(ccfg, tree_map(lambda t: t.cpu(), card_dm.params), "fused")
+    print(f"parity 5c build: {ccfg.name} at {ccfg.num_layers} layers, f32, keep 0.5 fused "
+          f"tier in {time.perf_counter() - t0:.1f} s")
+    crng = np.random.default_rng(SEED + 2)
+    cprompts = [crng.integers(0, ccfg.vocab_size, int(n)).tolist()
+                for n in crng.integers(4, 9, N_HYBRID_CPU)]
+    streams = {}
+    for name, model in (("card", card_dm), ("cpu", host_dm)):
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        eng = ReferenceEngine(model, EngineConfig(max_slots=2, max_len=32))
+        for pr in cprompts:
+            eng.submit(pr, max_new_tokens=MAX_NEW_CPU)
+        streams[name] = {r.uid: r.out_tokens for r in eng.run()}
+        launched = ops.launch_counts()["slr_matmul"]
+        print(f"parity 5c streams on the {name}: {eng.decode_calls} decode calls in "
+              f"{time.perf_counter() - t0:.1f} s, slr_matmul launches {launched}")
+        if (name == "card") != (launched > 0):
+            fail(f"5c: the unstacked kernel launched {launched} times on the {name}")
+    same = sum(streams["card"][u] == streams["cpu"][u] for u in streams["cpu"])
+    print(f"parity 5c streams: {same} of {len(streams['cpu'])} token-identical "
+          f"({N_HYBRID_CPU} requests x {MAX_NEW_CPU} tokens)")
+    if streams["card"] != streams["cpu"]:
+        fail(f"5c: the card's hybrid streams differ from the CPU's: {streams}")
+    logit_runs = {}
+    for name, model, d_ in (("card", card_dm, dev), ("cpu", host_dm, torch.device("cpu"))):
+        cache = model_lib.init_cache(ccfg, 1, 32, dtype=torch.float32, device=d_)
+        steps = []
+        for tok in cprompts[0]:
+            lg, cache = model_lib.decode_step(model.params, torch.tensor([[tok]], device=d_),
+                                              cache, ccfg)
+            steps.append(lg[0, -1].float().cpu())
+        logit_runs[name] = torch.stack(steps)
+    compare("5c hybrid decode steps", logit_runs["card"], logit_runs["cpu"])
+    toks = torch.from_numpy(crng.integers(0, ccfg.vocab_size, (2, 16))).to(dev)
+    full, _ = model_lib._forward(card_dm.params, {"tokens": toks}, ccfg)
+    _, pcache = model_lib.prefill(card_dm.params, {"tokens": toks[:, :15]}, ccfg, max_len=32)
+    pcache = pcache._replace(**{f: getattr(pcache, f).float()
+                                for f in ("ssm_state", "conv", "k", "v")})
+    step, _ = model_lib.decode_step(card_dm.params, toks[:, 15:], pcache, ccfg)
+    d_err = float((step[:, 0].float() - full[:, -1].float()).abs().max())
+    d_scale = float(full[:, -1].float().abs().max())
+    print(f"parity 5c prefill(15) + decode vs the no-cache forward on the card: max_abs_err "
+          f"{d_err:.3e} (tol 5e-2 x (1 + |logit|), as JAX's test_decode_consistency; max "
+          f"|logit| {d_scale:.3g})")
+    if not torch.allclose(step[:, 0].float(), full[:, -1].float(), atol=5e-2, rtol=5e-2):
+        fail("5c: prefill + decode disagrees with the no-cache forward on the card")
+    del card_dm, host_dm, cparams
+
+    phase("end")
     # ---- result lines -------------------------------------------------------------
     meta = {
+        "slr_matmul": ("src/repro_torch/kernels/csrc/slr_matmul.cu",
+                       "src/repro/kernels/slr_matmul.py:196"),
         "slr_matmul_stacked": ("src/repro_torch/kernels/csrc/slr_matmul.cu",
                                "src/repro/kernels/slr_matmul.py:316"),
         "slr_matmul_multi": ("src/repro_torch/kernels/csrc/slr_matmul.cu",
@@ -1098,7 +1417,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (fused_counts[name] + bsr_counts[name] + adapter_counts[name]
-                         + train_counts[name]),
+                         + train_counts[name] + sweep_counts[name] + hybrid_counts[name]),
             "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
             "plain_ms": r_["plain_ms"], "bound_ms": r_["bound"][0],
             "bound_by": r_["bound"][1], "library_ms": r_["library_ms"],

@@ -131,28 +131,19 @@ def block_sketches(step: int, index: int, info: BlockInfo, rank: int, sweeps: in
     return omega.to(device)
 
 
-def _update_leaf(x: torch.Tensor, blk: BlockSLR, info: BlockInfo, cfg: SalaadConfig,
-                 omega: torch.Tensor | None = None):
-    """One J-sweep for every slice of one leaf, as a batch of (n, m) blocks;
-    ``omega`` (nb, J, m, r) are the rSVD sketches (unused by the exact SVD)."""
-    n, m = info.n, info.m
-    stack = info.stack_dims
-    nb = info.num_blocks
-    r = blk.p.shape[-1]
-    cap = blk.s_coo.values.shape[-1]
-    rho = blk.rho
-    dt = blk.p.dtype
-    flat = lambda a, *tail: a.reshape(nb, *tail)  # noqa: E731
+# slices of one stacked leaf swept together: the sweep holds about ten f32
+# temporaries of (slices, n, m), so a leaf above this many elements is swept
+# in chunks of whole slices (each slice is an independent block)
+SWEEP_ELEMS = 1 << 28
 
-    x32 = flat(x, n, m).float()
-    y32 = flat(blk.y, n, m).float()
-    s_dense = sparse.to_dense(sparse.CooMatrix(
-        flat(blk.s_coo.values, cap), flat(blk.s_coo.idx, cap), (n, m))).float()
-    alpha = blk.alpha.reshape(nb)
-    beta = blk.beta.reshape(nb)
-    p_new = torch.zeros((nb, n, r), device=x.device)
-    vt_new = torch.zeros((nb, r, m), device=x.device)
-    s_thr = torch.zeros((nb, r), device=x.device)
+
+def _sweep(x32, y32, s_dense, alpha, beta, rho: float, r: int, cap: int, cfg, omega):
+    """The J-sweep and controller update of a batch of (n, m) blocks (f32);
+    returns (p, vt, s_thr, coo, y, z) and the per-block stats."""
+    nb, n, m = x32.shape
+    p_new = torch.zeros((nb, n, r), device=x32.device)
+    vt_new = torch.zeros((nb, r, m), device=x32.device)
+    s_thr = torch.zeros((nb, r), device=x32.device)
     for j in range(cfg.admm_inner_steps):
         mmat = x32 - s_dense + y32 / rho
         if cfg.exact_svd:
@@ -160,13 +151,16 @@ def _update_leaf(x: torch.Tensor, blk: BlockSLR, info: BlockInfo, cfg: SalaadCon
             u, s, vt_new = u[..., :r], s[..., :r], v[..., :r, :]
         else:
             u, s, vt_new = randomized_svd(mmat, omega[:, j], cfg.rsvd_iters)
+        del mmat
         s_thr = torch.clamp_min(s - (alpha / rho)[:, None], 0.0)
         p_new = u * s_thr[:, None, :]
         l_dense = p_new @ vt_new
         s_dense = ops.soft_threshold((x32 - l_dense + y32 / rho).contiguous(), beta / rho)
         y32 = y32 + rho * (x32 - l_dense - s_dense)
+        del l_dense
 
     coo = sparse.from_dense(s_dense, cap)
+    del s_dense
     s_back = sparse.to_dense(coo)
     rank_ratio = effective_rank_ratio_from_singular_values(
         s_thr, cfg.controller.gamma, denom=min(n, m))
@@ -176,14 +170,48 @@ def _update_leaf(x: torch.Tensor, blk: BlockSLR, info: BlockInfo, cfg: SalaadCon
     l_dense = p_new @ vt_new
     recon_err = torch.linalg.vector_norm(x32 - l_dense - s_back, dim=(-2, -1))
     z_new = l_dense + s_back - y32 / rho
-    unflat = lambda a: a.reshape(tuple(stack) + tuple(a.shape[1:]))  # noqa: E731
     stats = {"rank_ratio": rank_ratio, "density": dens, "recon_err": recon_err,
              "alpha": alpha_new, "beta": beta_new}
+    return (p_new, vt_new, s_thr, coo, y32, z_new), stats
+
+
+def _update_leaf(x: torch.Tensor, blk: BlockSLR, info: BlockInfo, cfg: SalaadConfig,
+                 omega: torch.Tensor | None = None):
+    """One J-sweep for every slice of one leaf, as batches of (n, m) blocks
+    of at most ``SWEEP_ELEMS`` elements; ``omega`` (nb, J, m, r) are the rSVD
+    sketches (unused by the exact SVD)."""
+    n, m = info.n, info.m
+    stack = info.stack_dims
+    nb = info.num_blocks
+    r = blk.p.shape[-1]
+    cap = blk.s_coo.values.shape[-1]
+    rho = blk.rho
+    dt = blk.p.dtype
+    flat = lambda a, *tail: a.reshape(nb, *tail)  # noqa: E731
+    x, y = flat(x, n, m), flat(blk.y, n, m)
+    values, idx = flat(blk.s_coo.values, cap), flat(blk.s_coo.idx, cap)
+    alpha, beta = blk.alpha.reshape(nb), blk.beta.reshape(nb)
+
+    per = max(1, SWEEP_ELEMS // (n * m))
+    outs, stat_parts = [], []
+    for b0 in range(0, nb, per):
+        sl = slice(b0, min(nb, b0 + per))
+        s_dense = sparse.to_dense(sparse.CooMatrix(values[sl], idx[sl], (n, m))).float()
+        (p_new, vt_new, s_thr, coo, y32, z_new), stats = _sweep(
+            x[sl].float(), y[sl].float(), s_dense, alpha[sl], beta[sl], rho, r, cap, cfg,
+            None if omega is None else omega[sl])
+        outs.append((p_new.to(dt), vt_new.to(dt), s_thr.to(dt), coo.values.to(dt), coo.idx,
+                     y32.to(dt), z_new.to(dt)))
+        stat_parts.append(stats)
+    cat = lambda parts: parts[0] if len(parts) == 1 else torch.cat(parts)  # noqa: E731
+    p_new, vt_new, s_thr, values, idx, y_new, z_new = (cat(list(a)) for a in zip(*outs))
+    stats = {k: cat([st[k] for st in stat_parts]) for k in stat_parts[0]}
+    unflat = lambda a: a.reshape(tuple(stack) + tuple(a.shape[1:]))  # noqa: E731
     new = BlockSLR(
-        p=unflat(p_new.to(dt)), vt=unflat(vt_new.to(dt)), s_vals=unflat(s_thr.to(dt)),
-        s_coo=sparse.CooMatrix(unflat(coo.values.to(dt)), unflat(coo.idx), (n, m)),
-        y=unflat(y32.to(dt)), z=unflat(z_new.to(dt)),
-        alpha=unflat(alpha_new), beta=unflat(beta_new), rho=rho,
+        p=unflat(p_new), vt=unflat(vt_new), s_vals=unflat(s_thr),
+        s_coo=sparse.CooMatrix(unflat(values), unflat(idx), (n, m)),
+        y=unflat(y_new), z=unflat(z_new),
+        alpha=unflat(stats["alpha"]), beta=unflat(stats["beta"]), rho=rho,
     )
     return new, {k: unflat(v) for k, v in stats.items()}
 
@@ -198,7 +226,7 @@ def admm_update(params: Any, state: SLRState, blocks: list[BlockInfo],
     new_state: SLRState = {}
     all_stats: dict = {}
     for i, info in enumerate(blocks):
-        x = leaf_by_path(params, info.path).float()
+        x = leaf_by_path(params, info.path)
         blk = state[info.name]
         omega = None
         if not cfg.exact_svd:

@@ -74,7 +74,12 @@ def _ranks(keys: np.ndarray) -> np.ndarray:
 
 def _truncate_block(blk: BlockSLR, phi_l: float, phi_s: float) -> BlockSLR:
     """Remove the smallest phi_l fraction of singular values and phi_s
-    fraction of sparse entries, per stacked slice, by magnitude."""
+    fraction of sparse entries, per stacked slice, by magnitude. With both
+    fractions 0 every live entry stays and the block is returned as it is
+    (the sorts below would keep it to the bit, at the cost of sorting every
+    sparse entry on the host)."""
+    if phi_l == 0.0 and phi_s == 0.0:
+        return blk
     dev = blk.p.device
     s_vals = _np(blk.s_vals).astype(np.float64)           # (..., r)
     live = s_vals > 0

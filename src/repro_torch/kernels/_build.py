@@ -20,8 +20,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "build", "library", "launch", "dtype_code", "check_cuda",
-           "check_int32"]
+__all__ = ["BUILD_DIR", "build", "library", "launch", "dtype_code", "table_dtype_code",
+           "check_cuda", "check_int32"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -33,8 +33,8 @@ NVCC_FLAGS = [
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: name -> argument types (every one returns cudaError_t as int)
 SIGNATURES = {
-    # x, counts, rows, vals, y, T, n, m, JB, MAXB, bs, bt, dtype, stream
-    "bsr_matmul_launch": [_P] * 5 + [_I] * 8 + [_P],
+    # x, counts, rows, vals, y, T, n, m, JB, MAXB, bs, bt, dtype, wdtype, stream
+    "bsr_matmul_launch": [_P] * 5 + [_I] * 9 + [_P],
     # pool, src, dst, n_pairs, n_layers, n_pages, page_bytes, stream
     "page_copy_launch": [_P] * 3 + [_I] * 3 + [_L, _P],
     # q, k, v, out, B, Hq, Hkv, T, S, D, causal, scale, dtype, stream
@@ -44,8 +44,11 @@ SIGNATURES = {
     # x, p, vt, counts, rows, vals, ids, y, B, T, K, M, r, layers, layer, N, JB, MAXB, bs,
     # bt, dtype, stream
     "slr_matmul_multi_launch": [_P] * 8 + [_I] * 13 + [_P],
-    # x, p, vt, y, T, K, M, r, bt, dtype, stream
-    "lowrank_matmul_launch": [_P] * 4 + [_I] * 6 + [_P],
+    # x, p, vt, y, T, K, M, r, bt, dtype, wdtype, stream
+    "lowrank_matmul_launch": [_P] * 4 + [_I] * 7 + [_P],
+    # x, p, vt, counts, rows, vals, part, ypart, y, T, K, M, r, JB, MAXB, bs, bt,
+    # n_ksplit, ksplit, n_ssplit, dtype, wdtype, stream
+    "slr_matmul_launch": [_P] * 9 + [_I] * 13 + [_P],
     # q, k, v, table, lengths, out, B, Hq, Hkv, D, N, bs, nb, dtype, stream
     "paged_attention_launch": [_P] * 6 + [_I] * 8 + [_P],
     # q, k, v, table, lengths, out, B, Hq, Hkv, kq, D, N, bs, nb, dtype, stream
@@ -141,6 +144,20 @@ def dtype_code(dtype: torch.dtype) -> int:
         return _DTYPE_CODES[dtype]
     except KeyError:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {dtype}") from None
+
+
+def table_dtype_code(name: str, x_dtype: torch.dtype, *tables: torch.Tensor) -> int:
+    """The code of the tables' one dtype, which is x's, or float32 under
+    bfloat16 activations (a bf16 model deployed from an f32 SLR state)."""
+    dtypes = {t.dtype for t in tables}
+    if len(dtypes) != 1:
+        raise TypeError(f"{name}: the tables must share one dtype, got "
+                        f"{sorted(map(str, dtypes))}")
+    (w,) = dtypes
+    if w != x_dtype and not (x_dtype == torch.bfloat16 and w == torch.float32):
+        raise TypeError(f"{name}: tables of {w} under activations of {x_dtype}; the kernel "
+                        "takes one dtype, or bfloat16 activations over float32 tables")
+    return dtype_code(w)
 
 
 def check_int32(name: str, **tensors: torch.Tensor) -> None:

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import ref
-from ._build import check_cuda, check_int32, dtype_code, launch
+from ._build import check_cuda, check_int32, dtype_code, launch, table_dtype_code
 
 __all__ = ["BsrMatrix", "bsr_from_dense", "bsr_to_dense", "bsr_matmul", "row_tile",
            "BLOCK_SIZES", "MAX_ROW_TILE"]
@@ -102,15 +102,14 @@ def bsr_to_dense(bsr: BsrMatrix) -> torch.Tensor:
 
 
 def bsr_matmul(x: torch.Tensor, bsr: BsrMatrix) -> torch.Tensor:
-    """x (T, n) @ block-CSC S (n, m) -> y (T, m) in x.dtype."""
+    """x (T, n) @ block-CSC S (n, m) -> y (T, m) in x.dtype; vals share x's
+    dtype, or are float32 under bfloat16 x."""
     if x.device.type == "cpu":
         return ref.bsr_matmul_ref(x, bsr)
     name = "bsr_matmul"
     dev = check_cuda(name, x=x, counts=bsr.counts, rows=bsr.rows, vals=bsr.vals)
     code = dtype_code(x.dtype)
-    if bsr.vals.dtype != x.dtype:
-        raise TypeError(f"{name}: x and vals must share one dtype, got {x.dtype}, "
-                        f"{bsr.vals.dtype}")
+    wcode = table_dtype_code(name, x.dtype, bsr.vals)
     check_int32(name, counts=bsr.counts, rows=bsr.rows)
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be (T, n), got {tuple(x.shape)}")
@@ -135,7 +134,7 @@ def bsr_matmul(x: torch.Tensor, bsr: BsrMatrix) -> torch.Tensor:
     bt = row_tile(t_dim, x.dtype, cap=MAX_ROW_TILE)
     launch("bsr_matmul_launch", dev, x.data_ptr(), bsr.counts.data_ptr(),
            bsr.rows.data_ptr(), bsr.vals.data_ptr(), y.data_ptr(), t_dim, n_dim, m_dim,
-           jb, maxb, bs, bt, code)
+           jb, maxb, bs, bt, code, wcode)
     bsr_matmul.launches += 1
     return y
 

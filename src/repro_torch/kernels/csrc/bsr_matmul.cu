@@ -18,7 +18,9 @@
 //
 // Bound on this card: bytes at decode widths (each live tile is read once per
 // row tile), operations at prefill widths. Products run on the CUDA cores in
-// f32 from shared memory; no tensor cores (wgmma) and no TMA yet.
+// f32 from shared memory; no tensor cores (wgmma) and no TMA yet. x and y
+// have one type (TX), the tiles one dtype too (TW): equal, or bf16
+// activations over f32 tiles (a bf16 model deployed from an f32 SLR state).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -29,11 +31,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBT = 32;   // rows of x per block
 
-template <typename T, int BN>
+template <typename TX, typename TW, int BN>
 __global__ void __launch_bounds__(kThreads)
-bsr_matmul_kernel(const T* __restrict__ x, const int* __restrict__ counts,
-                  const int* __restrict__ rows, const T* __restrict__ vals,
-                  T* __restrict__ y, int t_dim, int n_dim, int m_dim, int maxb, int bt) {
+bsr_matmul_kernel(const TX* __restrict__ x, const int* __restrict__ counts,
+                  const int* __restrict__ rows, const TW* __restrict__ vals,
+                  TX* __restrict__ y, int t_dim, int n_dim, int m_dim, int maxb, int bt) {
   constexpr int KC = BN < 32 ? BN : 32;          // reduction chunk
   constexpr int NACC = (kMaxBT * BN + kThreads - 1) / kThreads;
   constexpr int ACC_RSTRIDE = kThreads / BN;     // rows between a thread's outputs
@@ -56,7 +58,7 @@ bsr_matmul_kernel(const T* __restrict__ x, const int* __restrict__ counts,
   const int cnt = min(counts[j], maxb);
   for (int s = 0; s < cnt; ++s) {
     const int rb = rows[(int64_t)j * maxb + s];
-    const T* tile = vals + ((int64_t)j * maxb + s) * BN * BN;
+    const TW* tile = vals + ((int64_t)j * maxb + s) * BN * BN;
     for (int k0 = 0; k0 < BN; k0 += KC) {
       const int kbase = rb * BN + k0;
       for (int e = tid; e < kMaxBT * KC; e += kThreads) {
@@ -86,32 +88,32 @@ bsr_matmul_kernel(const T* __restrict__ x, const int* __restrict__ counts,
 #pragma unroll
     for (int i = 0; i < NACC; ++i) {
       const int rr = acc_r + i * ACC_RSTRIDE;
-      if (rr < n_rows) y[(int64_t)(row0 + rr) * m_dim + col0 + acc_c] = from_f32<T>(acc[i]);
+      if (rr < n_rows) y[(int64_t)(row0 + rr) * m_dim + col0 + acc_c] = from_f32<TX>(acc[i]);
     }
   }
 }
 
-template <typename T, int BN>
+template <typename TX, typename TW, int BN>
 cudaError_t launch(const void* x, const int* counts, const int* rows, const void* vals,
                    void* y, int t_dim, int n_dim, int m_dim, int jb, int maxb, int bt,
                    cudaStream_t stream) {
   dim3 grid((t_dim + bt - 1) / bt, jb);
-  bsr_matmul_kernel<T, BN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), counts, rows, static_cast<const T*>(vals),
-      static_cast<T*>(y), t_dim, n_dim, m_dim, maxb, bt);
+  bsr_matmul_kernel<TX, TW, BN><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TX*>(x), counts, rows, static_cast<const TW*>(vals),
+      static_cast<TX*>(y), t_dim, n_dim, m_dim, maxb, bt);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TX, typename TW>
 cudaError_t dispatch_bs(int bs, const void* x, const int* counts, const int* rows,
                         const void* vals, void* y, int t_dim, int n_dim, int m_dim, int jb,
                         int maxb, int bt, cudaStream_t stream) {
   switch (bs) {
-    case 8: return launch<T, 8>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
-    case 16: return launch<T, 16>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
-    case 32: return launch<T, 32>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
-    case 64: return launch<T, 64>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
-    case 128: return launch<T, 128>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
+    case 8: return launch<TX, TW, 8>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
+    case 16: return launch<TX, TW, 16>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
+    case 32: return launch<TX, TW, 32>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
+    case 64: return launch<TX, TW, 64>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
+    case 128: return launch<TX, TW, 128>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -119,18 +121,24 @@ cudaError_t dispatch_bs(int bs, const void* x, const int* counts, const int* row
 }  // namespace
 }  // namespace salaad
 
-// x (T, n), counts (JB,), rows (JB, MAXB), vals (JB, MAXB, bs, bs), y (T, m).
+// x (T, n), counts (JB,), rows (JB, MAXB), vals (JB, MAXB, bs, bs), y (T, m);
+// x and y of dtype, vals of wdtype.
 extern "C" int bsr_matmul_launch(const void* x, const int* counts, const int* rows,
                                  const void* vals, void* y, int t_dim, int n_dim, int m_dim,
-                                 int jb, int maxb, int bs, int bt, int dtype, void* stream) {
-  if (bt < 1 || bt > salaad::kMaxBT || t_dim < 1 || jb < 1 || maxb < 1)
+                                 int jb, int maxb, int bs, int bt, int dtype, int wdtype,
+                                 void* stream) {
+  using namespace salaad;
+  if (bt < 1 || bt > kMaxBT || t_dim < 1 || jb < 1 || maxb < 1)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == salaad::kF32)
-    return salaad::dispatch_bs<float>(bs, x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb,
-                                      maxb, bt, s);
-  if (dtype == salaad::kBF16)
-    return salaad::dispatch_bs<__nv_bfloat16>(bs, x, counts, rows, vals, y, t_dim, n_dim,
-                                              m_dim, jb, maxb, bt, s);
+  if (dtype == kF32 && wdtype == kF32)
+    return dispatch_bs<float, float>(bs, x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb,
+                                     maxb, bt, s);
+  if (dtype == kBF16 && wdtype == kBF16)
+    return dispatch_bs<__nv_bfloat16, __nv_bfloat16>(bs, x, counts, rows, vals, y, t_dim,
+                                                     n_dim, m_dim, jb, maxb, bt, s);
+  if (dtype == kBF16 && wdtype == kF32)
+    return dispatch_bs<__nv_bfloat16, float>(bs, x, counts, rows, vals, y, t_dim, n_dim,
+                                             m_dim, jb, maxb, bt, s);
   return cudaErrorInvalidValue;
 }

@@ -10,22 +10,21 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from ._build import check_cuda, dtype_code, launch
+from ._build import check_cuda, dtype_code, launch, table_dtype_code
 from .slr_matmul import MAX_ROW_TILE, row_tile
 
 __all__ = ["lowrank_matmul"]
 
 
 def lowrank_matmul(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:
-    """x (T, K), p (K, r), vt (r, M) -> y (T, M) in x.dtype."""
+    """x (T, K), p (K, r), vt (r, M) -> y (T, M) in x.dtype; the factors
+    share x's dtype, or are float32 under bfloat16 x."""
     if x.device.type == "cpu":
         return ref.lowrank_matmul_ref(x, p, vt)
     name = "lowrank_matmul"
     dev = check_cuda(name, x=x, p=p, vt=vt)
     code = dtype_code(x.dtype)
-    if p.dtype != x.dtype or vt.dtype != x.dtype:
-        raise TypeError(f"{name}: x, p and vt must share one dtype, got "
-                        f"{x.dtype}, {p.dtype}, {vt.dtype}")
+    wcode = table_dtype_code(name, x.dtype, p, vt)
     if x.dim() != 2 or p.dim() != 2 or vt.dim() != 2:
         raise ValueError(f"{name}: expected 2-D x, p, vt")
     t_dim, k_dim = x.shape
@@ -37,7 +36,7 @@ def lowrank_matmul(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor) -> torch.
         return y
     bt = row_tile(t_dim, x.dtype, cap=MAX_ROW_TILE)
     launch("lowrank_matmul_launch", dev, x.data_ptr(), p.data_ptr(), vt.data_ptr(),
-           y.data_ptr(), t_dim, k_dim, m_dim, r, bt, code)
+           y.data_ptr(), t_dim, k_dim, m_dim, r, bt, code, wcode)
     lowrank_matmul.launches += 1
     return y
 

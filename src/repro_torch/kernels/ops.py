@@ -17,6 +17,7 @@ from .lowrank_matmul import lowrank_matmul
 from .page_copy import page_copy
 from .paged_attention import paged_attention, paged_attention_kquery
 from .slr_matmul import BsrStack
+from .slr_matmul import slr_matmul as _slr_matmul_kernel
 from .slr_matmul import slr_matmul_multi as _slr_matmul_multi_kernel
 from .slr_matmul import slr_matmul_stacked as _slr_matmul_stacked_kernel
 from .soft_threshold import soft_threshold
@@ -39,6 +40,7 @@ __all__ = [
 
 # kernel name -> wrapper holding its launch count
 KERNELS = {
+    "slr_matmul": _slr_matmul_kernel,
     "slr_matmul_stacked": _slr_matmul_stacked_kernel,
     "slr_matmul_multi": _slr_matmul_multi_kernel,
     "lowrank_matmul": lowrank_matmul,
@@ -69,11 +71,10 @@ def bsr_matmul(x: torch.Tensor, bsr: BsrMatrix) -> torch.Tensor:
 
 
 def slr_matmul(x: torch.Tensor, p, vt, bsr: BsrMatrix | None) -> torch.Tensor:
-    """Unstacked fused SLR matmul, as far as its degenerate corners go: no
-    factors and no S give zeros, an empty S the low-rank kernel, r == 0 the
-    block-CSC kernel. Both parts live need ``slr_matmul_pallas``, which is
-    reached only by fused weights outside a layer stack (the hybrid family's
-    shared attention block) and is ported with that family."""
+    """Unstacked fused SLR matmul y = x @ P @ Vt + x @ S, with the degenerate
+    corners of the JAX dispatcher: no factors and no S give zeros, an empty S
+    runs the low-rank kernel, r == 0 the block-CSC kernel, and both parts
+    live the fused unstacked kernel (``slr_matmul_pallas``'s port)."""
     r = 0 if p is None else p.shape[-1]
     empty_s = bsr is None or bsr.empty
     if empty_s and r == 0:
@@ -83,11 +84,7 @@ def slr_matmul(x: torch.Tensor, p, vt, bsr: BsrMatrix | None) -> torch.Tensor:
         return lowrank_matmul(x, p, vt)
     if r == 0:
         return bsr_matmul(x, bsr)
-    raise NotImplementedError(
-        "an unstacked fused weight with both a low-rank part and a live S needs "
-        "the slr_matmul_pallas kernel, ported with the hybrid family (zamba2's "
-        "shared attention block)"
-    )
+    return _slr_matmul_kernel(x, p, vt, bsr)
 
 
 def slr_matmul_stacked(x: torch.Tensor, p, vt, stack: BsrStack | None,

@@ -1,5 +1,6 @@
-"""Fused SLR matmul  y = x @ P[l] @ Vt[l] + x @ S[l]  over layer-stacked tables
-(port of ``slr_matmul_stacked_pallas`` and the host side of
+"""Fused SLR matmul  y = x @ P @ Vt + x @ S  for one weight and over
+layer-stacked tables (port of ``slr_matmul_pallas``,
+``slr_matmul_stacked_pallas`` and the host side of
 ``repro/kernels/slr_matmul.py``).
 
 ``BsrStack`` is the layer-stacked block-CSC layout:
@@ -9,23 +10,28 @@
 ``shape`` is the per-layer original dense (n, m); ``empty`` means no layer
 holds a live block.
 
+``slr_matmul`` (one unstacked weight, the hybrid's shared block),
 ``slr_matmul_stacked`` and ``slr_matmul_multi`` (per-slot tables, the port of
 ``slr_matmul_multi_pallas``) run the plain version for CPU tensors and the
-CUDA kernel ``csrc/slr_matmul.cu`` for CUDA tensors. The unstacked
-``slr_matmul_pallas`` comes with the hybrid family.
+CUDA kernel ``csrc/slr_matmul.cu`` for CUDA tensors; each counts its own
+launches.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 
 from . import ref
-from ._build import check_cuda, dtype_code, launch
+from ._build import check_cuda, check_int32, dtype_code, launch, table_dtype_code
 from .bsr_matmul import BLOCK_SIZES, MAX_ROW_TILE, BsrMatrix, row_tile
 
-__all__ = ["BsrStack", "stack_bsr", "row_tile", "slr_matmul_stacked", "slr_matmul_multi",
-           "BLOCK_SIZES"]
+__all__ = ["BsrStack", "stack_bsr", "row_tile", "slr_matmul", "slr_matmul_stacked",
+           "slr_matmul_multi", "BLOCK_SIZES", "K_SPLIT"]
+
+# rows of P per block of the unstacked entry's x @ P pass (kKSplit in the source)
+K_SPLIT = 256
 
 
 @dataclass(frozen=True)
@@ -69,6 +75,71 @@ def stack_bsr(mats: list[BsrMatrix]) -> BsrStack:
         torch.stack([pad_slots(m.vals) for m in mats]),
         shape, bs, empty=all(m.empty for m in mats),
     )
+
+
+def slr_matmul(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
+               bsr: BsrMatrix) -> torch.Tensor:
+    """One unstacked weight with both parts live: x (T, K), p (K, r),
+    vt (r, M), ``bsr`` block-CSC S of shape (K, M) -> y (T, M) in x.dtype.
+    The tables share x's dtype, or are float32 under bfloat16 x.
+
+    The kernel runs x @ P once into f32 partials over splits of K_SPLIT rows,
+    then one block per (row tile, column block, work split) sums them, adds
+    t @ Vt and the live tiles, and a last pass sums the work splits. The
+    work splits are sized from the card's SM count so that the column blocks
+    fill it."""
+    if x.device.type == "cpu":
+        return ref.slr_matmul_ref(x, p, vt, bsr)
+    name = "slr_matmul"
+    dev = check_cuda(name, x=x, p=p, vt=vt, counts=bsr.counts, rows=bsr.rows,
+                     vals=bsr.vals)
+    code = dtype_code(x.dtype)
+    wcode = table_dtype_code(name, x.dtype, p, vt, bsr.vals)
+    check_int32(name, counts=bsr.counts, rows=bsr.rows)
+    if x.dim() != 2 or p.dim() != 2 or vt.dim() != 2:
+        raise ValueError(f"{name}: expected 2-D x, p, vt, got {x.dim()}, {p.dim()}, {vt.dim()}")
+    t_dim, k_dim = x.shape
+    r, m_dim = vt.shape
+    bs = bsr.block_size
+    jb, maxb = bsr.rows.shape
+    expect = {
+        "p": (tuple(p.shape), (k_dim, r)),
+        "bsr.shape": (tuple(bsr.shape), (k_dim, m_dim)),
+        "counts": (tuple(bsr.counts.shape), (-(-m_dim // bs),)),
+        "vals": (tuple(bsr.vals.shape), (jb, maxb, bs, bs)),
+    }
+    for arg, (got, want) in expect.items():
+        if got != want:
+            raise ValueError(f"{name}: {arg} has shape {got}, expected {want}")
+    if r < 1:
+        raise ValueError(f"{name}: rank 0 goes through ops.slr_matmul")
+    if bs not in BLOCK_SIZES:
+        raise ValueError(f"{name}: block size {bs} not in {BLOCK_SIZES}")
+    y = torch.empty((t_dim, m_dim), dtype=x.dtype, device=dev)
+    if t_dim == 0:
+        return y
+    bt = 8 if t_dim <= 8 else 32
+    n_ksplit = -(-k_dim // K_SPLIT)
+    # about two blocks of the emit pass per SM, at most one work item each
+    blocks = jb * -(-t_dim // bt)
+    items = -(-r // 128) + maxb
+    n_ssplit = max(1, min(items, -(-2 * _sm_count(dev) // blocks)))
+    part = torch.empty((n_ksplit, t_dim, r), dtype=torch.float32, device=dev)
+    ypart = torch.empty((n_ssplit, t_dim, m_dim), dtype=torch.float32, device=dev)
+    launch("slr_matmul_launch", dev, x.data_ptr(), p.data_ptr(), vt.data_ptr(),
+           bsr.counts.data_ptr(), bsr.rows.data_ptr(), bsr.vals.data_ptr(), part.data_ptr(),
+           ypart.data_ptr(), y.data_ptr(), t_dim, k_dim, m_dim, r, jb, maxb, bs, bt, n_ksplit,
+           K_SPLIT, n_ssplit, code, wcode)
+    slr_matmul.launches += 1
+    return y
+
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+slr_matmul.launches = 0
 
 
 def slr_matmul_stacked(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,

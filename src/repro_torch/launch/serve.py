@@ -1,6 +1,6 @@
 """Serving launcher: materialize the HPA budget spectrum of one SLR state as
-ONE ModelBank and serve a batch of requests through one paged engine (port
-of ``repro/launch/serve.py``, ``--engine paged``).
+ONE ModelBank and serve a batch of requests through one engine (port of
+``repro/launch/serve.py``, ``--engine paged`` and ``--engine reference``).
 
 ``--keep-ratios`` names the bank's budget tiers (tier 0 = largest). Requests
 spread round-robin across the tiers (pin them all with ``--tier``); the
@@ -16,6 +16,11 @@ one, so every SLR site takes the zero corner, as in the JAX launcher.
 ``AdapterBank`` (``--max-resident-adapters`` rows on the device; fewer than
 N turns on LRU swaps), requests round-robin over the tenants.
 
+A family without per-slot cache lengths (the hybrid ``zamba2_2p7b``) serves
+through ``ReferenceEngine`` whatever ``--engine`` says, after a
+``{"note": ..., "capabilities": ...}`` line, as the JAX launcher does;
+``--engine reference`` picks that engine for any family.
+
 It prints one JSON line with the JAX launcher's keys, less ``jit_retraces``
 (PyTorch runs eagerly: there is no tracing compiler to count retraces of).
 TTFT percentiles come from the requests' timestamps.
@@ -24,13 +29,14 @@ TTFT percentiles come from the requests' timestamps.
       --keep-ratios 1.0,0.6,0.3 --fmt fused --prefix-cache --tier-policy pressure
   python -m repro_torch.launch.serve --arch salaad_llama_60m --fmt fused \\
       --adapters 3 --max-resident-adapters 2
+  python -m repro_torch.launch.serve --arch zamba2_2p7b --keep-ratios 1.0,0.5 --fmt fused
 
 Tensors live on the card unless ``--device cpu`` is given (with
 ``--reduced``, for a run of the plain versions on the CPU). On the card the
-model runs the CUDA attention kernels (``kernel_impl='pallas'``: flash
-prefill, paged decode and k-query) when ``--kv-dtype`` is the model's dtype,
-since those kernels read KV pages in it; pages in another dtype, and the
-CPU, keep the config's attention path (gather + masked softmax).
+paged engine runs the CUDA attention kernels (``kernel_impl='pallas'``:
+flash prefill, paged decode and k-query) when ``--kv-dtype`` is the model's
+dtype, since those kernels read KV pages in it; pages in another dtype, the
+reference engine and the CPU keep the config's attention path.
 """
 from __future__ import annotations
 
@@ -51,11 +57,16 @@ from ..models import model as model_lib
 from ..serving.adapters import AdapterBank, adapterize
 from ..serving.deployed import DeployedModel
 from ..serving.elastic import ModelBank, format_capability_table
-from ..serving.engine import EngineConfig, PagedServingEngine
+from ..serving.engine import (
+    BATCHED_FAMILIES,
+    EngineConfig,
+    PagedServingEngine,
+    ReferenceEngine,
+)
 from ..serving.slr_params import deployment_report
 from ..train import checkpoint
 
-ENGINES = {"paged": PagedServingEngine}
+ENGINES = {"paged": PagedServingEngine, "reference": ReferenceEngine}
 
 # switches whose code paths come with later slices of the port
 _LATER = {
@@ -118,7 +129,8 @@ def serve_batch(engine, vocab: int, requests: int, max_new: int, seed: int,
     if slo_ms is not None and ttft:
         stats["slo_ms"] = slo_ms
         stats["slo_attainment"] = round(sum(t * 1e3 <= slo_ms for t in ttft) / len(ttft), 3)
-    stats["evictions"] = engine.evictions
+    if hasattr(engine, "evictions"):
+        stats["evictions"] = engine.evictions
     if getattr(engine, "_prefix", None) is not None:
         stats["prefix_cache"] = {
             "lookups": engine.prefix_lookups,
@@ -204,19 +216,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_later_slices(ap: argparse.ArgumentParser, args):
     asked = [msg for name, msg in _LATER.items() if getattr(args, name) != ap.get_default(name)]
-    if args.engine != "paged":
-        asked.append(f"--engine {args.engine} (the port serves through the paged "
-                     "engine; the other engines are later slices)")
+    if args.engine not in ENGINES:
+        asked.append(f"--engine {args.engine} (the port serves through the paged and "
+                     "reference engines; the other engines are later slices)")
     if args.kv_dtype == "int8":
         asked.append("--kv-dtype int8 (quantized pages are a later slice)")
     if asked:
         raise ValueError(f"not ported yet: {'; '.join(asked)}")
 
 
-def attention_impl(cfg, device, kv_dtype: str) -> str:
+def attention_impl(cfg, device, kv_dtype: str, engine=PagedServingEngine) -> str:
     """The attention path the launcher serves ``cfg`` with: the CUDA kernels
-    on the card when the pages hold the model's dtype, else the config's."""
-    if device.type == "cuda" and getattr(torch, kv_dtype) == cfg.param_dtype:
+    on the card when the paged engine's pages hold the model's dtype, else
+    the config's."""
+    if engine is PagedServingEngine and device.type == "cuda" \
+            and getattr(torch, kv_dtype) == cfg.param_dtype:
         return "pallas"
     return cfg.kernel_impl
 
@@ -229,7 +243,18 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     device = resolve_device(args.device)
-    cfg = dataclasses.replace(cfg, kernel_impl=attention_impl(cfg, device, args.kv_dtype))
+    engine_cls = ENGINES[args.engine]
+    if engine_cls is not ReferenceEngine and cfg.family not in BATCHED_FAMILIES:
+        # the capability line a constructor-time error would carry; features
+        # the reference engine lacks then fail loudly in its constructor
+        print(json.dumps({
+            "note": f"family {cfg.family!r} has no per-slot-length cache yet; falling "
+                    "back to the reference engine",
+            "capabilities": ReferenceEngine.capabilities(),
+        }))
+        engine_cls = ReferenceEngine
+    cfg = dataclasses.replace(cfg, kernel_impl=attention_impl(cfg, device, args.kv_dtype,
+                                                              engine_cls))
     params = model_lib.init_params(cfg, seed=args.seed, device=device)
     scfg = SalaadConfig(selection=SelectionConfig(min_dim=16))
     slr, blocks = init_slr_state(params, scfg)
@@ -256,14 +281,14 @@ def main(argv=None):
             tenants.append(adapterize(base, DeployedModel.build(cfg, params, slr_k, blocks,
                                                                 fmt=args.fmt)))
         bank = AdapterBank(base, tenants, names=[f"tenant{i}" for i in range(args.adapters)])
-        engine = PagedServingEngine(bank, ecfg)
+        engine = engine_cls(bank, ecfg)
         stats = serve_batch(engine, cfg.vocab_size, args.requests, args.max_new, args.seed,
                             args.slo_ms, adapters=tuple(range(args.adapters)))
         print(json.dumps({"fmt": args.fmt, "adapters": bank.adapter_report(), **stats}))
         return
 
     if args.keep_ratios is None:
-        engine = PagedServingEngine(ModelBank.single(cfg, params), ecfg)
+        engine = engine_cls(ModelBank.single(cfg, params), ecfg)
         stats = serve_batch(engine, cfg.vocab_size, args.requests, args.max_new,
                             args.seed, args.slo_ms)
         print(json.dumps({"budget": None, "fmt": "dense-init", **stats}))
@@ -286,7 +311,7 @@ def main(argv=None):
     for tier, row in zip(bank, tier_rows):
         row.update(tier=tier.index, name=tier.name, served_bytes=tier.param_bytes)
 
-    engine = PagedServingEngine(bank, ecfg)
+    engine = engine_cls(bank, ecfg)
     tiers = (args.tier,) if args.tier is not None else tuple(range(len(bank)))
     stats = serve_batch(engine, cfg.vocab_size, args.requests, args.max_new, args.seed,
                         args.slo_ms, tiers=tiers)

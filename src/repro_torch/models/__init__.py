@@ -1,1 +1,1 @@
-"""Model code: the dense Llama family, plain functions over parameter dicts."""
+"""Model code: the dense Llama and the Zamba2 hybrid, plain functions over parameter dicts."""

@@ -1,5 +1,5 @@
-"""Attention: GQA projections, RoPE, and the no-cache and paged-cache paths
-(port of the dense-Llama part of ``repro/models/attention.py``).
+"""Attention: GQA projections, RoPE, and the no-cache, contiguous-cache and
+paged-cache paths (port of ``repro/models/attention.py``).
 
 Paths, one set of weights:
   * no cache, ``kernel_impl='pallas'``: the CUDA flash attention kernel
@@ -10,11 +10,15 @@ Paths, one set of weights:
   * no cache, ``kernel_impl='dense'``: plain causal masked softmax;
   * paged cache, ``kernel_impl='pallas'``: the CUDA paged kernels
     (``kernels/ops.py``), single-query for decode and k-query for chunks;
-  * paged cache otherwise: gather the slot's pages, then masked einsum.
+  * paged cache otherwise: gather the slot's pages, then masked einsum;
+  * contiguous cache (``KVCache``, one scalar length for the batch): the t
+    new positions insert at the length; t == 1 attends by masked einsum,
+    t > 1 (prefill into a cache) through ``models/flash_vjp.py`` with the
+    causal offset at the length, as the JAX package's path does.
 
-The paged insert updates the page pools IN PLACE: the JAX package donated
-the pool buffers to its jitted programs, so no caller held the old pools;
-here the engine owns the one pool and every layer writes into its slice.
+Both inserts update the caches IN PLACE: the JAX package donated the cache
+buffers to its jitted programs, so no caller held the old ones; here the
+engine owns the one cache and every layer writes into its slice.
 """
 from __future__ import annotations
 
@@ -28,7 +32,16 @@ from ..kernels.ref import NEG_INF, _gather_pages, attention_ref
 from .flash_vjp import flash_attention_vjp
 from .layers import apply_rope, apply_weight
 
-__all__ = ["PagedLayerCache", "paged_insert", "paged_gather", "attention_block"]
+__all__ = ["KVCache", "PagedLayerCache", "paged_insert", "paged_gather", "attention_block"]
+
+
+class KVCache(NamedTuple):
+    """One layer's contiguous KV cache: positions 0 .. length - 1 of every
+    row are valid. ``length`` is a host integer (the caller keeps it)."""
+
+    k: torch.Tensor   # (B, Hkv, S, D)
+    v: torch.Tensor
+    length: int
 
 
 class PagedLayerCache(NamedTuple):
@@ -79,7 +92,7 @@ def attention_block(
     head_dim: int,
     positions: torch.Tensor,         # (1 or B, T)
     rope_theta: float = 1e4,
-    cache: PagedLayerCache | None = None,
+    cache: PagedLayerCache | KVCache | None = None,
     kernel_impl: str = "blockwise",
     q_block: int = 512,
     kv_block: int = 1024,
@@ -91,7 +104,8 @@ def attention_block(
     Without a cache returns ``(out, (kh, vh))`` - the rotated KV heads, so a
     one-shot prefill can fill pages without re-projecting. With a paged cache
     the t new positions are inserted first and query i of slot b attends keys
-    ``<= length[b] + i``; returns ``(out, updated layer cache)``.
+    ``<= length[b] + i``; returns ``(out, updated layer cache)``. A
+    contiguous cache does the same at its one length.
     """
     b, t, _ = x.shape
     q = apply_weight(x, params["q"]).reshape(b, t, n_heads, head_dim)
@@ -116,6 +130,18 @@ def attention_block(
         else:
             out = flash_attention_vjp(qh, kh, vh, True, q_block, kv_block)
         new_cache = (kh, vh)
+    elif isinstance(cache, KVCache):
+        n0 = int(cache.length)
+        cache.k[:, :, n0:n0 + t] = kh.to(cache.k.dtype)
+        cache.v[:, :, n0:n0 + t] = vh.to(cache.v.dtype)
+        new_cache = KVCache(cache.k, cache.v, n0 + t)
+        if t > 1:
+            out = flash_attention_vjp(qh, cache.k, cache.v, True, q_block, kv_block,
+                                      causal_offset=n0)
+        else:
+            out = _masked_attention(qh, cache.k, cache.v,
+                                    torch.full((b, 1), n0, device=x.device), n_heads, n_kv,
+                                    head_dim).to(x.dtype)
     else:
         new_cache = paged_insert(cache, kh, vh)
         if kernel_impl == "pallas":
@@ -131,16 +157,23 @@ def attention_block(
                 )
         else:
             kg, vg = paged_gather(new_cache)
-            group = n_heads // n_kv
-            qg = qh.reshape(b, n_kv, group, t, head_dim).float() * (1.0 / math.sqrt(head_dim))
-            sc = torch.einsum("bhgtd,bhsd->bhgts", qg, kg.float())
             q_idx = cache.length.long()[:, None] + torch.arange(t, device=x.device)[None, :]
-            k_idx = torch.arange(kg.shape[2], device=x.device)
-            mask = k_idx[None, None, :] <= q_idx[..., None]            # (B, t, S)
-            sc = torch.where(mask[:, None, None], sc, torch.full_like(sc, NEG_INF))
-            w = torch.softmax(sc, dim=-1)
-            out = torch.einsum("bhgts,bhsd->bhgtd", w, vg.float())
-            out = out.reshape(b, n_heads, t, head_dim).to(x.dtype)
+            out = _masked_attention(qh, kg, vg, q_idx, n_heads, n_kv, head_dim).to(x.dtype)
 
     out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim)
     return apply_weight(out, params["o"]), new_cache
+
+
+def _masked_attention(qh, kh, vh, q_idx, n_heads: int, n_kv: int, head_dim: int):
+    """O(t * S) attention in f32: query i of row b (at position
+    ``q_idx[b, i]``) attends keys ``<= q_idx[b, i]`` of kh/vh (B, Hkv, S, D)."""
+    b, _, t, _ = qh.shape
+    group = n_heads // n_kv
+    qg = qh.reshape(b, n_kv, group, t, head_dim).float() * (1.0 / math.sqrt(head_dim))
+    sc = torch.einsum("bhgtd,bhsd->bhgts", qg, kh.float())
+    k_idx = torch.arange(kh.shape[2], device=qh.device)
+    mask = k_idx[None, None, :] <= q_idx[..., None]            # (B, t, S)
+    sc = torch.where(mask[:, None, None], sc, torch.full_like(sc, NEG_INF))
+    w = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhgts,bhsd->bhgtd", w, vh.float())
+    return out.reshape(b, n_heads, t, head_dim)

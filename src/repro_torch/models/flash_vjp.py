@@ -16,6 +16,11 @@ this is plain PyTorch. One difference in the order of work, not in the
 numbers: under ``causal`` a kv block that lies wholly above the diagonal is
 skipped; the JAX loop visits it and adds exact zeros (its probabilities
 underflow to 0 once the first block, which holds key 0, has set the row max).
+
+``causal_offset`` shifts the diagonal: query row i sees keys j <= i +
+offset. A chunk prefilled into a contiguous cache of S positions, whose
+first query sits at the cache's length, attends with offset = that length
+(``models/attention.py``), as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -37,8 +42,9 @@ def _pad(x: torch.Tensor, mult: int) -> torch.Tensor:
 class _Blocks:
     """q / k / v padded to block multiples and split into blocks, in f32."""
 
-    def __init__(self, q, k, v, q_block, kv_block):
+    def __init__(self, q, k, v, q_block, kv_block, offset):
         b, hq, t, d = q.shape
+        self.offset = offset
         _, hkv, s, _ = k.shape
         self.b, self.hkv, self.g, self.t, self.s, self.d = b, hkv, hq // hkv, t, s, d
         self.scale = 1.0 / math.sqrt(d)
@@ -55,7 +61,7 @@ class _Blocks:
         first block is always visited: it sets every row's max)."""
         if not causal:
             return range(self.nk)
-        last_q = (qi + 1) * self.bq - 1
+        last_q = (qi + 1) * self.bq - 1 + self.offset
         return range(max(1, min(self.nk, last_q // self.bk + 1)))
 
     def mask(self, qi: int, ki: int, causal: bool, device) -> torch.Tensor:
@@ -63,12 +69,12 @@ class _Blocks:
         m = (k_pos < self.s)[None, :]
         if causal:
             q_pos = qi * self.bq + torch.arange(self.bq, device=device)
-            m = m & (q_pos[:, None] >= k_pos[None, :])
+            m = m & (q_pos[:, None] + self.offset >= k_pos[None, :])
         return m                                        # (bq, bk)
 
 
-def _forward(q, k, v, causal, q_block, kv_block):
-    blk = _Blocks(q, k, v, q_block, kv_block)
+def _forward(q, k, v, causal, q_block, kv_block, offset):
+    blk = _Blocks(q, k, v, q_block, kv_block, offset)
     shape = (blk.b, blk.hkv, blk.g, blk.bq)
     outs, lses = [], []
     for qi in range(blk.nq):
@@ -91,8 +97,8 @@ def _forward(q, k, v, causal, q_block, kv_block):
     return out[:, :, :blk.t].to(q.dtype), torch.stack(lses, 3)   # lse (b,hkv,g,nq,bq)
 
 
-def _backward(q, k, v, out, lse, dout, causal, q_block, kv_block):
-    blk = _Blocks(q, k, v, q_block, kv_block)
+def _backward(q, k, v, out, lse, dout, causal, q_block, kv_block, offset):
+    blk = _Blocks(q, k, v, q_block, kv_block, offset)
     g_shape = (blk.b, blk.hkv, blk.g, blk.nq, blk.bq, blk.d)
     dob = _pad(dout, blk.bq).reshape(g_shape).float()
     ob = _pad(out, blk.bq).reshape(g_shape).float()
@@ -125,23 +131,25 @@ def _backward(q, k, v, out, lse, dout, causal, q_block, kv_block):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_block, kv_block):
-        out, lse = _forward(q, k, v, causal, q_block, kv_block)
+    def forward(ctx, q, k, v, causal, q_block, kv_block, offset):
+        out, lse = _forward(q, k, v, causal, q_block, kv_block, offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, q_block, kv_block)
+        ctx.args = (causal, q_block, kv_block, offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, out, lse, dout, *ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, q_block: int = 512,
-                        kv_block: int = 1024) -> torch.Tensor:
+                        kv_block: int = 1024, causal_offset: int = 0) -> torch.Tensor:
     """q (B, Hq, T, D) over k, v (B, Hkv, S, D), GQA by head groups; query
-    row i sees keys j <= i under ``causal``. Differentiable
-    in q, k and v with O(T) saved state; the output is q.dtype."""
-    return _FlashAttention.apply(q, k, v, bool(causal), int(q_block), int(kv_block))
+    row i sees keys j <= i + ``causal_offset`` under ``causal``.
+    Differentiable in q, k and v with O(T) saved state; the output is
+    q.dtype."""
+    return _FlashAttention.apply(q, k, v, bool(causal), int(q_block), int(kv_block),
+                                 int(causal_offset))

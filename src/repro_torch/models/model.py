@@ -1,42 +1,57 @@
-"""Unified model API, dense family only (port of the serving part of
+"""Unified model API over the ported families, dense and hybrid (port of
 ``repro/models/model.py``).
 
     init_params(cfg, seed, device)                  -> params tree
     _forward(params, batch, cfg, ...)               -> (logits, cache or kv)
+    prefill(params, batch, cfg, max_len)            -> (logits, contiguous cache)
     decode_step(params, tokens, cache, cfg)         -> (logits, cache)
     chunk_prefill_step(params, tokens, counts, cache, cfg) -> (logits, cache)
+    init_cache(cfg, batch, max_len)                 -> LMCache or HybridCache
     init_paged_cache(cfg, ...)                      -> PagedKVCache
     cross_entropy(logits, labels, mask)             -> mean next-token NLL
     loss_fn(params, batch, cfg)                     -> (loss, metrics)
 
-The moe, ssm, hybrid, encdec and vlm families come with their slices and
-raise here.
+The paged cache and chunked prefill need a family with per-slot lengths
+(dense) and raise for the hybrid, as in the JAX package. The moe, ssm,
+encdec and vlm families come with their slices and raise here.
 """
 from __future__ import annotations
 
 import torch
 
 from ..device import resolve_device
-from . import transformer
+from . import hybrid, transformer
 
-__all__ = ["init_params", "decode_step", "chunk_prefill_step", "init_paged_cache",
-           "cross_entropy", "loss_fn"]
+__all__ = ["init_params", "prefill", "decode_step", "chunk_prefill_step", "init_cache",
+           "init_paged_cache", "cross_entropy", "loss_fn"]
+
+FAMILIES = ("dense", "hybrid")
 
 
-def _require_dense(cfg):
+def _require_ported(cfg):
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not ported yet (ported: {FAMILIES})")
+
+
+def _require_paged(cfg, what: str):
+    _require_ported(cfg)
     if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
+        raise ValueError(f"{what} needs a KV-cache family, got {cfg.family!r}")
 
 
 def init_params(cfg, seed: int = 0, device=None) -> dict:
     """Random parameters from a numpy seed, on the card unless ``device``
     says otherwise."""
-    _require_dense(cfg)
-    return transformer.init_lm(cfg, seed, resolve_device(device))
+    _require_ported(cfg)
+    init = transformer.init_lm if cfg.family == "dense" else hybrid.init_hybrid
+    return init(cfg, seed, resolve_device(device))
 
 
 def _forward(params, batch: dict, cfg, cache=None, position_offset=0, collect_kv=False):
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "hybrid":
+        return hybrid.forward(params, batch["tokens"], cfg, cache=cache,
+                              position_offset=position_offset)
     return transformer.forward(params, batch["tokens"], cfg, cache=cache,
                                position_offset=position_offset, collect_kv=collect_kv)
 
@@ -69,10 +84,26 @@ def loss_fn(params, batch: dict, cfg, aux_weight: float = 0.01):
 
 
 @torch.no_grad()
+def prefill(params, batch: dict, cfg, max_len: int, cache_dtype=torch.bfloat16):
+    """Full-sequence forward that builds a contiguous decode cache (of
+    ``cache_dtype``, bf16 by default as in the JAX package) on the tokens'
+    device. Returns ``(logits, cache)``."""
+    _require_ported(cfg)
+    tokens = batch["tokens"]
+    if cfg.family == "hybrid":
+        cache = hybrid.init_hybrid_cache(cfg, tokens.shape[0], max_len, cache_dtype,
+                                         tokens.device)
+        return hybrid.forward(params, tokens, cfg, cache=cache)
+    logits, kvs = transformer.forward(params, tokens, cfg, collect_kv=True)
+    return logits, transformer.cache_from_prefill(kvs, max_len, cache_dtype)
+
+
+@torch.no_grad()
 def decode_step(params, tokens: torch.Tensor, cache, cfg):
-    """One autoregressive step; tokens (B, 1) sit at each slot's length."""
-    return _forward(params, {"tokens": tokens}, cfg, cache=cache,
-                    position_offset=cache.length.long())
+    """One autoregressive step; tokens (B, 1) sit at each slot's length (the
+    paged cache's per-slot lengths, or a contiguous cache's one length)."""
+    offset = cache.length if isinstance(cache.length, int) else cache.length.long()
+    return _forward(params, {"tokens": tokens}, cfg, cache=cache, position_offset=offset)
 
 
 @torch.no_grad()
@@ -82,14 +113,23 @@ def chunk_prefill_step(params, tokens: torch.Tensor, counts: torch.Tensor, cache
     valid and lengths advance by ``counts``; the padded tail writes KV past
     the valid prefix, which is never attended and is overwritten by the next
     real insert. Returns ``(logits (B, C, vocab), new cache)``."""
+    _require_paged(cfg, "chunked prefill")
     n0 = cache.length
     logits, new_cache = _forward(params, {"tokens": tokens}, cfg, cache=cache,
                                  position_offset=n0.long())
     return logits, new_cache._replace(length=n0 + counts)
 
 
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+    """The family's contiguous decode cache, on the card unless ``device``
+    says otherwise."""
+    _require_ported(cfg)
+    init = transformer.init_cache if cfg.family == "dense" else hybrid.init_hybrid_cache
+    return init(cfg, batch, max_len, dtype, resolve_device(device))
+
+
 def init_paged_cache(cfg, max_slots: int, num_pages: int, block_size: int,
                      pages_per_slot: int, dtype=torch.float32, device=None):
-    _require_dense(cfg)
+    _require_paged(cfg, "paged KV cache")
     return transformer.init_paged_cache(cfg, max_slots, num_pages, block_size,
                                         pages_per_slot, dtype, resolve_device(device))

@@ -1,5 +1,5 @@
-"""Decoder-only dense transformer LM with a paged KV cache (port of the dense
-part of ``repro/models/transformer.py``).
+"""Decoder-only dense transformer LM with a paged or a contiguous KV cache
+(port of the dense part of ``repro/models/transformer.py``).
 
 Parameters keep the JAX package's tree: ``embed/embedding``, ``layers/...``
 stacked on a leading layer axis, ``final_norm/norm_scale`` and
@@ -29,11 +29,21 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
-from .attention import PagedLayerCache, attention_block
+from .attention import KVCache, PagedLayerCache, attention_block
 from .layers import apply_weight, embed, rmsnorm, swiglu
 
-__all__ = ["PagedKVCache", "init_lm", "layer_view", "forward", "init_paged_cache",
-           "scatter_prefill_pages", "copy_cache_pages"]
+__all__ = ["LMCache", "PagedKVCache", "init_lm", "layer_view", "forward", "init_cache",
+           "cache_from_prefill", "init_paged_cache", "scatter_prefill_pages",
+           "copy_cache_pages"]
+
+
+class LMCache(NamedTuple):
+    """Contiguous decode cache (the reference engine's): positions
+    0 .. length - 1 of every row are valid; axis 1 of k and v is the batch."""
+
+    k: torch.Tensor   # (L, B, Hkv, S, D)
+    v: torch.Tensor
+    length: int       # valid prefix (a host integer)
 
 
 class PagedKVCache(NamedTuple):
@@ -116,14 +126,15 @@ def _layer_apply(lp: dict, x, cfg, positions, cache):
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg, *,
-            cache: PagedKVCache | None = None, position_offset=0,
+            cache: PagedKVCache | LMCache | None = None, position_offset=0,
             collect_kv: bool = False) -> tuple[torch.Tensor, Any]:
     """(logits (B, T, vocab), new cache or stacked KV heads).
 
     * no cache: the second value is the stacked ``(kh, vh)`` heads, each
       (L, B, Hkv, T, D), when ``collect_kv`` (one-shot prefill), else None;
     * paged cache: tokens insert at each slot's length; the pools update in
-      place and the returned cache carries ``length + T``.
+      place and the returned cache carries ``length + T``;
+    * contiguous cache: the same at its one length, in place.
     """
     x = embed(params["embed"], tokens)
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -139,7 +150,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     for l in range(cfg.num_layers):
         lp = layers[l] if unrolled else layer_view(layers, l)
         layer_cache = None
-        if cache is not None:
+        if isinstance(cache, LMCache):
+            layer_cache = KVCache(cache.k[l], cache.v[l], cache.length)
+        elif cache is not None:
             layer_cache = PagedLayerCache(cache.k[l], cache.v[l], cache.block_table,
                                           cache.length)
         if remat:
@@ -157,6 +170,21 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     if collect_kv:
         return logits, (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
     return logits, None
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, device) -> LMCache:
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return LMCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device), length=0)
+
+
+def cache_from_prefill(kvs, max_len: int, dtype) -> LMCache:
+    """An LMCache from ``forward``'s stacked prefill heads (L, B, Hkv, T, D)."""
+    kh, vh = kvs
+    t = kh.shape[3]
+    pad = (0, 0, 0, max(max_len - t, 0))
+    return LMCache(k=torch.nn.functional.pad(kh.to(dtype), pad),
+                   v=torch.nn.functional.pad(vh.to(dtype), pad), length=t)
 
 
 def init_paged_cache(cfg, max_slots: int, num_pages: int, block_size: int,

@@ -5,7 +5,9 @@ Every SALAAD-selected matmul weight (attention q/k/v/o, MLP gate/up/down)
 becomes a :class:`~repro_torch.serving.slr_params.SLRLinear` in the
 parameter tree, so the unchanged model code runs ``x @ P @ Vt + x @ S`` at
 every linear site through ``models.layers.apply_weight``. Gather sites (the
-embedding) are served dense-materialized. Formats:
+embedding) and the SSM projections of the hybrid family (read as plain
+tensors by ``models/ssm.py``, stacked (G, E, n, m)) are served
+dense-materialized. Formats:
 
   * ``dense``    - X_hat = L + S materialized
   * ``factored`` - (p, vt) + COO S, plain PyTorch products
@@ -14,7 +16,9 @@ embedding) are served dense-materialized. Formats:
                    layer stack is unrolled into a list of per-layer dicts
                    (``models.transformer.forward`` loops over it)
   * ``fused``    - one fused SLR kernel per linear site with layer-stacked
-                   block-CSC tables; the layer loop passes the layer index
+                   block-CSC tables; the layer loop passes the layer index.
+                   A weight outside a layer stack (the hybrid's shared
+                   block) gets per-matrix tables and the unstacked kernel
 """
 from __future__ import annotations
 
@@ -27,7 +31,13 @@ from ..core.admm import SLRState, surrogate_params
 from ..core.selection import BlockInfo, path_str
 from ..models import model as model_lib
 from ..tree import replace_by_path, tree_leaves_with_path
-from .slr_params import SLRLinear, build_slr_linears, coo_to_bsr, coo_to_bsr_stack
+from .slr_params import (
+    SLRLinear,
+    build_slr_linears,
+    coo_to_bsr,
+    coo_to_bsr_stack,
+    live_rank_slice,
+)
 
 __all__ = ["DeployedModel", "is_linear_site"]
 
@@ -41,7 +51,13 @@ def is_linear_site(info: BlockInfo) -> bool:
 
 
 def _materialize_dense(blk, leaf_dtype) -> torch.Tensor:
-    dense = blk.p @ blk.vt + sparse.to_dense(blk.s_coo).to(blk.p.dtype)
+    """X_hat = L + S for a block served dense. The product runs over the live
+    rank only (the dead columns of p are zero, so they add nothing): a
+    fresh all-zero state, or a truncated tier, skips most of it."""
+    dense = sparse.to_dense(blk.s_coo).to(blk.p.dtype)
+    p, vt = live_rank_slice(blk)
+    if p is not None:
+        dense = p @ vt + dense
     return dense.to(leaf_dtype)
 
 
@@ -56,8 +72,7 @@ def _coo_slice_to_bsr(lin: SLRLinear, bsr_block: int) -> SLRLinear:
 
 def _fuse_linear(lin: SLRLinear, bsr_block: int) -> SLRLinear:
     """Stacked weights keep the layer axis as a ``BsrStack``; unstacked ones
-    get a per-matrix block-CSC (their apply needs ``slr_matmul_pallas`` when
-    both parts are live, and raises)."""
+    get a per-matrix block-CSC, applied by ``ops.slr_matmul``."""
     if lin.ndim == 3:
         s_stack = coo_to_bsr_stack(lin.s_coo, bsr_block) if lin.s_coo is not None else None
         return SLRLinear(p=lin.p, vt=lin.vt, s_coo=None, s_stack=s_stack,

@@ -38,6 +38,13 @@ into the bank's device pool (an LRU swap when it is not resident). In
 prefix cache on, each adapter has its own radix index (KV pages depend on
 the adapter's weights) over the one shared allocator.
 
+``ReferenceEngine`` is the JAX package's per-slot, per-token engine over a
+contiguous float32 cache (one decode call and one host sync per slot per
+token, prompts fed token by token): the serving path of the hybrid family,
+whose SSM state has no per-slot lengths, and the measured baseline for the
+dense one. Features it cannot give raise :class:`EngineCapabilityError` at
+construction, with its ``capabilities()`` in the message.
+
 Not ported yet, each rejected with a ``ValueError`` that names it:
 speculative decoding, tensor-parallel meshes, int8 pages, sampling with a
 temperature, and the telemetry registry and tracer. The counters the JAX
@@ -47,6 +54,7 @@ resident adapters, tokens by adapter) are plain integers here.
 """
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass, field
 
@@ -60,8 +68,10 @@ from .deployed import DeployedModel
 from .elastic import ModelBank, TierController
 from .prefix_cache import PrefixCache
 
-__all__ = ["Request", "RequestRejected", "EngineConfig", "BlockAllocator",
-           "PagedServingEngine"]
+__all__ = ["Request", "RequestRejected", "EngineCapabilityError", "EngineConfig",
+           "BlockAllocator", "PagedServingEngine", "ReferenceEngine", "BATCHED_FAMILIES"]
+
+BATCHED_FAMILIES = ("dense",)   # ported cache families with per-slot lengths
 
 # internal timestamps use the monotonic clock; only Request.deadline is a
 # wall-clock value handed in by the caller
@@ -75,6 +85,23 @@ class RequestRejected(ValueError):
     """Raised by ``submit`` when a request can never be served by this engine
     (too long for the cache, larger than the whole page pool, pinned to a
     tier the bank does not have, or naming an adapter it does not serve)."""
+
+
+class EngineCapabilityError(RequestRejected):
+    """A feature (quantized or bf16 KV, chunked prefill, the pressure tier
+    policy, the prefix cache, adapters) was requested of an engine that
+    cannot give it. A ``RequestRejected``, so callers handle both through
+    one error path."""
+
+
+def _capability_error(engine_cls, family: str, missing: list[str]) -> EngineCapabilityError:
+    """An :class:`EngineCapabilityError` carrying the engine's
+    ``capabilities()``, so a caller sees which features it lacks."""
+    caps = engine_cls.capabilities()
+    return EngineCapabilityError(
+        f"family {family!r} serves through {engine_cls.__name__}; requested "
+        f"feature(s) unavailable: {', '.join(missing)}. Engine capabilities: "
+        f"{json.dumps(caps, sort_keys=True)}")
 
 
 @dataclass
@@ -179,9 +206,11 @@ def _validate_request(prompt: list[int], max_new_tokens: int, max_len: int):
                               f"exceeds cache capacity {max_len}")
 
 
-def _resolve_engine_args(name: str, model, ecfg) -> tuple[ModelBank, EngineConfig]:
+def _resolve_engine_args(name: str, model, ecfg,
+                         adapters_agree: bool = True) -> tuple[ModelBank, EngineConfig]:
     """``Engine(bank, ecfg)``; a bare ``DeployedModel`` is wrapped as a
-    one-tier bank. An ``AdapterBank`` and ``ecfg.adapters`` must agree."""
+    one-tier bank. With ``adapters_agree`` an ``AdapterBank`` and
+    ``ecfg.adapters`` must agree."""
     if isinstance(model, DeployedModel):
         model = ModelBank.single(model.cfg, model)
     if not isinstance(model, ModelBank):
@@ -192,7 +221,7 @@ def _resolve_engine_args(name: str, model, ecfg) -> tuple[ModelBank, EngineConfi
                         f"{type(ecfg).__name__}")
     ecfg = ecfg if ecfg is not None else EngineConfig()
     # neither a silently ignored AdapterBank nor a flag with no pool
-    if ecfg.adapters != isinstance(model, AdapterBank):
+    if adapters_agree and ecfg.adapters != isinstance(model, AdapterBank):
         raise ValueError("adapters=True needs an AdapterBank (serving.adapters) as the "
                          "engine's bank, and an AdapterBank needs adapters=True; got "
                          f"adapters={ecfg.adapters} with {type(model).__name__}")
@@ -274,8 +303,9 @@ class PagedServingEngine:
     def __init__(self, model: ModelBank | DeployedModel, ecfg: EngineConfig | None = None):
         bank, ecfg = _resolve_engine_args(type(self).__name__, model, ecfg)
         cfg = bank.cfg
-        if cfg.family != "dense":
-            raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
+        if cfg.family not in BATCHED_FAMILIES:
+            raise ValueError(f"batched engine needs a KV-cache family, got {cfg.family!r}; "
+                             "use ReferenceEngine for ssm/hybrid/encdec")
         kv_dtype = _KV_DTYPES[ecfg.kv_dtype]
         if cfg.kernel_impl == "pallas" and kv_dtype != cfg.param_dtype:
             raise ValueError(f"kernel_impl='pallas' needs kv_dtype equal to the "
@@ -959,3 +989,158 @@ class PagedServingEngine:
             steps += 1
             done.extend(self.step())
         return done
+
+
+# -------------------------------------------------------------- reference ---
+
+
+class ReferenceEngine:
+    """The per-slot, per-token engine (port of the JAX package's
+    ``ReferenceEngine``): a contiguous float32 cache for ``max_slots`` rows,
+    a per-slot view of it for every decode call (each cache tensor's batch
+    axis ``CACHE_BATCH_AXIS`` narrowed to the slot, the length set to the
+    slot's own) and a write-back, one ``decode_step`` call and one host sync
+    per slot per token. Prompts are fed through the same decode step token by
+    token, the last prompt token by the first tick. Each slot decodes with
+    its request's bank tier. It serves every ported family (the hybrid's
+    SSM state has no per-slot lengths, so the paged engine cannot)."""
+
+    CACHE_BATCH_AXIS = 1     # the batch axis of every tensor of LMCache and HybridCache
+
+    def __init__(self, model: ModelBank | DeployedModel, ecfg: EngineConfig | None = None):
+        bank, ecfg = _resolve_engine_args(type(self).__name__, model, ecfg,
+                                          adapters_agree=False)
+        cfg = bank.cfg
+        missing = []
+        if ecfg.kv_dtype != "float32":
+            missing.append(f"kv_dtype={ecfg.kv_dtype!r}")
+        if ecfg.prefill_chunk is not None:
+            missing.append(f"chunked prefill (prefill_chunk={ecfg.prefill_chunk})")
+        if ecfg.tier_policy == "pressure":
+            missing.append(f"tier_policy={ecfg.tier_policy!r} (page-pressure controller)")
+        if ecfg.prefix_cache:
+            missing.append("prefix_cache=True (radix prompt cache)")
+        if ecfg.adapters or isinstance(bank, AdapterBank):
+            missing.append("multi-tenant adapters (AdapterBank serving needs the batched "
+                           "engines)")
+        if missing:
+            raise _capability_error(type(self), cfg.family, missing)
+        self.cfg, self.ecfg, self.bank = cfg, ecfg, bank
+        self._tier_params = [t.params for t in bank]
+        self.params = self._tier_params[0]
+        self.device = self.params["embed"]["embedding"].device
+        self.cache = model_lib.init_cache(cfg, ecfg.max_slots, ecfg.max_len,
+                                          dtype=torch.float32, device=self.device)
+        self._queue: list[Request] = []
+        self._active: dict[int, Request] = {}   # slot -> request
+        self._slot_len = [0] * ecfg.max_slots
+        self._uid = 0
+        self._steps = 0
+        self.decode_calls = 0
+
+    @classmethod
+    def capabilities(cls) -> dict:
+        return {
+            "engine": cls.__name__,
+            "families": ["dense", "hybrid"],
+            "kv": "contiguous",
+            "features": {
+                "kv_dtype": ["float32"],
+                "continuous_batching": False,
+                "deadlines_edf": False,
+                "chunked_prefill": False,
+                "eviction_resume": False,
+                "speculative": False,
+                "elastic_tiers": True,
+                "tier_pressure_controller": False,
+                "prefix_caching": False,
+                "tensor_parallel": False,
+                "multi_tenant_adapters": False,
+            },
+        }
+
+    def stats_snapshot(self) -> dict:
+        """The batched engines' counters; prompts go through the decode
+        step, so no prefill call is counted."""
+        return {"engine": type(self).__name__, "steps": self._steps,
+                "decode_calls": self.decode_calls, "prefill_calls": 0}
+
+    def submit(self, prompt: list[int], max_new_tokens: int = 16,
+               deadline: float | None = None, tier: int | None = None,
+               submitted_at: float | None = None, adapter: int | None = None) -> int:
+        _validate_request(prompt, max_new_tokens, self.ecfg.max_len)
+        try:
+            tier = self.bank.resolve(0 if tier is None else tier)
+        except ValueError as e:
+            raise RequestRejected(str(e)) from None
+        if adapter is not None:
+            raise RequestRejected(f"adapter={adapter}: ReferenceEngine serves no adapters "
+                                  "(AdapterBank needs the batched engines)")
+        self._uid += 1
+        self._queue.append(Request(
+            self._uid, list(prompt), max_new_tokens, deadline=deadline, tier=tier,
+            submitted_at=_now() if submitted_at is None else submitted_at))
+        return self._uid
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._queue or self._active)
+
+    def step(self) -> list[Request]:
+        """One tick: admit into free slots (feeding each prompt but its last
+        token), then one token for every active slot."""
+        done: list[Request] = []
+        self._steps += 1
+        free = [s for s in range(self.ecfg.max_slots) if s not in self._active]
+        while self._queue and free:
+            slot = free.pop()
+            req = self._queue.pop(0)
+            req.admitted_at = _now()
+            self._active[slot] = req
+            self._slot_len[slot] = 0
+            for tok in req.prompt[:-1]:
+                self._step_slot(slot, tok)
+        for slot, req in list(self._active.items()):
+            nxt = self._step_slot(slot, (req.out_tokens or req.prompt)[-1])
+            req.out_tokens.append(nxt)
+            now = _now()
+            req.token_times.append(now)
+            if req.first_token_at == 0.0:
+                req.first_token_at = now
+            if len(req.out_tokens) >= req.max_new_tokens or (
+                    self.ecfg.eos_token is not None and nxt == self.ecfg.eos_token):
+                req.done = True
+                req.finished_at = now
+                done.append(req)
+                del self._active[slot]
+        return done
+
+    def run(self, max_steps: int = 10_000) -> list[Request]:
+        done: list[Request] = []
+        steps = 0
+        while self.has_work and steps < max_steps:
+            steps += 1
+            done.extend(self.step())
+        return done
+
+    def _step_slot(self, slot: int, token: int) -> int:
+        """One decode call for one slot, with its request's tier: the slot's
+        view of the cache in, its new tensors written back, the greedy token
+        out (one host sync)."""
+        ax = self.CACHE_BATCH_AXIS
+        full = self.cache
+        view = full._replace(length=self._slot_len[slot], **{
+            f: getattr(full, f).narrow(ax, slot, 1) for f in full._fields
+            if isinstance(getattr(full, f), torch.Tensor)})
+        tok = torch.tensor([[token]], dtype=torch.long, device=self.device)
+        params = self._tier_params[self._active[slot].tier]
+        logits, new = model_lib.decode_step(params, tok, view, self.cfg)
+        self.decode_calls += 1
+        for f in full._fields:
+            dst = getattr(view, f)
+            src = getattr(new, f)
+            if isinstance(dst, torch.Tensor) and src is not dst \
+                    and src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+        self._slot_len[slot] += 1
+        return int(torch.argmax(logits[0, -1]))

@@ -7,9 +7,9 @@ Formats:
                    block-CSC kernels (``kernels/lowrank_matmul.py``,
                    ``kernels/bsr_matmul.py``), one weight per layer
   * ``fused``    - one kernel per linear site: ``x @ P @ Vt + x @ S`` with
-                   layer-stacked block-CSC tables (``kernels/slr_matmul.py``)
-Fused weights outside a layer stack with both parts live need the unstacked
-``slr_matmul_pallas`` kernel, ported with the hybrid family; they raise.
+                   layer-stacked block-CSC tables, or per-matrix tables for
+                   a weight outside a layer stack (the hybrid's shared
+                   block), through ``kernels/ops.py``
 
 ``deployment_report`` accounts bytes per format with the JAX package's
 conventions (bf16 deploy baseline), so the two reports are equal.
@@ -32,7 +32,7 @@ from ..kernels.slr_matmul import BsrStack, stack_bsr
 from ..tree import tree_leaves_with_path
 
 __all__ = ["SLRLinear", "SLRLayerView", "coo_to_bsr", "coo_to_bsr_stack",
-           "build_slr_linears", "deployment_report"]
+           "build_slr_linears", "live_rank_slice", "deployment_report"]
 
 
 @dataclass
@@ -161,7 +161,7 @@ def coo_to_bsr_stack(s_coo: sparse.CooMatrix, bsr_block: int) -> BsrStack:
     return stack_bsr([bsr_from_dense(dense_s[l], bs, device=dev) for l in range(num_l)])
 
 
-def _live_rank_slice(blk):
+def live_rank_slice(blk):
     """Trim factored L to live singular values (stacked blocks keep the max
     live rank across slices so shapes stay static). The order is numpy's
     argsort, as in the JAX package, so bridged states trim identically."""
@@ -182,7 +182,7 @@ def build_slr_linears(state: SLRState, blocks: list[BlockInfo]) -> dict[str, SLR
     out = {}
     for info in blocks:
         blk = state[info.name]
-        p, vt = _live_rank_slice(blk)
+        p, vt = live_rank_slice(blk)
         s_coo = blk.s_coo if int((blk.s_coo.idx >= 0).sum()) else None
         out[info.name] = SLRLinear(p=p, vt=vt, s_coo=s_coo, shape=(info.n, info.m))
     return out

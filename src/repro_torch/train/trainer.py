@@ -48,6 +48,9 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, arch_cfg, tcfg: TrainerConfig, device=None):
+        if arch_cfg.family != "dense":
+            raise ValueError(f"training the {arch_cfg.family!r} family is not ported yet "
+                             "(the port trains the dense family)")
         self.arch_cfg = arch_cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)

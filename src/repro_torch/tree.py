@@ -59,12 +59,16 @@ def leaf_by_path(tree: Any, path: tuple) -> Any:
 
 def replace_by_path(tree: Any, fn: Callable[[tuple, Any], Any]) -> Any:
     """Rebuild a nested dict/list tree with ``fn(path, leaf)`` at every leaf
-    (the counterpart of ``jax.tree_util.tree_map_with_path``)."""
-    def walk(node, path):
-        if isinstance(node, dict):
-            return {k: walk(v, path + (k,)) for k, v in node.items()}
-        if isinstance(node, (list, tuple)) and not hasattr(node, "_fields"):
-            return type(node)(walk(v, path + (i,)) for i, v in enumerate(node))
-        return fn(path, node)
+    (the counterpart of ``jax.tree_util.tree_map_with_path``). The walk is a
+    module-level function: a nested recursive one would form a reference
+    cycle that keeps ``fn`` (and whatever it closes over, such as a whole SLR
+    state) alive until the cyclic garbage collector runs."""
+    return _replace(tree, (), fn)
 
-    return walk(tree, ())
+
+def _replace(node, path: tuple, fn):
+    if isinstance(node, dict):
+        return {k: _replace(v, path + (k,), fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)) and not hasattr(node, "_fields"):
+        return type(node)(_replace(v, path + (i,), fn) for i, v in enumerate(node))
+    return fn(path, node)

@@ -1,7 +1,9 @@
 """``python -m repro_torch.launch.serve`` against ``python -m
 repro.launch.serve`` at ``--reduced``: the same JSON keys (less the JAX
 launcher's ``jit_retraces``) and the same request, token, tier, adapter,
-prefix-cache and byte counts. Both launchers serve a fresh all-zero SLR
+prefix-cache and byte counts, through the paged and the reference engines,
+for the dense Llama and the hybrid (whose line follows the JAX launcher's
+fallback note). Both launchers serve a fresh all-zero SLR
 state, so every SLR site takes the zero corner and the streams agree exactly;
 only the timings differ.
 
@@ -34,6 +36,8 @@ FLAG_SETS = {
                      "--requests", "5"],
     "adapters_factored_prefix": ["--adapters", "2", "--fmt", "factored", "--prefix-cache",
                                  "--requests", "4", "--max-new", "4"],
+    "reference_engine": ["--engine", "reference", "--keep-ratios", "1.0,0.6", "--fmt", "fused",
+                         "--requests", "3", "--max-new", "4"],
 }
 
 
@@ -60,13 +64,51 @@ def test_cli_matches_jax(flags, monkeypatch, capsys):
         assert sum(got["tokens_by_adapter"].values()) == got["tokens"]
 
 
-@pytest.mark.parametrize("flag", [["--engine", "reference"], ["--engine", "speculative"],
+@pytest.mark.parametrize("flag", [["--engine", "batched"], ["--engine", "speculative"],
                                   ["--spec-k", "2"], ["--mesh", "model=2"],
                                   ["--kv-dtype", "int8"], ["--trace-out", "t.json"],
                                   ["--metrics-port", "0"]])
 def test_later_slice_switches_raise(flag):
     with pytest.raises(ValueError, match="not ported yet"):
         serve.main(["--arch", "salaad_llama_60m", "--reduced", "--device", "cpu", *flag])
+
+
+def run_lines(main, argv, monkeypatch, capsys) -> list[dict]:
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    main()
+    return [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+
+
+@pytest.mark.parametrize("engine", [[], ["--engine", "reference"]], ids=["paged", "reference"])
+def test_hybrid_serves_through_the_reference_engine(engine, monkeypatch, capsys):
+    """The hybrid has no per-slot-length cache: asked for the paged engine,
+    both launchers print the fallback note and serve on ReferenceEngine;
+    asked for it, they serve without a note. The served line equals JAX's
+    (less ``jit_retraces`` and the timings); the note's capabilities name
+    the families each package serves."""
+    argv = ["--arch", "zamba2_2p7b", "--reduced", "--keep-ratios", "1.0,0.5", "--fmt",
+            "fused", "--requests", "3", "--max-new", "4", *engine]
+    got = run_lines(serve.main, argv + ["--device", "cpu"], monkeypatch, capsys)
+    want = run_lines(jax_serve.main, argv, monkeypatch, capsys)
+    assert len(got) == len(want) == (2 if not engine else 1)
+    if not engine:
+        assert got[0]["note"] == want[0]["note"]
+        assert got[0]["capabilities"]["engine"] == "ReferenceEngine"
+        assert got[0]["capabilities"]["families"] == ["dense", "hybrid"]
+        assert {k: v for k, v in got[0]["capabilities"].items() if k != "families"} == \
+            {k: v for k, v in want[0]["capabilities"].items() if k != "families"}
+    assert set(got[-1]) == set(want[-1]) - {"jit_retraces"}
+    for key in set(got[-1]) - TIMED:
+        assert got[-1][key] == want[-1][key], key
+    assert got[-1]["requests"] == 3 and got[-1]["tokens"] == 12
+
+
+def test_hybrid_paged_features_raise_in_the_reference_engine():
+    from repro_torch.serving.engine import EngineCapabilityError
+
+    with pytest.raises(EngineCapabilityError, match="prefix_cache"):
+        serve.main(["--arch", "zamba2_2p7b", "--reduced", "--device", "cpu", "--fmt", "fused",
+                    "--prefix-cache"])
 
 
 TRAIN = ["--arch", "salaad_llama_60m", "--reduced", "--steps", "10", "--update-every", "5",

@@ -26,7 +26,8 @@ from repro_torch.models import model as model_lib
 from repro_torch.serving.adapters import AdapterBank, adapterize
 from repro_torch.serving.deployed import DeployedModel
 from repro_torch.serving.elastic import ModelBank
-from repro_torch.serving.engine import EngineConfig, PagedServingEngine
+from repro_torch.core.selection import SelectionConfig
+from repro_torch.serving.engine import EngineConfig, PagedServingEngine, ReferenceEngine
 from repro_torch.tree import tree_map
 
 pytestmark = pytest.mark.gpu
@@ -103,6 +104,68 @@ def test_slr_matmul_corners(cuda, dtype):
     got = ops.slr_matmul_stacked(x, None, None, stack, 0)
     assert ops.launch_counts()["slr_matmul_stacked"] == 1
     assert_close(got, ref.slr_matmul_stacked_ref(x, None, None, stack, 0), dtype)
+
+
+def make_bsr(rng, k, m, bs, occupancy, device, dtype):
+    ib, jb = -(-k // bs), -(-m // bs)
+    live = rng.random((ib, jb)) < occupancy
+    dense = rng.standard_normal((ib * bs, jb * bs)).astype(np.float32)
+    dense *= np.repeat(np.repeat(live, bs, 0), bs, 1)
+    mat = bsr_from_dense(dense[:k, :m], bs, device=device)
+    return dataclasses.replace(mat, vals=mat.vals.to(dtype))
+
+
+DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("xdt,wdt", DTYPE_PAIRS, ids=["f32", "bf16", "bf16-f32"])
+@pytest.mark.parametrize("bs,t,k,m,r,occ", [
+    (8, 1, 40, 36, 5, 0.5), (16, 8, 64, 48, 16, 1.0), (32, 37, 300, 260, 130, 0.5),
+    (64, 9, 200, 130, 17, 0.7), (128, 1, 2560, 2560, 640, 1.0), (128, 8, 10240, 300, 200, 0.3),
+])
+def test_slr_matmul_unstacked_matches_plain(cuda, xdt, wdt, bs, t, k, m, r, occ):
+    """The unstacked fused SLR kernel (the hybrid's shared block) with both
+    parts live, ragged T/K/M, per-column counts below MAXB and more than one
+    split of K, tables in x's dtype or f32 under bf16 x."""
+    rng = np.random.default_rng(bs + t + k)
+    x = torch.from_numpy(rng.standard_normal((t, k), dtype=np.float32)).to(cuda, xdt)
+    p = torch.from_numpy(rng.standard_normal((k, r), dtype=np.float32) / 8).to(cuda, wdt)
+    vt = torch.from_numpy(rng.standard_normal((r, m), dtype=np.float32) / 8).to(cuda, wdt)
+    mat = make_bsr(rng, k, m, bs, occ, cuda, wdt)
+    ops.reset_launch_counts()
+    got = ops.slr_matmul(x, p, vt, mat)
+    assert ops.launch_counts()["slr_matmul"] == 1 and got.dtype == xdt
+    assert_close(got, ref.slr_matmul_ref(x, p, vt, mat), xdt)
+
+
+@pytest.mark.parametrize("xdt,wdt", DTYPE_PAIRS, ids=["f32", "bf16", "bf16-f32"])
+def test_slr_matmul_unstacked_corners(cuda, xdt, wdt):
+    """Empty S runs the low-rank kernel, r == 0 the block-CSC kernel, in every
+    dtype pair the hybrid's deployment gives them."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((9, 64), dtype=np.float32)).to(cuda, xdt)
+    p = torch.from_numpy(rng.standard_normal((64, 12), dtype=np.float32)).to(cuda, wdt)
+    vt = torch.from_numpy(rng.standard_normal((12, 40), dtype=np.float32)).to(cuda, wdt)
+    mat = make_bsr(rng, 64, 40, 8, 0.5, cuda, wdt)
+    empty = make_bsr(rng, 64, 40, 8, 0.0, cuda, wdt)
+    ops.reset_launch_counts()
+    assert_close(ops.slr_matmul(x, p, vt, empty), ref.lowrank_matmul_ref(x, p, vt), xdt)
+    assert_close(ops.slr_matmul(x, None, None, mat), ref.bsr_matmul_ref(x, mat), xdt)
+    counts = ops.launch_counts()
+    assert counts["lowrank_matmul"] == 1 and counts["bsr_matmul"] == 1
+    assert counts["slr_matmul"] == 0
+
+
+def test_slr_matmul_unstacked_rejects_bad_dtypes(cuda):
+    x = torch.zeros((2, 16), device=cuda)
+    p, vt = torch.zeros((16, 2), device=cuda, dtype=torch.bfloat16), torch.zeros((2, 8), device=cuda)
+    mat = make_bsr(np.random.default_rng(0), 16, 8, 8, 1.0, cuda, torch.float32)
+    with pytest.raises(TypeError, match="share one dtype"):
+        ops.slr_matmul(x, p, vt, mat)
+    with pytest.raises(TypeError, match="bfloat16 activations over float32"):
+        ops.slr_matmul(x, p.float().to(torch.bfloat16), vt.to(torch.bfloat16),
+                       dataclasses.replace(mat, vals=mat.vals.to(torch.bfloat16)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -382,6 +445,36 @@ def test_bank_streams_on_card_match_cpu(cuda):
     for name in runs:
         assert got["cuda", name] == got["cpu", name]
     assert got["cuda", "fused"][1]["cow_copies"] > 0
+
+
+def test_hybrid_bank_streams_on_card_match_cpu(cuda):
+    """A two-tier fused bank of the reduced hybrid served by ReferenceEngine:
+    the card's streams and decode calls equal the CPU's, and every tier ran
+    the unstacked SLR kernel on the card (seven shared-block sites per
+    application)."""
+    cfg = get_arch("zamba2_2p7b").reduced()
+    params = model_lib.init_params(cfg, seed=0, device="cpu")
+    scfg = SalaadConfig(selection=SelectionConfig(min_dim=16), exact_svd=True)
+    state, blocks = init_slr_state(params, scfg)
+    for step in range(2):
+        state, _ = admm_update(params, state, blocks, scfg, step)
+    prompts = [[5, 7, 11], [3, 1], list(range(2, 20)), [8, 8, 2]]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        moved = tree_map(lambda t: t.to(dev), (params, state))
+        bank = ModelBank.build(cfg, *moved, blocks, (1.0, 0.5), fmt="fused")
+        ops.reset_launch_counts()
+        eng = ReferenceEngine(bank, EngineConfig(max_slots=2, max_len=32))
+        for i, pr in enumerate(prompts):
+            eng.submit(pr, max_new_tokens=6, tier=i % 2)
+        got[dev] = ({r.uid: r.out_tokens for r in eng.run()}, eng.decode_calls)
+        counts = ops.launch_counts()
+        groups = cfg.num_layers // cfg.attn_every
+        if dev == "cuda":
+            assert counts["slr_matmul"] == 7 * groups * eng.decode_calls, counts
+        else:
+            assert not any(counts.values())
+    assert got["cuda"] == got["cpu"]
 
 
 def test_adapter_streams_on_card_match_cpu(cuda):

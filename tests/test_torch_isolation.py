@@ -30,7 +30,9 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.optim.schedule", "repro_torch.data.synthetic",
             "repro_torch.train.state", "repro_torch.train.steps",
             "repro_torch.train.checkpoint", "repro_torch.train.fault",
-            "repro_torch.train.trainer", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.train.trainer", "repro_torch.launch.train",
+            "repro_torch.models.ssm", "repro_torch.models.hybrid",
+            "repro_torch.configs.zamba2_2p7b"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"

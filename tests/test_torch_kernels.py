@@ -15,6 +15,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels.bsr_matmul import bsr_from_dense as jax_bsr_from_dense
 from repro.kernels.bsr_matmul import bsr_to_dense as jax_bsr_to_dense
+from repro.kernels.slr_matmul import slr_matmul_pallas as jslr_matmul_pallas
 from repro.kernels.slr_matmul import stack_bsr as jax_stack_bsr
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bsr_matmul import bsr_from_dense, bsr_to_dense
@@ -203,15 +204,65 @@ def test_flash_attention_rejects_what_pallas_rejects():
 
 
 def test_unstacked_fused_weight_needs_the_hybrid_slice():
-    """Unstacked slr_matmul: the corners dispatch, both parts live raise."""
+    """Unstacked slr_matmul with both parts live (the hybrid's shared block)
+    against JAX's slr_matmul_pallas in interpret mode; the corners dispatch
+    to the block-CSC and low-rank kernels."""
     rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.standard_normal((3, 16), dtype=np.float32))
-    mat = bsr_from_dense(block_sparse(rng, 16, 24, 8, 1.0), 8)
-    p, vt = torch.ones((16, 2)), torch.ones((2, 24))
-    torch.testing.assert_close(ops.slr_matmul(x, None, None, mat), ref.bsr_matmul_ref(x, mat))
-    torch.testing.assert_close(ops.slr_matmul(x, p, vt, None), ref.lowrank_matmul_ref(x, p, vt))
-    with pytest.raises(NotImplementedError, match="slr_matmul_pallas"):
-        ops.slr_matmul(x, p, vt, mat)
+    x = rng.standard_normal((3, 16), dtype=np.float32)
+    dense = block_sparse(rng, 16, 24, 8, 1.0)
+    mat, jmat = bsr_from_dense(dense, 8), jax_bsr_from_dense(dense, 8)
+    p = rng.standard_normal((16, 2), dtype=np.float32)
+    vt = rng.standard_normal((2, 24), dtype=np.float32)
+    tx, tp, tvt = map(torch.from_numpy, (x, p, vt))
+    torch.testing.assert_close(ops.slr_matmul(tx, None, None, mat), ref.bsr_matmul_ref(tx, mat))
+    torch.testing.assert_close(ops.slr_matmul(tx, tp, tvt, None), ref.lowrank_matmul_ref(tx, tp, tvt))
+    want = jops.slr_matmul(jnp.asarray(x), jnp.asarray(p), jnp.asarray(vt), jmat,
+                           interpret=True)
+    np.testing.assert_allclose(ops.slr_matmul(tx, tp, tvt, mat).numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("bs,t,k,m,r,occ", [
+    (8, 1, 40, 36, 5, 0.5), (8, 37, 40, 36, 5, 1.0), (16, 8, 70, 50, 9, 0.4),
+    (16, 3, 64, 48, 16, 0.7), (32, 17, 96, 64, 12, 0.6), (32, 9, 300, 260, 33, 0.3),
+])
+def test_slr_matmul_matches_pallas(bs, t, k, m, r, occ):
+    """Both parts live, ragged T, K and M, counts below MAXB: the port's
+    unstacked fused SLR matmul against ``slr_matmul_pallas``."""
+    rng = np.random.default_rng(bs * 100 + t)
+    x = rng.standard_normal((t, k), dtype=np.float32)
+    p = rng.standard_normal((k, r), dtype=np.float32) / 4
+    vt = rng.standard_normal((r, m), dtype=np.float32) / 4
+    dense = block_sparse(rng, k, m, bs, occ)
+    mat, jmat = bsr_from_dense(dense, bs), jax_bsr_from_dense(dense, bs)
+    assert not mat.empty
+    got = ops.slr_matmul(*map(torch.from_numpy, (x, p, vt)), mat)
+    want = jslr_matmul_pallas(jnp.asarray(x), jnp.asarray(p), jnp.asarray(vt), jmat,
+                              interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("corner", ["empty_s", "rank_0", "both_empty", "no_s"])
+def test_unstacked_corners_match_jax_dispatcher(corner):
+    """Every corner of ops.slr_matmul against JAX's dispatcher: an empty S
+    (static ``empty``) or no S runs the low-rank kernel, r == 0 the block-CSC
+    kernel, neither part gives zeros."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((6, 40), dtype=np.float32)
+    p = rng.standard_normal((40, 6), dtype=np.float32)
+    vt = rng.standard_normal((6, 24), dtype=np.float32)
+    dense = block_sparse(rng, 40, 24, 8, 0.0 if corner in ("empty_s", "both_empty") else 0.5)
+    mat, jmat = bsr_from_dense(dense, 8), jax_bsr_from_dense(dense, 8)
+    if corner == "no_s":
+        mat = jmat = None
+    if corner in ("rank_0", "both_empty"):
+        p = vt = None
+    targs = [None if a is None else torch.from_numpy(a) for a in (p, vt)]
+    jargs = [None if a is None else jnp.asarray(a) for a in (p, vt)]
+    ops.reset_launch_counts()
+    got = ops.slr_matmul(torch.from_numpy(x), *targs, mat)
+    want = jops.slr_matmul(jnp.asarray(x), *jargs, jmat, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert got.shape == (6, 24) and not any(ops.launch_counts().values())
 
 
 def test_cpu_wrappers_take_plain_versions_and_count_nothing():

@@ -30,8 +30,10 @@ from repro.models.attention import PagedLayerCache as JaxPagedLayerCache
 from repro.models.attention import paged_insert as jax_paged_insert
 from repro.serving.deployed import DeployedModel as JaxDeployedModel
 from repro.serving.elastic import ModelBank
+from repro.serving.elastic import ModelBank as JaxModelBank
 from repro.serving.engine import EngineConfig as JaxEngineConfig
 from repro.serving.engine import PagedServingEngine as JaxPagedServingEngine
+from repro.serving.engine import ReferenceEngine as JaxReferenceEngine
 from repro.serving.slr_params import deployment_report as jax_deployment_report
 from repro_torch import bridge
 from repro_torch.configs import get_arch
@@ -41,10 +43,12 @@ from repro_torch.core.selection import select_blocks
 from repro_torch.models import model as model_lib
 from repro_torch.models.attention import PagedLayerCache, paged_insert
 from repro_torch.serving.deployed import DeployedModel
+from repro_torch.serving.elastic import ModelBank as TorchModelBank
 from repro_torch.serving.engine import (
     BlockAllocator,
     EngineConfig,
     PagedServingEngine,
+    ReferenceEngine,
     RequestRejected,
 )
 from repro_torch.serving.slr_params import deployment_report
@@ -146,8 +150,9 @@ def test_deployed_forward_matches_jax(trained, fmt):
 
 def test_bsr_format_is_a_later_slice(trained):
     """The bsr format builds (per-layer weights on the low-rank and block-CSC
-    kernels); what stays for a later slice is a fused weight outside a layer
-    stack with both parts live, which needs slr_matmul_pallas."""
+    kernels); a fused weight outside a layer stack with both parts live (one
+    layer's tables of a stacked one) applies through the unstacked kernel and
+    equals the stacked layer's apply."""
     dm = DeployedModel.build(trained.tcfg, trained.tparams, trained.tstate,
                              trained.tblocks, fmt="bsr", bsr_block=32)
     layers = dm.params["layers"]
@@ -158,8 +163,10 @@ def test_bsr_format_is_a_later_slice(trained):
     unstacked = dataclasses.replace(gate.at_layer(0).lin, s_stack=None,
                                     s_bsr=gate.s_stack.at_layer(0), p=gate.p[0],
                                     vt=gate.vt[0])
-    with pytest.raises(NotImplementedError, match="slr_matmul_pallas"):
-        unstacked.apply(torch.zeros((2, gate.shape[0])))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 5, gate.shape[0]), dtype=np.float32))
+    np.testing.assert_allclose(unstacked.apply(x).numpy(), gate.at_layer(0).apply(x).numpy(),
+                               **TOL)
 
 
 # ---------------------------------------------------------------- models ---
@@ -250,6 +257,44 @@ def test_engine_streams_match_jax(trained, case):
     assert eng.evictions == jeng.evictions
     assert (eng.evictions >= 1) == (case == "evicting")
     assert eng.allocator.used_blocks == 0
+
+
+@pytest.mark.parametrize("fmt", ["fused", "factored"])
+def test_reference_engine_streams_match_jax(trained, fmt):
+    """The dense Llama through ReferenceEngine (contiguous f32 cache, prompts
+    fed token by token): a two-tier bank's greedy streams and decode-call
+    count equal the JAX ReferenceEngine's."""
+    jbank = JaxModelBank.build(trained.cfg, trained.params, trained.state, trained.blocks,
+                               (1.0, 0.5), fmt=fmt, bsr_block=32)
+    tbank = TorchModelBank.build(trained.tcfg, trained.tparams, trained.tstate,
+                                 trained.tblocks, (1.0, 0.5), fmt=fmt, bsr_block=32)
+    runs = []
+    for eng in (ReferenceEngine(tbank, EngineConfig(max_slots=2, max_len=48)),
+                JaxReferenceEngine(jbank, JaxEngineConfig(max_slots=2, max_len=48))):
+        for i, prompt in enumerate(PROMPTS):
+            eng.submit(prompt, max_new_tokens=5, tier=i % 2)
+        runs.append(({r.uid: r.out_tokens for r in eng.run()}, eng.decode_calls))
+    assert runs[0] == runs[1]
+    assert runs[0][1] == sum(len(p) - 1 + 5 for p in PROMPTS)
+
+
+def test_reference_engine_rejects_adapters_and_bad_requests(trained):
+    """Like the JAX engine: an adapter request or an oversized prompt is a
+    RequestRejected, and an AdapterBank a capability error at construction."""
+    from repro_torch.serving.adapters import AdapterBank, adapterize
+    from repro_torch.serving.engine import EngineCapabilityError
+
+    dm = DeployedModel.build(trained.tcfg, trained.tparams, trained.tstate, trained.tblocks,
+                             fmt="fused")
+    eng = ReferenceEngine(dm, EngineConfig(max_slots=1, max_len=16))
+    with pytest.raises(RequestRejected, match="adapter"):
+        eng.submit([1, 2], max_new_tokens=4, adapter=0)
+    with pytest.raises(RequestRejected, match="exceeds cache capacity"):
+        eng.submit(list(range(12)), max_new_tokens=8)
+    with pytest.raises(RequestRejected, match="tier"):
+        eng.submit([1, 2], max_new_tokens=4, tier=3)
+    with pytest.raises(EngineCapabilityError, match="multi-tenant adapters"):
+        ReferenceEngine(AdapterBank(dm, [adapterize(dm, dm)]), EngineConfig(adapters=True))
 
 
 def test_oneshot_prefill_streams_match_jax(trained):
