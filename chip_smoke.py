@@ -17,15 +17,19 @@ error:
    of four tenants (HPA keeps 1.0 / 0.8 / 0.6 / 0.4 of the same state, each
    adapterized onto the keep-1.0 base) with three device pool rows;
 3. kernels: each of the nine kernels against its plain PyTorch version on
-   the card, at the main path's shapes (f32 and bf16) and at ragged shapes,
+   the card, at the main path's shapes (f32 and bf16) and at ragged shapes
+   (3a and 3h also hold the fused SLR kernels' rows bit for bit across calls
+   of other T and B, and 3h times their six target shapes on the device
+   alone, replayed from a CUDA graph),
    then timed with CUDA events beside its plain version, a one-call PyTorch
-   yardstick and its bound (bytes over 3.35 TB/s or f32 operations over
-   67 TFLOP/s, whichever is larger, for this run's data); 3i holds the
-   ADMM S-update's soft_threshold at the embedding and layer-stack shapes
-   with NaN, +-inf, a zero and an above-max threshold; 3j holds the
-   unstacked fused SLR kernel (the hybrid's shared block) at zamba2's q,
-   gate and down shapes and a ragged one, f32, bf16 and bf16 activations
-   over f32 tables, bs 128 and 32, T = 1, 8 and 37;
+   yardstick and its bound (bytes over 3.35 TB/s or operations over the
+   peak of the kernel's route, whichever is larger, for this run's data:
+   f32 at 67 TFLOP/s, the fused SLR body's 3xTF32 at 495 / 3 TFLOP/s);
+   3i holds the ADMM S-update's soft_threshold at the embedding and
+   layer-stack shapes with NaN, +-inf, a zero and an above-max threshold;
+   3j holds the unstacked fused SLR kernel (the hybrid's shared block) at
+   zamba2's q, gate and down shapes and a ragged one, f32, bf16 and bf16
+   activations over f32 tables, bs 128 and 32, T = 1, 8 and 37;
 4. main path, with every launch count set to 0 just before each run and read
    just after:
    a. the fused bank serves 24 greedy requests through ``serve_batch``
@@ -41,7 +45,8 @@ error:
       chunked prefill of 64;
    d. ``python -m repro_torch.launch.serve`` runs once as a bank and once
       with ``--adapters 3 --max-resident-adapters 2``, and prints its lines;
-   e. run (a) again under torch.profiler: device busy time and idle share;
+   e. run (a) again under torch.profiler: device busy time, idle share and
+      each kernel's share of device time;
    f. the adapter bank serves 24 greedy requests round-robin over its four
       tenants (the prompts of (a), one-shot prefill, the prefix cache, 8
       slots) in ``batched`` mode: the per-slot SLR kernel must launch, and
@@ -89,6 +94,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import tempfile
 import sys
@@ -118,6 +124,7 @@ N_HYBRID_CPU = 4                 # 5c: requests, MAX_NEW_CPU new tokens each
 MAX_NEW_CPU = 8
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+PEAK_3XTF32_FLOPS = 495e12 / 3   # H100 SXM dense TF32, three TF32 products per f32 product
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # relative to the output's max |value|
 LOGIT_TOL = 1e-3                            # card vs CPU, relative to max |logit|
 
@@ -155,8 +162,27 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+def graph_ms(torch, fn, calls: int = 20) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph and replayed, so no host work sits between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(torch, graph.replay, iters=10, warmup=2) / calls
+
+
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """The least time for the work: its bytes over the memory rate, or its
+    operations over ``peak``, the rate of the route the kernel takes
+    (``PEAK_3XTF32_FLOPS`` for the fused SLR body's 3xTF32 products)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -303,6 +329,24 @@ def main() -> None:
                         ops.slr_matmul_stacked(x, lin.p, lin.vt, lin.s_stack, lay),
                         want, torch.float32)
             slr_err = max(slr_err, err)
+    # row invariance: a row of y does not depend on the call that carries it
+    # (inputs from a generator of their own: later phases draw as before)
+    inv_rng = np.random.default_rng(SEED + 1)
+
+    def inv_rand(*shape):
+        return torch.from_numpy(inv_rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    for name, lin in sorted(sites.items()):
+        for t_dim in (8, 37, 512):
+            x = inv_rand(t_dim, lin.shape[0])
+            y = ops.slr_matmul_stacked(x, lin.p, lin.vt, lin.s_stack, lay)
+            for t in (1, 3, 8):
+                if not torch.equal(ops.slr_matmul_stacked(x[:t].contiguous(), lin.p, lin.vt,
+                                                          lin.s_stack, lay), y[:t]):
+                    fail(f"slr_matmul_stacked {name}: x[:{t}] differs from the first {t} rows "
+                         f"of the call on T={t_dim}")
+    print("  check slr_matmul_stacked: x[:t] gives the first t rows of the call on x, bit for "
+          "bit, t in (1, 3, 8), T in (8, 37, 512), every site")
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     g_bf = dataclasses.replace(gate.s_stack, vals=bf(gate.s_stack.vals))
     x = bf(rand(512, cfg.d_model))
@@ -327,7 +371,7 @@ def main() -> None:
         plain_ms=time_ms(torch, lambda: ref.slr_matmul_stacked_ref(
             x, gate.p, gate.vt, gate.s_stack, lay)),
         library_ms=time_ms(torch, lambda: torch.matmul(x, w_dense)),
-        bound=bound_ms(nbytes, flops),
+        bound=bound_ms(nbytes, flops, PEAK_3XTF32_FLOPS),
     )
     decode_rows = {}           # decode-width (T=8) timings of the SLR kernels
     x8 = rand(8, k_dim)
@@ -338,7 +382,7 @@ def main() -> None:
         time_ms(torch, lambda: ref.slr_matmul_stacked_ref(x8, gate.p, gate.vt, gate.s_stack,
                                                           lay)),
         time_ms(torch, lambda: torch.matmul(x8, w_dense)),
-        bound_ms(nbytes8, 2 * 8 * (k_dim * r + r * m_dim + live * bs * bs)))
+        bound_ms(nbytes8, 2 * 8 * (k_dim * r + r * m_dim + live * bs * bs), PEAK_3XTF32_FLOPS))
     q_site = sites["q"]
     q_live = int(q_site.s_stack.counts[lay].sum())
     q_bs = q_site.s_stack.block_size
@@ -352,7 +396,7 @@ def main() -> None:
         time_ms(torch, lambda: torch.matmul(x8, q_dense)),
         bound_ms(4 * (8 * k_dim * 2 + k_dim * r * 2 + q_live * q_bs * q_bs)
                  + 4 * (q_site.s_stack.counts.shape[1] + q_live),
-                 2 * 8 * (k_dim * r * 2 + q_live * q_bs * q_bs)))
+                 2 * 8 * (k_dim * r * 2 + q_live * q_bs * q_bs), PEAK_3XTF32_FLOPS))
 
     # 3b. low-rank matmul (the empty-S corner, and the bsr format's L part) on
     # the gate site's factors
@@ -601,6 +645,19 @@ def main() -> None:
                 fail(f"slr_matmul_multi {name}: slot {b} differs from the stacked kernel")
     print("  check slr_matmul_multi: every slot equals the stacked kernel on its rows, "
           "bit for bit")
+    # row invariance across B: slots 0..b-1 of an 8-slot call equal a b-slot call
+    for name, lin in sorted(pooled.items()):
+        for t_dim in (1, 8):
+            x = inv_rand(8, t_dim, lin.shape[0])
+            y = ops.slr_matmul_multi(x, lin.p, lin.vt, lin.s_stack, ids, nl, lay)
+            for b in (1, 3):
+                if not torch.equal(ops.slr_matmul_multi(x[:b].contiguous(), lin.p, lin.vt,
+                                                        lin.s_stack, ids[:b].contiguous(), nl,
+                                                        lay), y[:b]):
+                    fail(f"slr_matmul_multi {name}: a {b}-slot call differs from slots "
+                         f"0..{b - 1} of the 8-slot call (T={t_dim})")
+    print("  check slr_matmul_multi: slots 0..b-1 of an 8-slot call equal a b-slot call, bit "
+          "for bit, b in (1, 3), T in (1, 8), every site")
 
     def multi_timing(name, t_dim):
         """(ms, plain ms, library ms, bound) of one per-slot call on site
@@ -627,7 +684,7 @@ def main() -> None:
                 time_ms(torch, lambda: ref.slr_matmul_multi_ref(x, lin.p, lin.vt, lin.s_stack,
                                                                 ids, nl, lay), iters=10),
                 time_ms(torch, lambda: torch.bmm(x, w_g)),
-                bound_ms(nbytes, flops))
+                bound_ms(nbytes, flops, PEAK_3XTF32_FLOPS))
 
     multi_rows = {f"slr_matmul_multi {n} 8 slots x T={t}": multi_timing(n, t)
                   for n, t in (("q", 1), ("gate", 1), ("gate", 64))}
@@ -640,6 +697,27 @@ def main() -> None:
         print(f"  time {name}: kernel {ms_:.4f} ms, plain {plain_:.4f} ms, library "
               f"{lib_:.4f} ms (torch.bmm, gathered dense W), bound {bnd_[0]:.4f} ms "
               f"({bnd_[1]})")
+    # the fused SLR kernels' device time alone at the six shapes above: the
+    # event times of back-to-back decode-width calls include the wrappers'
+    # host time
+    x8 = inv_rand(8, k_dim)
+    x512 = inv_rand(512, k_dim)
+    g_rows = {
+        "slr_matmul_stacked gate T=8": lambda: ops.slr_matmul_stacked(
+            x8, gate.p, gate.vt, gate.s_stack, lay),
+        "slr_matmul_stacked q T=8 (bs=128)": lambda: ops.slr_matmul_stacked(
+            x8, q_site.p, q_site.vt, q_site.s_stack, lay),
+        "slr_matmul_stacked gate T=512": lambda: ops.slr_matmul_stacked(
+            x512, gate.p, gate.vt, gate.s_stack, lay),
+    }
+    for name, t_dim in (("q", 1), ("gate", 1), ("gate", 64)):
+        lin, xs = pooled[name], inv_rand(8, t_dim, pooled[name].shape[0])
+        g_rows[f"slr_matmul_multi {name} 8 slots x T={t_dim}"] = (
+            lambda lin=lin, xs=xs: ops.slr_matmul_multi(xs, lin.p, lin.vt, lin.s_stack, ids, nl,
+                                                        lay))
+    for name, fn in g_rows.items():
+        print(f"  device-only {name}: {graph_ms(torch, fn):.4f} ms per call (CUDA graph of "
+              f"20 calls)")
 
     # 3i. soft_threshold, the ADMM S-update: x (nb, n, m) with one threshold
     # per slice, at the embedding leaf and the layer stacks, and ragged
@@ -861,6 +939,18 @@ def main() -> None:
         for e in sorted(device_events, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"  device {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  "
                   f"{e.key[:90]}")
+        # each CUDA kernel of the port (namespace salaad, all its template
+        # instances) and its share of device time
+        shares: dict[str, list] = {}
+        for e in device_events:
+            found = re.search(r"salaad::(?:\(anonymous namespace\)::)?(\w+)", e.key)
+            if found:
+                row = shares.setdefault(found.group(1), [0.0, 0])
+                row[0] += e.self_device_time_total / 1e3
+                row[1] += e.count
+        for base, (ms_, calls) in sorted(shares.items(), key=lambda kv: -kv[1][0]):
+            print(f"  share {base}: {ms_:.1f} ms of {busy_ms:.1f} device ms = "
+                  f"{ms_ / busy_ms:.3f} ({calls} launches)")
 
     engine = PagedServingEngine(banks["fused"], bank_ecfg)
     profiled("4a", lambda: serve_batch(engine, cfg.vocab_size, len(prompts), MAX_NEW, SEED,

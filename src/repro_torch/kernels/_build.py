@@ -39,11 +39,14 @@ SIGNATURES = {
     "page_copy_launch": [_P] * 3 + [_I] * 3 + [_L, _P],
     # q, k, v, out, B, Hq, Hkv, T, S, D, causal, scale, dtype, stream
     "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
-    # x, p, vt, counts, rows, vals, y, T, K, M, r, layer, JB, MAXB, bs, bt, dtype, stream
-    "slr_matmul_stacked_launch": [_P] * 7 + [_I] * 10 + [_P],
+    # x, p, vt, counts, rows, vals, y, T, K, M, r, layer, L, JB, MAXB, bs, bt, nseg, kseg,
+    # loops, ypn, dtype, stream
+    "slr_matmul_stacked_launch": [_P] * 7 + [_I] * 15 + [_P],
     # x, p, vt, counts, rows, vals, ids, y, B, T, K, M, r, layers, layer, N, JB, MAXB, bs,
-    # bt, dtype, stream
-    "slr_matmul_multi_launch": [_P] * 8 + [_I] * 13 + [_P],
+    # bt, nseg, kseg, loops, ypn, dtype, stream
+    "slr_matmul_multi_launch": [_P] * 8 + [_I] * 17 + [_P],
+    # dtype, bs, bt, smem, out (int*): clusters of the fused body the card holds at once
+    "slr_fused_resident": [_I] * 4 + [_P],
     # x, p, vt, y, T, K, M, r, bt, dtype, wdtype, stream
     "lowrank_matmul_launch": [_P] * 4 + [_I] * 7 + [_P],
     # x, p, vt, counts, rows, vals, part, ypart, y, T, K, M, r, JB, MAXB, bs, bt,

@@ -2,8 +2,8 @@
 (port of ``repro/kernels/lowrank_matmul.py::lowrank_matmul_pallas``).
 
 It serves the empty-S corner of ``ops.slr_matmul_stacked``. The CUDA kernel
-shares its source with the fused SLR kernel (``csrc/slr_matmul.cu``, built
-without the sparse epilogue) and has its own entry point and launch count.
+shares its source with the fused SLR kernel (``csrc/slr_matmul.cu``, the
+low-rank body) and has its own entry point and launch count.
 """
 from __future__ import annotations
 

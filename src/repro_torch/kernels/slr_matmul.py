@@ -14,24 +14,143 @@ holds a live block.
 ``slr_matmul_stacked`` and ``slr_matmul_multi`` (per-slot tables, the port of
 ``slr_matmul_multi_pallas``) run the plain version for CPU tensors and the
 CUDA kernel ``csrc/slr_matmul.cu`` for CUDA tensors; each counts its own
-launches.
+launches. The stacked and per-slot entries share one fused body, cut by
+``fused_plan``: its ``partition`` fixes every output element's sums from the
+table shape and the card alone, so a row of y never depends on T, B or the
+slot that carries it.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
 
 from . import ref
-from ._build import check_cuda, check_int32, dtype_code, launch, table_dtype_code
+from ._build import check_cuda, check_int32, dtype_code, launch, library, table_dtype_code
 from .bsr_matmul import BLOCK_SIZES, MAX_ROW_TILE, BsrMatrix, row_tile
 
 __all__ = ["BsrStack", "stack_bsr", "row_tile", "slr_matmul", "slr_matmul_stacked",
-           "slr_matmul_multi", "BLOCK_SIZES", "K_SPLIT"]
+           "slr_matmul_multi", "BLOCK_SIZES", "K_SPLIT", "MAX_ROW_TILE", "FusedPlan",
+           "fused_plan", "fused_smem_bytes"]
 
 # rows of P per block of the unstacked entry's x @ P pass (kKSplit in the source)
 K_SPLIT = 256
+
+# the fused body's constants (kCluster, kStep, kPass, kStages, kMaxSmem in the source)
+FUSED_CLUSTER = 8
+FUSED_STEP = 32
+FUSED_PASS = {8: 128, 32: 64}    # rank columns per pass of x @ P, by row tile
+FUSED_STAGES = 3
+FUSED_MAX_SMEM = 232448
+# the most dynamic shared memory per block at which two blocks share one
+# Hopper SM (228 KB per SM, 1 KB of it reserved per block)
+FUSED_PAIR_SMEM = 233472 // 2 - 1024
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """How one call of the fused body is cut.
+
+    ``partition`` = (cluster, nseg, kseg) fixes every output element's sums:
+    t = x @ P over ``cluster`` splits of ``kseg`` rows of K (one per block of
+    a cluster), each column block's reduction axis (rank chunks, then live
+    tiles) over ``nseg`` segments, each split or segment one chain of
+    products, the partials summed in rank order. ``bt`` (rows of x per
+    block), ``loops`` (column groups a cluster walks in turn) and ``ypn``
+    (column groups whose partial tiles are summed at one cluster barrier)
+    follow the call's rows and move no sum."""
+    cluster: int
+    nseg: int
+    kseg: int
+    bt: int
+    loops: int
+    ypn: int
+
+    @property
+    def partition(self) -> tuple[int, int, int]:
+        return self.cluster, self.nseg, self.kseg
+
+
+def fused_smem_bytes(bt: int, bs: int, r: int, itemsize: int, nseg: int, loops: int,
+                     ypn: int, maxb: int) -> int:
+    """Dynamic shared memory of one block (``fused_smem`` in the source)."""
+    rp = -(-r // FUSED_STEP) * FUSED_STEP + 4
+    ldw = max(FUSED_PASS[bt], bs, 16) + 8
+    ring = FUSED_STAGES * (bt * (FUSED_STEP + 16 // itemsize) + FUSED_STEP * ldw)
+    yp = min(loops, 2 * ypn) if nseg > 1 else 0
+    return (4 * 2 * bt * rp + 4 * yp * bt * (bs + 4) + ring * itemsize + 4 * bt
+            + 4 * loops * (maxb + 1))
+
+
+@functools.lru_cache(maxsize=4096)
+def fused_plan(k_dim: int, r: int, m_dim: int, bs: int, maxb: int, itemsize: int, rows: int,
+               resident: Callable[[int, int], int], keys: int = 1) -> FusedPlan:
+    """The launch plan of a fused call over tables of shape (K, r, M, bs)
+    with MAXB tile slots per column block in a dtype of ``itemsize`` bytes,
+    ``rows`` rows of x (T, or B * T per slot) gathered under at most
+    ``keys`` table rows (1 stacked; per slot, the pool rows the slots may
+    select). ``resident(bt, smem)`` is the number of clusters of the
+    instance with ``bt`` rows per block and ``smem`` bytes of shared memory
+    per block that the card holds at once (``card_residency``).
+
+    The partition depends on the shape and the card only: nseg is the most
+    segments (1, 2, 4 or 8) whose decode-width call (bt = 8) still fits in
+    one wave of clusters. bt is 8 rows for a decode call and 32 otherwise;
+    loops is the fewest column groups per cluster that keep every cluster of
+    the call resident at once (x @ P once per cluster); ypn the most column
+    groups per cluster barrier that keep two blocks on an SM."""
+    jb = -(-m_dim // bs)
+    c = FUSED_CLUSTER
+    kseg = -(-k_dim // (16 * c)) * 16
+
+    def smem(bt, nseg, loops, ypn):
+        return fused_smem_bytes(bt, bs, r, itemsize, nseg, loops, ypn, maxb)
+
+    if smem(8, 1, 1, 1) > FUSED_MAX_SMEM:
+        raise ValueError(f"fused SLR kernel: rank {r} and {maxb} tile slots exceed "
+                         f"{FUSED_MAX_SMEM} bytes of shared memory")
+    res8 = resident(8, smem(8, 8, 1, 1))
+    nseg = max([n for n in (1, 2, 4, 8) if -(-jb // (c // n)) <= res8] or [1])
+    bt = 32 if rows > 8 and smem(32, nseg, 1, 1) <= FUSED_MAX_SMEM else 8
+    tiles = -(-rows // bt) + keys - 1     # each key may end in a partial tile
+    groups = -(-jb // (c // nseg))
+    for loops in range(1, groups + 1):
+        ypn = 1
+        while ypn < loops and smem(bt, nseg, loops, ypn + 1) <= FUSED_PAIR_SMEM:
+            ypn += 1
+        nbytes = smem(bt, nseg, loops, ypn)
+        if nbytes > FUSED_MAX_SMEM:
+            loops = max(1, loops - 1)
+            break
+        if tiles * -(-groups // loops) <= resident(bt, nbytes):
+            break
+    ypn = 1
+    while ypn < loops and smem(bt, nseg, loops, ypn + 1) <= max(FUSED_PAIR_SMEM,
+                                                               smem(bt, nseg, loops, 1)):
+        ypn += 1
+    return FusedPlan(c, nseg, kseg, bt, loops, ypn)
+
+
+@functools.cache
+def card_residency(device: int, dtype: torch.dtype, bs: int) -> Callable[[int, int], int]:
+    """``fused_plan``'s ``resident`` on CUDA device ``device`` for the fused
+    instance of (dtype, bs): the card's own count
+    (``cudaOccupancyMaxActiveClusters``), asked once per (bt, smem)."""
+    code = dtype_code(dtype)
+
+    @functools.cache
+    def resident(bt: int, smem: int) -> int:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = library().slr_fused_resident(code, bs, bt, smem, ctypes.byref(out))
+        if err:
+            raise RuntimeError(f"slr_fused_resident failed: cudaError {err} on cuda:{device}")
+        return max(1, out.value)
+
+    return resident
 
 
 @dataclass(frozen=True)
@@ -185,10 +304,12 @@ def slr_matmul_stacked(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
     y = torch.empty((t_dim, m_dim), dtype=x.dtype, device=dev)
     if t_dim == 0:
         return y
-    bt = row_tile(t_dim, x.dtype, cap=MAX_ROW_TILE)
+    plan = fused_plan(k_dim, r, m_dim, bs, maxb, x.element_size(), t_dim,
+                      card_residency(dev.index, x.dtype, bs))
     launch("slr_matmul_stacked_launch", dev, x.data_ptr(), p.data_ptr(), vt.data_ptr(),
            stack.counts.data_ptr(), stack.rows.data_ptr(), stack.vals.data_ptr(),
-           y.data_ptr(), t_dim, k_dim, m_dim, r, layer, jb, maxb, bs, bt, code)
+           y.data_ptr(), t_dim, k_dim, m_dim, r, layer, num_l, jb, maxb, bs, plan.bt,
+           plan.nseg, plan.kseg, plan.loops, plan.ypn, code)
     slr_matmul_stacked.launches += 1
     return y
 
@@ -202,10 +323,12 @@ def slr_matmul_multi(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
     """Per-slot fused SLR matmul: slot ``b`` of x (B, T, K) runs table row
     ``ids[b] * layers + layer`` of p (N, K, r), vt (N, r, M) and ``stack``
     (leading N) -> y (B, T, M) in x.dtype. ``stack=None`` runs the low-rank
-    instance of the kernel (the empty-S corner). ``ids`` (B,) int32 stays on
+    body of the kernel (the empty-S corner). ``ids`` (B,) int32 stays on
     the device: the kernel reads it, so no slot assignment costs a host sync.
     ``layers``/``layer`` select a layer inside pooled (adapter, layer) rows
-    as launch scalars."""
+    as launch scalars. The fused body gathers the rows of every slot that
+    selects one pool row into one block's tile, so each selected row's tables
+    are read once per call."""
     if x.device.type == "cpu":
         return ref.slr_matmul_multi_ref(x, p, vt, stack, ids, layers, layer)
     name = "slr_matmul_multi"
@@ -250,12 +373,18 @@ def slr_matmul_multi(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
     y = torch.empty((b_dim, t_dim, m_dim), dtype=x.dtype, device=dev)
     if b_dim == 0 or t_dim == 0:
         return y
-    bt = row_tile(t_dim, x.dtype, cap=MAX_ROW_TILE)
-    tab_ptrs = (None, None, None) if stack is None else (
-        stack.counts.data_ptr(), stack.rows.data_ptr(), stack.vals.data_ptr())
+    if stack is None:
+        tab_ptrs = (None, None, None)
+        bt, nseg, kseg, loops, ypn = row_tile(t_dim, x.dtype, cap=MAX_ROW_TILE), 0, 0, 0, 0
+    else:
+        tab_ptrs = (stack.counts.data_ptr(), stack.rows.data_ptr(), stack.vals.data_ptr())
+        plan = fused_plan(k_dim, r, m_dim, bs, maxb, x.element_size(), b_dim * t_dim,
+                          card_residency(dev.index, x.dtype, bs),
+                          min(b_dim, n_tab // layers + 1))
+        bt, nseg, kseg, loops, ypn = plan.bt, plan.nseg, plan.kseg, plan.loops, plan.ypn
     launch("slr_matmul_multi_launch", dev, x.data_ptr(), p.data_ptr(), vt.data_ptr(),
            *tab_ptrs, ids.data_ptr(), y.data_ptr(), b_dim, t_dim, k_dim, m_dim, r, layers,
-           layer, n_tab, jb, maxb, bs, bt, code)
+           layer, n_tab, jb, maxb, bs, bt, nseg, kseg, loops, ypn, code)
     slr_matmul_multi.launches += 1
     return y
 

@@ -65,7 +65,7 @@ from ..models import model as model_lib
 from ..models import transformer as transformer_lib
 from .adapters import AdapterBank, AdapterError
 from .deployed import DeployedModel
-from .elastic import ModelBank, TierController
+from .elastic import ModelBank, TierController, TierControllerConfig
 from .prefix_cache import PrefixCache
 
 __all__ = ["Request", "RequestRejected", "EngineCapabilityError", "EngineConfig",
@@ -138,7 +138,11 @@ class EngineConfig:
     prefill_chunk: int | None = None   # block-aligned prefill chunk; None = one-shot
     prefix_cache: bool = False         # radix prompt cache over shared pages
     prefix_min_hit_pages: int = 1      # smallest match worth attaching
+    default_tier: int = 0              # bank tier of submit(tier=None)
     tier_policy: str = "static"        # static | pressure (downshift before evicting)
+    tier_target_free: float = 0.25     # pressure setpoint: free-page fraction
+    tier_gain: float = 4.0             # controller integral gain (tiers per unit error)
+    tier_ema: float = 0.5              # smoothing of the free-fraction signal
     # features of later slices: kept so a request for one fails loudly
     greedy: bool = True
     spec_k: int = 0
@@ -178,6 +182,12 @@ class EngineConfig:
         if self.tier_policy not in ("static", "pressure"):
             raise ValueError(f"unknown tier_policy {self.tier_policy!r}; expected "
                              "'static' or 'pressure'")
+        if not 0.0 < self.tier_target_free < 1.0:
+            raise ValueError(f"tier_target_free={self.tier_target_free} outside (0, 1)")
+        if self.tier_gain <= 0:
+            raise ValueError(f"tier_gain={self.tier_gain} must be positive")
+        if not 0.0 <= self.tier_ema < 1.0:
+            raise ValueError(f"tier_ema={self.tier_ema} outside [0, 1)")
         if self.max_resident_adapters is not None:
             if not isinstance(self.max_resident_adapters, int) \
                     or self.max_resident_adapters < 1:
@@ -226,6 +236,27 @@ def _resolve_engine_args(name: str, model, ecfg,
                          "engine's bank, and an AdapterBank needs adapters=True; got "
                          f"adapters={ecfg.adapters} with {type(model).__name__}")
     return model, ecfg
+
+
+def _bank_tier_state(bank: ModelBank, ecfg: EngineConfig) -> tuple[list, int]:
+    """Per-tier parameter trees and the validated default tier, shared by
+    both engines' constructors."""
+    try:
+        default = bank.resolve(ecfg.default_tier)
+    except ValueError as e:
+        raise ValueError(f"default_tier: {e}") from None
+    return [t.params for t in bank], default
+
+
+def _resolve_request_tier(bank: ModelBank, default: int, tier: int | None) -> int:
+    """Validated bank tier of a request (None = the engine's default); a tier
+    the bank does not have is ``RequestRejected``."""
+    if tier is None:
+        return default
+    try:
+        return bank.resolve(tier)
+    except ValueError as e:
+        raise RequestRejected(str(e)) from None
 
 
 class BlockAllocator:
@@ -314,8 +345,8 @@ class PagedServingEngine:
         self._adapters: AdapterBank | None = bank if ecfg.adapters else None
         if self._adapters is not None:
             self._adapters.materialize(ecfg.max_resident_adapters)
-        self._tier_params = [t.params for t in bank]
-        self.params = self._tier_params[0]
+        self._tier_params, self._default_tier = _bank_tier_state(bank, ecfg)
+        self.params = self._tier_params[self._default_tier]
         self.device = self.params["embed"]["embedding"].device
         bs = ecfg.block_size
         self._bs = bs
@@ -352,7 +383,9 @@ class PagedServingEngine:
         self._tier_shift = 0
         self.tier_controller = None
         if ecfg.tier_policy == "pressure":
-            self.tier_controller = TierController(len(bank))
+            self.tier_controller = TierController(len(bank), TierControllerConfig(
+                target_free_frac=ecfg.tier_target_free, gain=ecfg.tier_gain,
+                ema=ecfg.tier_ema))
         # prefix sharing; multi-tenant serving keeps one radix index PER
         # ADAPTER (cached KV depends on its weights), created on first use,
         # all holding references in the one shared allocator
@@ -415,10 +448,7 @@ class PagedServingEngine:
         if need > self.num_blocks:
             raise RequestRejected(f"request needs {need} KV pages but the whole pool "
                                   f"holds {self.num_blocks}")
-        try:
-            tier = self.bank.resolve(0 if tier is None else tier)
-        except ValueError as e:
-            raise RequestRejected(str(e)) from None
+        tier = _resolve_request_tier(self.bank, self._default_tier, tier)
         adapter = self._resolve_adapter(adapter)
         self._uid += 1
         self._queue.append(Request(
@@ -1026,8 +1056,8 @@ class ReferenceEngine:
         if missing:
             raise _capability_error(type(self), cfg.family, missing)
         self.cfg, self.ecfg, self.bank = cfg, ecfg, bank
-        self._tier_params = [t.params for t in bank]
-        self.params = self._tier_params[0]
+        self._tier_params, self._default_tier = _bank_tier_state(bank, ecfg)
+        self.params = self._tier_params[self._default_tier]
         self.device = self.params["embed"]["embedding"].device
         self.cache = model_lib.init_cache(cfg, ecfg.max_slots, ecfg.max_len,
                                           dtype=torch.float32, device=self.device)
@@ -1069,10 +1099,7 @@ class ReferenceEngine:
                deadline: float | None = None, tier: int | None = None,
                submitted_at: float | None = None, adapter: int | None = None) -> int:
         _validate_request(prompt, max_new_tokens, self.ecfg.max_len)
-        try:
-            tier = self.bank.resolve(0 if tier is None else tier)
-        except ValueError as e:
-            raise RequestRejected(str(e)) from None
+        tier = _resolve_request_tier(self.bank, self._default_tier, tier)
         if adapter is not None:
             raise RequestRejected(f"adapter={adapter}: ReferenceEngine serves no adapters "
                                   "(AdapterBank needs the batched engines)")

@@ -32,6 +32,7 @@ from repro.serving.elastic import TierController as JaxTierController
 from repro.serving.elastic import TierControllerConfig as JaxTierControllerConfig
 from repro.serving.engine import EngineConfig as JaxEngineConfig
 from repro.serving.engine import PagedServingEngine as JaxPagedServingEngine
+from repro.serving.engine import ReferenceEngine as JaxReferenceEngine
 from repro.serving.prefix_cache import PrefixCache as JaxPrefixCache
 from repro.serving.engine import BlockAllocator as JaxBlockAllocator
 from repro_torch import bridge
@@ -44,6 +45,7 @@ from repro_torch.serving.engine import (
     BlockAllocator,
     EngineConfig,
     PagedServingEngine,
+    ReferenceEngine,
     RequestRejected,
 )
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -270,3 +272,74 @@ def test_submit_rejects_unknown_tier(trained):
     assert eng._queue[-1].tier == 2
     with pytest.raises(TypeError, match="ModelBank"):
         PagedServingEngine(trained.tparams)
+
+
+# ------------------------------------------------------------ tier knobs ---
+
+
+@pytest.mark.parametrize("default_tier", [1, -1])
+@pytest.mark.parametrize("engine", ["paged", "reference"])
+def test_default_tier_streams_match_jax(trained, engine, default_tier):
+    """``EngineConfig(default_tier=...)``: requests submitted with tier=None
+    serve on that tier, explicit tiers keep theirs; streams, request tiers
+    and the engines' counters equal the JAX engine's."""
+    reqs = [(p, None if i % 3 else 0) for i, p in enumerate(prompts(7, [5, 13, 8, 3, 10]))]
+    kw = dict(max_slots=2, max_len=48, block_size=8, default_tier=default_tier)
+    bank, jbank = banks(trained, "factored")
+    if engine == "paged":
+        eng = PagedServingEngine(bank, EngineConfig(**kw))
+        jeng = JaxPagedServingEngine(jbank, JaxEngineConfig(**kw))
+        counters = COUNTERS + ("decode_calls", "prefill_calls")
+    else:
+        eng = ReferenceEngine(bank, EngineConfig(**kw))
+        jeng = JaxReferenceEngine(jbank, JaxEngineConfig(**kw))
+        counters = ("decode_calls",)
+    streams = []
+    for e in (eng, jeng):
+        for prompt, tier in reqs:
+            e.submit(prompt, max_new_tokens=5, tier=tier)
+        streams.append({r.uid: (r.tier, r.out_tokens) for r in e.run()})
+    assert streams[0] == streams[1]
+    want_default = bank.resolve(default_tier)
+    assert [streams[0][i + 1][0] for i in range(len(reqs))] == [
+        want_default if tier is None else tier for _, tier in reqs]
+    for name in counters:
+        assert getattr(eng, name) == getattr(jeng, name), name
+    assert eng.params is eng._tier_params[want_default]
+
+
+def test_pressure_gain_and_ema_match_jax(trained):
+    """The pressure controller built from ``tier_target_free``, ``tier_gain``
+    and ``tier_ema`` (the JAX package's own tight-pool case): downshift
+    ticks, tier switches, streams and the controller's state equal JAX's."""
+    reqs = [([1 + i, 2, 3], 0) for i in range(3)]
+    kw = dict(max_slots=3, max_len=64, block_size=8, num_blocks=9, tier_policy="pressure",
+              tier_target_free=0.4, tier_gain=8.0, tier_ema=0.0)
+    eng, jeng, _ = run_both(trained, "factored", "dense", kw, reqs, 10)
+    assert eng.tier_controller.cfg == TierControllerConfig(
+        target_free_frac=0.4, gain=8.0, ema=0.0)
+    assert eng.downshift_ticks > 0 and eng.tier_switches > 0
+    assert (eng.tier_controller.shift_f, eng.tier_controller.free_ema) == (
+        jeng.tier_controller.shift_f, jeng.tier_controller.free_ema)
+
+
+@pytest.mark.parametrize("kw,field", [
+    (dict(tier_gain=0.0), "tier_gain"),
+    (dict(tier_ema=1.0), "tier_ema"),
+    (dict(tier_target_free=1.0), "tier_target_free"),
+    (dict(default_tier=3), "default_tier"),
+])
+def test_tier_knob_validation_matches_jax(trained, kw, field):
+    """Bad tier knobs raise a ValueError naming the field, as in JAX: the
+    controller's at ``EngineConfig`` construction, a default tier the bank
+    does not have at the engine's (both engines)."""
+    bank, jbank = banks(trained, "factored")
+    errors = []
+    for config, engines, b in (
+            (EngineConfig, (PagedServingEngine, ReferenceEngine), bank),
+            (JaxEngineConfig, (JaxPagedServingEngine, JaxReferenceEngine), jbank)):
+        for engine in engines:
+            with pytest.raises(ValueError, match=field) as info:
+                engine(b, config(max_slots=2, max_len=32, block_size=8, **kw))
+            errors.append(str(info.value))
+    assert errors[:2] == errors[2:]

@@ -21,7 +21,7 @@ from repro_torch.core.admm import SalaadConfig, admm_update, init_slr_state
 from repro_torch.core.hpa import hpa_keep_ratio
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bsr_matmul import bsr_from_dense
-from repro_torch.kernels.slr_matmul import stack_bsr
+from repro_torch.kernels.slr_matmul import BLOCK_SIZES, stack_bsr
 from repro_torch.models import model as model_lib
 from repro_torch.serving.adapters import AdapterBank, adapterize
 from repro_torch.serving.deployed import DeployedModel
@@ -194,6 +194,35 @@ def test_slr_matmul_multi_matches_plain(cuda, dtype, bs, t, k, m, r, layers):
             row = int(ids[b]) * layers + layer
             assert torch.equal(got[b], ops.slr_matmul_stacked(x[b].contiguous(), p, vt, stack,
                                                                row))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", BLOCK_SIZES)
+def test_fused_rows_ignore_t_and_b(cuda, dtype, bs):
+    """A row of y is bit for bit the same whatever call carries it: the
+    stacked kernel on x[:t] gives the first t rows of its call on x (T = 70
+    spans row tiles of 8 and 32), and slots 0..b-1 of an 8-slot per-slot
+    call equal a b-slot call and a call on fewer rows per slot."""
+    rng = np.random.default_rng(bs + 7)
+    k, m, r, layers = 300, 5 * bs - 3, 40, 2
+    n_tab = 3 * layers
+    p = torch.from_numpy(rng.standard_normal((n_tab, k, r), dtype=np.float32) / 8).to(cuda, dtype)
+    vt = torch.from_numpy(rng.standard_normal((n_tab, r, m), dtype=np.float32) / 8).to(cuda, dtype)
+    stack = make_stack(rng, n_tab, k, m, bs, 0.6, cuda, dtype)
+    x = torch.from_numpy(rng.standard_normal((70, k), dtype=np.float32)).to(cuda, dtype)
+    full = ops.slr_matmul_stacked(x, p, vt, stack, 3)
+    for t in (1, 3, 8, 9, 37, 64):
+        assert torch.equal(ops.slr_matmul_stacked(x[:t].contiguous(), p, vt, stack, 3), full[:t])
+    ids = torch.tensor([2, 0, 1, 1, 0, 2, 2, 0], dtype=torch.int32, device=cuda)
+    xs = torch.from_numpy(rng.standard_normal((8, 9, k), dtype=np.float32)).to(cuda, dtype)
+    full = ops.slr_matmul_multi(xs, p, vt, stack, ids, layers, 1)
+    for b in (1, 3, 5):
+        got = ops.slr_matmul_multi(xs[:b].contiguous(), p, vt, stack, ids[:b].contiguous(),
+                                   layers, 1)
+        assert torch.equal(got, full[:b])
+    for t in (1, 4):
+        got = ops.slr_matmul_multi(xs[:, :t].contiguous(), p, vt, stack, ids, layers, 1)
+        assert torch.equal(got, full[:, :t])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -19,7 +19,7 @@ from repro.kernels.slr_matmul import slr_matmul_pallas as jslr_matmul_pallas
 from repro.kernels.slr_matmul import stack_bsr as jax_stack_bsr
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bsr_matmul import bsr_from_dense, bsr_to_dense
-from repro_torch.kernels.slr_matmul import row_tile, stack_bsr
+from repro_torch.kernels.slr_matmul import fused_plan, fused_smem_bytes, row_tile, stack_bsr
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -388,3 +388,45 @@ def test_soft_threshold_matches_pallas(dtype):
     assert np.isnan(got[2, 36, 60]) and np.count_nonzero(np.nan_to_num(got[2])) == 0
     assert got[1, 3, 6] == np.inf and got[1, 3, 7] == -np.inf and np.isnan(got[1, 3, 5])
     assert ops.soft_threshold.launches == 0          # the CPU runs the plain version
+
+
+# The fused body's launch plan: (K, r, M, bs) of the main path's seven sites
+# (salaad_llama_60m at full width) and the ragged shapes above, f32 and bf16.
+PLAN_SHAPES = [
+    (512, 128, 512, 128), (512, 128, 1376, 32), (1376, 128, 512, 32),
+    (40, 5, 36, 8), (96, 12, 64, 32), (96, 12, 70, 32), (256, 9, 200, 128),
+]
+
+
+@pytest.mark.parametrize("k,r,m,bs", PLAN_SHAPES)
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("clusters", [15, 30])
+def test_fused_plan_partition_ignores_rows(k, r, m, bs, itemsize, clusters):
+    """The reduction partition of every output element (K splits for x @ P,
+    segments of each column block's axis) is the same for T in {1, 8, 37,
+    512} and B in {1, 8}: a row of y cannot depend on the call that carries
+    it. Only the row tile and the column groups per cluster follow the rows,
+    and every plan fits the shared memory and covers K. The card's residency
+    is a fixed count of resident clusters (on the card the wrappers ask
+    ``cudaOccupancyMaxActiveClusters``)."""
+    def resident(bt, smem):
+        return clusters
+
+    plans = {(t, b): fused_plan(k, r, m, bs, -(-k // bs), itemsize, t * b, resident)
+             for t in (1, 8, 37, 512) for b in (1, 8)}
+    assert len({pl.partition for pl in plans.values()}) == 1
+    for (t, b), pl in plans.items():
+        assert pl.cluster * pl.kseg >= k and pl.kseg % 16 == 0
+        assert pl.cluster % pl.nseg == 0 and pl.loops >= 1
+        assert pl.bt in (8, 32) and (pl.bt == 8) == (t * b <= 8)
+        assert 1 <= pl.ypn <= pl.loops
+        nbytes = fused_smem_bytes(pl.bt, bs, r, itemsize, pl.nseg, pl.loops, pl.ypn, -(-k // bs))
+        assert nbytes <= 232448
+    # a decode call's clusters fit in one wave of the card's resident
+    # clusters, with as many segments per column block as fit
+    jb = -(-m // bs)
+    decode = plans[(8, 1)]
+    assert decode.loops == 1
+    assert -(-jb // (decode.cluster // decode.nseg)) <= clusters or decode.nseg == 1
+    if decode.nseg < decode.cluster:
+        assert -(-jb // (decode.cluster // (2 * decode.nseg))) > clusters
