@@ -16,7 +16,7 @@ error:
    and ``bsr`` formats over the same base parameters, and an ``AdapterBank``
    of four tenants (HPA keeps 1.0 / 0.8 / 0.6 / 0.4 of the same state, each
    adapterized onto the keep-1.0 base) with three device pool rows;
-3. kernels: each of the nine kernels against its plain PyTorch version on
+3. kernels: each of the ten kernels against its plain PyTorch version on
    the card, at the main path's shapes (f32 and bf16) and at ragged shapes
    (3a and 3h also hold the fused SLR kernels' rows bit for bit across calls
    of other T and B, and 3h times their six target shapes on the device
@@ -24,12 +24,20 @@ error:
    then timed with CUDA events beside its plain version, a one-call PyTorch
    yardstick and its bound (bytes over 3.35 TB/s or operations over the
    peak of the kernel's route, whichever is larger, for this run's data:
-   f32 at 67 TFLOP/s, the fused SLR body's 3xTF32 at 495 / 3 TFLOP/s);
+   f32 at 67 TFLOP/s, 3xTF32 (the fused SLR body, flash attention in f32)
+   at 495 / 3 TFLOP/s, bf16 at 989 TFLOP/s);
+   3f also holds flash attention at head dims 80 (Zamba2) and 128, f32 and
+   bf16, and times the main shape in bf16 and on the device alone beside
+   SDPA;
    3i holds the ADMM S-update's soft_threshold at the embedding and
    layer-stack shapes with NaN, +-inf, a zero and an above-max threshold;
    3j holds the unstacked fused SLR kernel (the hybrid's shared block) at
    zamba2's q, gate and down shapes and a ragged one, f32, bf16 and bf16
-   activations over f32 tables, bs 128 and 32, T = 1, 8 and 37;
+   activations over f32 tables, bs 128 and 32, T = 1, 8 and 37; at q, gate
+   and down, T = 1 and 8, two calls must be bit-identical, and it times them
+   with events and on the device alone beside torch.matmul on the dense
+   bf16 W and on the dense f32 W in f32; a gate call must run at most two
+   kernels and allocate only y and the (T, r) buffer of x @ P;
 4. main path, with every launch count set to 0 just before each run and read
    just after:
    a. the fused bank serves 24 greedy requests through ``serve_batch``
@@ -125,6 +133,7 @@ MAX_NEW_CPU = 8
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 PEAK_3XTF32_FLOPS = 495e12 / 3   # H100 SXM dense TF32, three TF32 products per f32 product
+PEAK_BF16_FLOPS = 989e12         # H100 SXM dense bf16 on the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # relative to the output's max |value|
 LOGIT_TOL = 1e-3                            # card vs CPU, relative to max |logit|
 
@@ -537,7 +546,8 @@ def main() -> None:
     )
 
     # 3f. flash attention at one-shot prefill shapes: 8 rows, 8 heads, head_dim
-    # 64, causal, T = S = a prompt bucket; GQA, non-causal, T != S, bf16
+    # 64, causal, T = S = a prompt bucket; GQA, non-causal, T != S, bf16; then
+    # Zamba2's 32 heads of 80 and head dim 128 (GQA, non-causal), f32 and bf16
     fa_err = 0.0
     for b_, hq_, hkv_, t_, s_, causal in ((8, hq, hkv, 512, 512, True),
                                           (8, hq, hkv, 16, 16, True),
@@ -551,11 +561,25 @@ def main() -> None:
             f"flash_attention B={b_} Hq={hq_} Hkv={hkv_} T={t_} S={s_} causal={causal}",
             ops.flash_attention(qf, kf, vf, causal=causal),
             ref.attention_ref(qf, kf, vf, causal=causal, offset=0), torch.float32))
+    for b_, hq_, hkv_, t_, s_, d_, causal in ((2, 32, 32, 512, 512, 80, True),
+                                              (2, 8, 4, 256, 256, 80, False),
+                                              (2, 8, 4, 256, 256, 128, True),
+                                              (2, 8, 8, 128, 256, 128, False)):
+        qf, kf, vf = rand(b_, hq_, t_, d_), rand(b_, hkv_, s_, d_), rand(b_, hkv_, s_, d_)
+        what = f"flash_attention B={b_} Hq={hq_} Hkv={hkv_} T={t_} S={s_} D={d_} causal={causal}"
+        fa_err = max(fa_err, check(what, ops.flash_attention(qf, kf, vf, causal=causal),
+                                   ref.attention_ref(qf, kf, vf, causal=causal, offset=0),
+                                   torch.float32))
+        check(what, ops.flash_attention(bf(qf), bf(kf), bf(vf), causal=causal),
+              ref.attention_ref(bf(qf), bf(kf), bf(vf), causal=causal, offset=0),
+              torch.bfloat16)
     qf, kf, vf = rand(8, hq, 512, d), rand(8, hkv, 512, d), rand(8, hkv, 512, d)
-    check("flash_attention T=512", ops.flash_attention(bf(qf), bf(kf), bf(vf)),
-          ref.attention_ref(bf(qf), bf(kf), bf(vf), offset=0), torch.bfloat16)
+    qb, kb, vb = bf(qf), bf(kf), bf(vf)
+    check("flash_attention T=512", ops.flash_attention(qb, kb, vb),
+          ref.attention_ref(qb, kb, vb, offset=0), torch.bfloat16)
     t_ = 512
     causal_pairs = 8 * hq * t_ * (t_ + 1) // 2
+    fa_bytes = 2 * 8 * hq * t_ * d + 2 * 8 * hkv * t_ * d     # elements of q, out, k, v
     results["flash_attention"] = dict(
         shape=f"one-shot prefill: 8 rows x {hq} heads, T=S={t_}, head_dim {d}, causal",
         max_abs_err=fa_err,
@@ -563,8 +587,20 @@ def main() -> None:
         plain_ms=time_ms(torch, lambda: ref.attention_ref(qf, kf, vf, offset=0)),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qf, kf, vf, is_causal=True)),
-        bound=bound_ms(4 * (2 * 8 * hq * t_ * d + 2 * 8 * hkv * t_ * d), 4 * d * causal_pairs),
+        bound=bound_ms(4 * fa_bytes, 4 * d * causal_pairs, PEAK_3XTF32_FLOPS),
     )
+    fa_bf16 = (time_ms(torch, lambda: ops.flash_attention(qb, kb, vb)),
+               time_ms(torch, lambda: ref.attention_ref(qb, kb, vb, offset=0)),
+               time_ms(torch, lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)),
+               bound_ms(2 * fa_bytes, 4 * d * causal_pairs, PEAK_BF16_FLOPS))
+    print(f"  time flash_attention (same shape, bf16): kernel {fa_bf16[0]:.4f} ms, plain "
+          f"{fa_bf16[1]:.4f} ms, library {fa_bf16[2]:.4f} ms (SDPA, is_causal), bound "
+          f"{fa_bf16[3][0]:.4f} ms ({fa_bf16[3][1]})")
+    for what, args in (("f32", (qf, kf, vf)), ("bf16", (qb, kb, vb))):
+        print(f"  device-only flash_attention {what} (main shape): kernel "
+              f"{graph_ms(torch, lambda: ops.flash_attention(*args)):.4f} ms, SDPA "
+              f"{graph_ms(torch, lambda: F.scaled_dot_product_attention(*args, is_causal=True)):.4f}"
+              f" ms per call (CUDA graph of 20 calls)")
 
     # 3g. page copy on the engine's pool: (layers, pages, heads, 16, 64) payload
     # pools in f32, bf16 and int8 and the (..., 1) scale pool; a copy into page
@@ -807,31 +843,73 @@ def main() -> None:
                 if xdt == f32:
                     un_err = max(un_err, err)
         un_tabs[name] = (p_u, vt_u, mat)
+    # timed at the decode rows (bf16 x over f32 tables, 4i's dtypes): event
+    # and device-alone (CUDA graph) times beside two yardsticks, torch.matmul
+    # on the dense bf16 W (52 MB at the gate site) and on the dense f32 W in
+    # f32 (the same precision as the tables); two calls must agree bit for
+    # bit, and a call must run at most two kernels and allocate only y and
+    # the (T, r) buffer of x @ P
+    from torch.profiler import ProfilerActivity, profile
     un_rows = {}
     for name in ("q", "gate", "down"):
         p_u, vt_u, mat = un_tabs[name]
         k_u, m_u, r_u, bs_u, _ = un_shapes[name]
         live_u = int(mat.counts.sum())
-        w_u = (p_u @ vt_u + bsr_to_dense(mat)).to(b16).contiguous()
+        w32 = (p_u @ vt_u + bsr_to_dense(mat)).contiguous()
+        w_u = w32.to(b16)
         for t_dim in (1, 8):
             x = rand(t_dim, k_u).to(b16)
-            un_rows[f"{name} T={t_dim}"] = (
-                time_ms(torch, lambda: ops.slr_matmul(x, p_u, vt_u, mat)),
-                time_ms(torch, lambda: ref.slr_matmul_ref(x, p_u, vt_u, mat), iters=10),
-                time_ms(torch, lambda: torch.matmul(x, w_u)),
-                bound_ms(2 * t_dim * (k_u + m_u) + 4 * (k_u * r_u + r_u * m_u
-                                                        + live_u * bs_u * bs_u)
-                         + 4 * (mat.counts.numel() + live_u),
-                         2 * t_dim * (k_u * r_u + r_u * m_u + live_u * bs_u * bs_u)))
-    ms_, plain_, lib_, bnd_ = un_rows["gate T=1"]
+            xf = x.float()
+            call = lambda: ops.slr_matmul(x, p_u, vt_u, mat)   # noqa: E731
+            first, second = call(), call()
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                fail(f"slr_matmul {name} T={t_dim}: two calls on the same inputs differ")
+            un_rows[f"{name} T={t_dim}"] = dict(
+                ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
+                plain_ms=time_ms(torch, lambda: ref.slr_matmul_ref(x, p_u, vt_u, mat), iters=10),
+                library_ms=time_ms(torch, lambda: torch.matmul(x, w_u)),
+                library_graph_ms=graph_ms(torch, lambda: torch.matmul(x, w_u)),
+                f32_ms=time_ms(torch, lambda: torch.matmul(xf, w32)),
+                f32_graph_ms=graph_ms(torch, lambda: torch.matmul(xf, w32)),
+                bound=bound_ms(2 * t_dim * (k_u + m_u) + 4 * (k_u * r_u + r_u * m_u
+                                                              + live_u * bs_u * bs_u)
+                               + 4 * (mat.counts.numel() + live_u),
+                               2 * t_dim * (k_u * r_u + r_u * m_u + live_u * bs_u * bs_u)))
+        del w32, w_u
+    print("  check slr_matmul: two calls give bit-identical output at q, gate and down, T = 1 "
+          "and 8")
+    p_u, vt_u, mat = un_tabs["gate"]
+    x = rand(1, 2560).to(b16)
+    ops.slr_matmul(x, p_u, vt_u, mat)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.slr_matmul(x, p_u, vt_u, mat)
+        torch.cuda.synchronize()
+    allocated = torch.cuda.memory_stats()["allocated_bytes.all.allocated"] - before
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "salaad" in e.name]
+    y_t_bytes = 2 * 10240 + 4 * 640      # y (1, M) bf16 and t (1, rp) f32, each in 512-byte units
+    print(f"  check slr_matmul gate T=1: {len(kernels)} kernels per call "
+          f"({', '.join(sorted({re.sub(r'<.*', '', k_) for k_ in kernels}))}), {allocated} bytes "
+          f"allocated (y and t: {y_t_bytes})")
+    if len(kernels) > 2 or allocated > y_t_bytes + 1024:
+        fail("slr_matmul: a call runs more than two kernels or allocates more than y and t")
+    if not kernels:
+        print("  the profiler recorded no device kernel: the kernel count is not measured")
+    r_ = un_rows["gate T=1"]
     results["slr_matmul"] = dict(
         shape="gate site, decode tick: T=1, K=2560 M=10240 r=640, full S at bs=128, bf16 x "
-              "over f32 tables", max_abs_err=un_err, ms=ms_, plain_ms=plain_, library_ms=lib_,
-        bound=bnd_)
-    for name, (ms_, plain_, lib_, bnd_) in un_rows.items():
+              "over f32 tables", max_abs_err=un_err, ms=r_["ms"], plain_ms=r_["plain_ms"],
+        library_ms=r_["library_ms"], bound=r_["bound"])
+    for name, r_ in un_rows.items():
         print(f"  time slr_matmul {name} (bf16 x, f32 tables, full S at bs=128): kernel "
-              f"{ms_:.4f} ms, plain {plain_:.4f} ms, library {lib_:.4f} ms (torch.matmul, dense "
-              f"bf16 W), bound {bnd_[0]:.4f} ms ({bnd_[1]})")
+              f"{r_['ms']:.4f} ms (device alone {r_['graph_ms']:.4f}), plain "
+              f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms (device alone "
+              f"{r_['library_graph_ms']:.4f}; torch.matmul, dense bf16 W), f32 library "
+              f"{r_['f32_ms']:.4f} ms (device alone {r_['f32_graph_ms']:.4f}; torch.matmul, "
+              f"f32 x and dense f32 W), bound {r_['bound'][0]:.4f} ms ({r_['bound'][1]})")
     del un_tabs
 
     for name, r_ in results.items():
@@ -920,7 +998,6 @@ def main() -> None:
 
     # 4e. where the time goes: a run under torch.profiler (here 4a; 4f's
     # batched run below)
-    from torch.profiler import ProfilerActivity, profile
 
     def profiled(label: str, run) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -49,9 +49,9 @@ SIGNATURES = {
     "slr_fused_resident": [_I] * 4 + [_P],
     # x, p, vt, y, T, K, M, r, bt, dtype, wdtype, stream
     "lowrank_matmul_launch": [_P] * 4 + [_I] * 7 + [_P],
-    # x, p, vt, counts, rows, vals, part, ypart, y, T, K, M, r, JB, MAXB, bs, bt,
-    # n_ksplit, ksplit, n_ssplit, dtype, wdtype, stream
-    "slr_matmul_launch": [_P] * 9 + [_I] * 13 + [_P],
+    # x, p, vt, counts, rows, vals, t, y, T, K, M, r, rp, JB, MAXB, bs, bt, nseg, kseg,
+    # dtype, wdtype, stream
+    "slr_matmul_launch": [_P] * 8 + [_I] * 13 + [_P],
     # q, k, v, table, lengths, out, B, Hq, Hkv, D, N, bs, nb, dtype, stream
     "paged_attention_launch": [_P] * 6 + [_I] * 8 + [_P],
     # q, k, v, table, lengths, out, B, Hq, Hkv, kq, D, N, bs, nb, dtype, stream

@@ -91,25 +91,34 @@
 // an f32 SLR state, as the hybrid's shared block is), each read into f32.
 //
 // The unstacked entry (slr_matmul_launch; one (K, M) weight, the shared
-// attention block of the hybrid family) computes x @ P ONCE per call, as the
-// Pallas kernel computes it once per row tile, in three kernels on the
-// stream:
-//   A. lowrank_partial_kernel: grid (row tiles, rank chunks of kRC, splits of
-//      K of kKSplit rows); each block writes its (BT, kRC) partial product
-//      of x[:, split] @ P[split, chunk] to an f32 scratch (S_k, T, r);
-//   B. slr_emit_kernel: grid (row tiles, column blocks of bs, work splits);
-//      a column block's work is its rank chunks (t, the sum of that chunk's
-//      partials in split order, times Vt[chunk, j]) then its live tiles, and
-//      each work split writes the f32 partial of its items to a second
-//      scratch (S_w, T, M);
-//   C. sum_splits_kernel: y = the sum of the S_w partials in order, rounded
-//      once to x's dtype.
-// Zamba2's shared block has K up to 10240, M up to 10240 and r up to 640: P
-// is read once and only the partials, a few MB, are read again (from L2). The
-// wrapper sizes S_w so that the grid of B holds about two blocks per SM (M =
-// 2560 gives only 20 column blocks at bs = 128). BT is 8 rows for T <= 8
-// (decode) and 32 otherwise. Every sum runs in a fixed order, so a call is
-// deterministic.
+// attention block of the hybrid family) at decode width is bound by the
+// bytes of its tables, read once: at Zamba2's gate site (K = 2560, M =
+// 10240, r = 640, a full S at bs = 128, f32 tables) 138 MB, 41 us at 3.35
+// TB/s, of which the live tiles are 105 MB and do not depend on x @ P. Two
+// kernels on the stream, the second a programmatic dependent of the first:
+//   A. unstacked_xp_kernel: t = x @ P (T, rp) in f32, clusters of 8 blocks
+//      splitting K (16 columns of P per block, eight 16-byte loads in flight
+//      per thread) and summing the splits in rank order on chip; it
+//      triggers its dependent at once;
+//   B. unstacked_stream_kernel: one block per (column part, segment, row
+//      tile), a 128-wide column block cut into two 64-wide parts, the
+//      segments of a part one cluster, eight blocks per column block; each
+//      block streams its live tiles first (no dependence on A), then waits
+//      for A (griddepcontrol.wait) and streams its Vt rows against t; a
+//      4-deep ring of 16-byte cp.async copies keeps three 16 KB stages of
+//      f32 tiles in flight per block while f32 FMAs run on the fourth; the
+//      segments' partial tiles are summed in segment order through
+//      distributed shared memory and y is written once.
+// No output scratch in device memory: only t (T x rp floats). The split of
+// a column block comes from bs alone (kernels/slr_matmul.py::unstacked_plan:
+// measured on the card, eight blocks per column block beat the other counts
+// at every Zamba2 site), never from x or T; every sum runs in a fixed order,
+// so a call is deterministic, bit for bit from run to run. BT is 1 row for
+// T = 1, 8 rows for T <= 8 (decode) and 32 otherwise; products are f32 FMAs
+// on the CUDA cores (at T <= 8 a 4-byte table value feeds 16 flops, a fifth
+// of the f32 rate at the HBM rate). Measured, the streaming kernel is bound
+// by its cp.async load path (removing its FMAs left its time unchanged), at
+// 60-70% of the HBM rate.
 #include <stdint.h>
 
 #include <cooperative_groups.h>
@@ -345,20 +354,6 @@ __host__ __device__ inline FusedSmem fused_smem(int bt, int bn, int r, int n_yp,
   return s;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // dst (nr, nc), row stride ldd, from src rows of stride lds: element (i, c)
 // is read where i < vr and c < vc, zero elsewhere. nc is a multiple of 16
 // bytes of T. 16-byte cp.async where the rows are 16-byte aligned, else
@@ -407,21 +402,6 @@ __device__ __forceinline__ void stage_rows(T* dst, int ldd, const T* x, const in
                              ? x[(int64_t)row * k_dim + k0 + c] : from_f32<T>(0.f);
     }
   }
-}
-
-// v = hi + lo, both TF32 (the lo part carries the bits TF32 drops)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
-}
-
-// d += a b on the tensor cores: one m16n8k8 TF32 product, f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // One warp's tiles of a stage: acc[j] (16 columns c0 .. c0 + 15 of W x 8 rows
@@ -863,238 +843,397 @@ cudaError_t dispatch_fused(int dtype, int bs, int bt, FusedArgs a, cudaStream_t 
   return cudaErrorInvalidValue;
 }
 
-// ---- the unstacked entry: x @ P once per call, then the column blocks ------
+// ---- the unstacked entry: x @ P, then the column blocks streamed ----------
 
-constexpr int kKSplit = 256;   // rows of P per partial-product block
+constexpr int kUStages = 4;     // cp.async ring depth of the streaming kernel
+constexpr int kXPCluster = 8;   // blocks per cluster of the x @ P kernel = splits of K
+constexpr int kXPRows = 8;      // rows of x per block of the x @ P kernel (1 at T = 1)
+constexpr int kXPCols = 16;     // columns of P per block of the x @ P kernel
 
-// A. part[split, row, c] = x[row, split rows] @ P[split rows, c] for one
-// (row tile, rank chunk, split) per block.
-template <typename TX, typename TW, int BT>
-__global__ void __launch_bounds__(kThreads)
-lowrank_partial_kernel(const TX* __restrict__ x, const TW* __restrict__ p,
-                       float* __restrict__ part, int t_dim, int k_dim, int r) {
-  constexpr int KC = 32;
-  constexpr int T_RSTRIDE = kThreads / kRC;
-  constexpr int NT = BT / T_RSTRIDE;
-  __shared__ float xs[BT][KC];
-  __shared__ float ws[KC][kRC];
+// rows of a thread's accumulators in a streaming block of bt rows of x
+__host__ __device__ constexpr int rows_per_thread(int bt) { return bt < 8 ? bt : 8; }
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BT;
-  const int rc0 = blockIdx.y * kRC;
-  const int split = blockIdx.z;
-  const int k_lo = split * kKSplit;
-  const int k_hi = min(k_dim, k_lo + kKSplit);
-  const int n_rows = min(BT, t_dim - row0);
-  const int rcw = min(kRC, r - rc0);
-  const int t_c = tid % kRC;
-  const int t_r = tid / kRC;
-
-  float tacc[NT];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) tacc[i] = 0.f;
-  for (int k0 = k_lo; k0 < k_hi; k0 += KC) {
-    for (int e = tid; e < BT * KC; e += kThreads) {
-      const int rr = e / KC, kk = e % KC;
-      xs[rr][kk] = (rr < n_rows && k0 + kk < k_hi)
-                       ? to_f32(x[(int64_t)(row0 + rr) * k_dim + k0 + kk]) : 0.f;
-    }
-    for (int e = tid; e < KC * kRC; e += kThreads) {
-      const int kk = e / kRC, cc = e % kRC;
-      ws[kk][cc] = (k0 + kk < k_hi && cc < rcw) ? to_f32(p[(int64_t)(k0 + kk) * r + rc0 + cc])
-                                                : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      const float w = ws[kk][t_c];
-#pragma unroll
-      for (int i = 0; i < NT; ++i) tacc[i] += xs[t_r + i * T_RSTRIDE][kk] * w;
-    }
-    __syncthreads();
-  }
-  if (t_c < rcw) {
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const int rr = t_r + i * T_RSTRIDE;
-      if (rr < n_rows) part[((int64_t)split * t_dim + row0 + rr) * r + rc0 + t_c] = tacc[i];
-    }
-  }
+// programmatic dependent launch: the x @ P kernel lets the streaming kernel
+// start at once; the streaming kernel waits for it only before it reads t
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// B. One (row tile, column block j, work split z) per block. Column block
-// j's work is its ceil(r / kRC) rank chunks (t = the sum of the partials of
-// that chunk, then t @ Vt[chunk, j]) followed by its counts[j] live tiles;
-// split z of n_ssplit takes a contiguous range of those items and writes its
-// f32 partial of the (BT, bs) tile to ypart[z]. Splitting the items keeps
-// the card busy when the grid has few column blocks (M = 2560 gives 20 at
-// bs = 128, with 80 tiles each for `down`).
-template <typename TX, typename TW, int BN, int BT>
-__global__ void __launch_bounds__(kThreads)
-slr_emit_kernel(const TX* __restrict__ x, const float* __restrict__ part,
-                const TW* __restrict__ vt, const int* __restrict__ counts,
-                const int* __restrict__ rows, const TW* __restrict__ vals,
-                float* __restrict__ ypart, int t_dim, int k_dim, int m_dim, int r,
-                int n_ksplit, int maxb, int n_ssplit) {
-  constexpr int KC = BN < 32 ? BN : 32;
-  constexpr int NACC = (BT * BN + kThreads - 1) / kThreads;
-  constexpr int ACC_RSTRIDE = kThreads / BN;
-
-  __shared__ float xs[BT][KC];
-  __shared__ float ws[KC][BN];
-  __shared__ float ts[BT][kRC];
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BT;
-  const int j = blockIdx.y;
-  const int z = blockIdx.z;
-  const int col0 = j * BN;
-  const int n_rows = min(BT, t_dim - row0);
-  const int acc_c = tid % BN;
-  const int acc_r = tid / BN;
-  const int n_rc = (r + kRC - 1) / kRC;
-  const int cnt = min(counts[j], maxb);
-  const int items = n_rc + cnt;
-  const int per = (items + n_ssplit - 1) / n_ssplit;
-  const int i_lo = min(items, z * per);
-  const int i_hi = min(items, i_lo + per);
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-
-  // rank chunks of this split: t (the sum of the chunk's partials) @ Vt
-  for (int rc = i_lo; rc < min(i_hi, n_rc); ++rc) {
-    const int rc0 = rc * kRC;
-    const int rcw = min(kRC, r - rc0);
-    for (int e = tid; e < BT * kRC; e += kThreads) {
-      const int rr = e / kRC, cc = e % kRC;
-      float sum = 0.f;
-      if (rr < n_rows && cc < rcw) {
-        const float* src = part + (int64_t)(row0 + rr) * r + rc0 + cc;
-        for (int sp = 0; sp < n_ksplit; ++sp) sum += src[(int64_t)sp * t_dim * r];
-      }
-      ts[rr][cc] = sum;
-    }
-    __syncthreads();
-    for (int q0 = 0; q0 < rcw; q0 += KC) {
-      for (int e = tid; e < KC * BN; e += kThreads) {
-        const int kk = e / BN, cc = e % BN;
-        ws[kk][cc] = (q0 + kk < rcw && col0 + cc < m_dim)
-                         ? to_f32(vt[(int64_t)(rc0 + q0 + kk) * m_dim + col0 + cc]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        const float w = ws[kk][acc_c];
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) {
-          const int rr = acc_r + i * ACC_RSTRIDE;
-          if (rr < BT) acc[i] += ts[rr][q0 + kk] * w;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // live tiles of this split
-  for (int it = max(i_lo, n_rc); it < i_hi; ++it) {
-    const int s = it - n_rc;
-    const int rb = rows[(int64_t)j * maxb + s];
-    const TW* tile = vals + ((int64_t)j * maxb + s) * BN * BN;
-    for (int k0 = 0; k0 < BN; k0 += KC) {
-      const int kbase = rb * BN + k0;
-      for (int e = tid; e < BT * KC; e += kThreads) {
-        const int rr = e / KC, kk = e % KC;
-        xs[rr][kk] = (rr < n_rows && kbase + kk >= 0 && kbase + kk < k_dim)
-                         ? to_f32(x[(int64_t)(row0 + rr) * k_dim + kbase + kk]) : 0.f;
-      }
-      for (int e = tid; e < KC * BN; e += kThreads) {
-        const int kk = e / BN, cc = e % BN;
-        ws[kk][cc] = to_f32(tile[(k0 + kk) * BN + cc]);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        const float w = ws[kk][acc_c];
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) {
-          const int rr = acc_r + i * ACC_RSTRIDE;
-          if (rr < BT) acc[i] += xs[rr][kk] * w;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  if (col0 + acc_c < m_dim) {
-    float* out = ypart + (int64_t)z * t_dim * m_dim;
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-      const int rr = acc_r + i * ACC_RSTRIDE;
-      if (rr < n_rows) out[(int64_t)(row0 + rr) * m_dim + col0 + acc_c] = acc[i];
-    }
-  }
+// four consecutive values as f32: one 16-byte load of f32, one 8-byte of bf16
+__device__ __forceinline__ void load4(const float* p, float (&w)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
 }
-
-// C. y = the sum of the splits' partials, in split order, rounded once.
-template <typename TX>
-__global__ void __launch_bounds__(kThreads)
-sum_splits_kernel(const float* __restrict__ ypart, TX* __restrict__ y, int64_t n,
-                  int n_ssplit) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  float sum = 0.f;
-  for (int z = 0; z < n_ssplit; ++z) sum += ypart[(int64_t)z * n + i];
-  y[i] = from_f32<TX>(sum);
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&w)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  w[0] = a.x, w[1] = a.y, w[2] = b.x, w[3] = b.y;
 }
 
 struct UnstackedArgs {
-  const void* x; const void* p; const void* vt;
-  const int* counts; const int* rows; const void* vals;
-  float* part; float* ypart; void* y;
-  int t_dim, k_dim, m_dim, r, jb, maxb, n_ksplit, n_ssplit;
+  const void* x;       // (T, K)
+  const void* p;       // (K, r)
+  const void* vt;      // (r, M)
+  const int* counts;   // (JB,)
+  const int* rows;     // (JB, MAXB)
+  const void* vals;    // (JB, MAXB, bs, bs)
+  float* t;            // (T, rp) f32: x @ P, columns r .. rp - 1 zero
+  void* y;             // (T, M)
+  int t_dim, k_dim, m_dim, r, rp, jb, maxb;
+  int nseg, kseg;      // the launch plan (kernels/slr_matmul.py::unstacked_plan)
+  int pvec;            // P's rows take 16-byte (f32) or 8-byte (bf16) loads
 };
 
-template <typename TX, typename TW, int BN, int BT>
-cudaError_t launch_emit(const UnstackedArgs& a, cudaStream_t stream) {
-  dim3 grid((a.t_dim + BT - 1) / BT, a.jb, a.n_ssplit);
-  slr_emit_kernel<TX, TW, BN, BT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(a.x), a.part, static_cast<const TW*>(a.vt), a.counts, a.rows,
-      static_cast<const TW*>(a.vals), a.ypart, a.t_dim, a.k_dim, a.m_dim, a.r, a.n_ksplit,
-      a.maxb, a.n_ssplit);
-  return cudaGetLastError();
+// Byte offsets of the streaming kernel's dynamic shared memory: the ring of
+// kUStages stages (a (KS, BN) table tile, then a (BT, KS) operand tile of x
+// or t, up to f32) or, after the last stage, the k-group partials (kFThreads
+// x rows_per_thread(BT) x 4 f32); tp (BT, BN) f32, the block's partial tile
+// that the cluster sums; rowidx (BT,) int; the column block's live-tile rows
+// (MAXB,) int. kernels/slr_matmul.py::unstacked_smem_bytes mirrors the total.
+struct UnstackedSmem {
+  int slot, tp, rowidx, cols, total;
+};
+
+// reduction rows per stage of a streaming block over cs column parts of a
+// column block of bn columns: a whole column block takes kStep rows, a part
+// of one 2 kStep (a stage of 16 KB of f32 either way at bs = 128)
+__host__ __device__ constexpr int stream_rows(int bn, int cs) {
+  return bn < cs * kStep ? bn : cs * kStep;
+}
+
+__host__ __device__ inline UnstackedSmem unstacked_smem(int bt, int bn, int cs, int wsize,
+                                                        int maxb) {
+  UnstackedSmem s;
+  const int ks = stream_rows(bn, cs), bnb = bn / cs;
+  s.slot = ks * bnb * wsize + bt * ks * 4;
+  const int ring = kUStages * s.slot, red = 16 * kFThreads * rows_per_thread(bt);
+  s.tp = ring > red ? ring : red;
+  s.rowidx = s.tp + 4 * bt * bnb;
+  s.cols = s.rowidx + 4 * bt;
+  s.total = s.cols + 4 * maxb;
+  return s;
+}
+
+// A. t[row, c] = x[row, :] @ P[:, c] in f32. One block per (split of K = its
+// cluster rank, chunk of kXPCols columns, group of R rows): the block's x
+// rows sit transposed in shared memory, its threads stream P's rows (thread
+// (quad, kl): columns c0 + 4 quad .. + 3 of rows k_lo + kl + kLanes i, one
+// vector load per row, eight rows in flight) into register partials, summed
+// over the warp's rows by shuffles, over the 8 warps in order, then over
+// the cluster's kXPCluster splits in rank order through distributed shared
+// memory. It triggers its dependents first.
+template <typename TX, typename TW, int R>
+__global__ void __launch_bounds__(kFThreads)
+unstacked_xp_kernel(const UnstackedArgs a) {
+  griddep_launch_dependents();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem);          // (kseg, R)
+  float* wp = xs + a.kseg * R;                          // (8 warps, R, kXPCols)
+  float* part = wp + 8 * R * kXPCols;                   // (R, kXPCols)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int crank = static_cast<int>(cluster.block_rank());
+  const TX* x = static_cast<const TX*>(a.x);
+  const TW* p = static_cast<const TW*>(a.p);
+  const int c0 = blockIdx.y * kXPCols;
+  const int row0 = blockIdx.z * R;
+  const int n_rows = min(R, a.t_dim - row0);
+  const int k_lo = min(a.k_dim, crank * a.kseg), k_hi = min(a.k_dim, k_lo + a.kseg);
+  const int nk = k_hi - k_lo;
+  constexpr int kQuads = kXPCols / 4, kLanes = kFThreads / kQuads;   // per row, rows per pass
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  const int quad = tid % kQuads, kl = tid / kQuads;
+
+  for (int e = tid; e < nk * R; e += kFThreads) {
+    const int i = e / nk, kk = e % nk;
+    xs[kk * R + i] = i < n_rows ? to_f32(x[(int64_t)(row0 + i) * a.k_dim + k_lo + kk]) : 0.f;
+  }
+  __syncthreads();
+
+  float acc[R][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int col = c0 + 4 * quad;
+  const bool vec = a.pvec && col + 4 <= a.r;
+#pragma unroll 8
+  for (int k = k_lo + kl; k < k_hi; k += kLanes) {
+    const TW* src = p + (int64_t)k * a.r + col;
+    float w[4];
+    if (vec) {
+      load4(src, w);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[c] = col + c < a.r ? to_f32(src[c]) : 0.f;
+    }
+    float xv[R];
+    if constexpr (R == 8) {
+      const float4 xa = *reinterpret_cast<const float4*>(xs + (k - k_lo) * R);
+      const float4 xb = *reinterpret_cast<const float4*>(xs + (k - k_lo) * R + 4);
+      xv[0] = xa.x, xv[1] = xa.y, xv[2] = xa.z, xv[3] = xa.w;
+      xv[4] = xb.x, xv[5] = xb.y, xv[6] = xb.z, xv[7] = xb.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < R; ++i) xv[i] = xs[(k - k_lo) * R + i];
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(xv[i], w[c], acc[i][c]);
+  }
+  // the warp's rows of K (lanes kQuads apart), then the 8 warps in order
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float v = acc[i][c];
+#pragma unroll
+      for (int off = kQuads; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+      acc[i][c] = v;
+    }
+  if (lane < kQuads) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wp[(warp * R + i) * kXPCols + 4 * lane + c] = acc[i][c];
+  }
+  __syncthreads();
+  if (tid < R * kXPCols) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) v += wp[w * R * kXPCols + tid];
+    part[tid] = v;
+  }
+  // rank c sums slice c of the chunk over the cluster's splits, in rank order
+  cluster.sync();
+  constexpr int kPer = R * kXPCols / kXPCluster;
+  if (tid < kPer) {
+    const int e = crank * kPer + tid;
+    const int i = e / kXPCols, c = e % kXPCols;
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < kXPCluster; ++q) v += cluster.map_shared_rank(part, q)[e];
+    if (i < n_rows) a.t[(int64_t)(row0 + i) * a.rp + c0 + c] = v;
+  }
+  cluster.sync();   // no block leaves while a peer reads its part
+}
+
+// acc (RT rows x 4 columns of the thread) += os[rows, k] * ws[k, columns]
+// over the stage's rows k = kg, kg + KG, ... in order (f32 products)
+template <int BN, int KS, int KG, int RT, typename TO, typename TW>
+__device__ __forceinline__ void stream_stage(const TW* ws, const TO* os, int cq, int rg, int kg,
+                                             float (&acc)[RT][4]) {
+#pragma unroll
+  for (int kk = 0; kk < (KS + KG - 1) / KG; ++kk) {
+    const int k = kg + kk * KG;
+    if (KS % KG == 0 || k < KS) {
+      float w[4];
+      load4(ws + k * BN + 4 * cq, w);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float xv = to_f32(os[(rg * RT + i) * KS + k]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(xv, w[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+// B. One block per (column part of BNB = BN / CS columns of column block j,
+// segment s, row tile); the nseg segments of a part form one cluster. Column
+// block j's reduction axis is its counts[j] live tiles (BSUB stages of KS
+// rows each: the gathered columns of x against the tile's rows) followed by
+// its ceil(r / KS) rank stages (t against Vt's rows); segment s takes the
+// tile stages [n_t s / S, n_t (s+1) / S) and then the rank stages [n_r s /
+// S, n_r (s+1) / S), so every block streams live tiles first and reads t
+// last, after griddepcontrol.wait. The stages run through a kUStages-deep
+// ring of 16-byte cp.async copies (three in flight while one computes, one
+// barrier per stage); thread (cq, rg, kg) accumulates RT rows x 4 columns
+// over every KG-th row of a stage in f32 FMAs (RT = 1 for a one-row call,
+// else 8). Then the k groups are summed in order, and the cluster's S
+// partial tiles in segment order: block s sums slice s of the tile and
+// writes it, rounded once to x's dtype.
+template <typename TX, typename TW, int BN, int BT, int CS>
+__global__ void __launch_bounds__(kFThreads, 2)
+unstacked_stream_kernel(const UnstackedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int BNB = BN / CS;                  // the block's columns
+  constexpr int KS = stream_rows(BN, CS);       // reduction rows per stage
+  constexpr int BSUB = BN / KS;                 // stages per live tile
+  constexpr int RT = rows_per_thread(BT);
+  constexpr int CQ = BNB / 4, RG = BT / RT, KG = kFThreads / (CQ * RG);
+  constexpr int W_BYTES = KS * BNB * (int)sizeof(TW);
+  static_assert(KG >= 1 && KG * CQ * RG == kFThreads, "k groups");
+  const UnstackedSmem L = unstacked_smem(BT, BN, CS, (int)sizeof(TW), a.maxb);
+  float* tp = reinterpret_cast<float*>(smem + L.tp);
+  int* rowidx = reinterpret_cast<int*>(smem + L.rowidx);
+  int* colrows = reinterpret_cast<int*>(smem + L.cols);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = a.nseg;
+  const int s = static_cast<int>(cluster.block_rank());
+  const int unit = blockIdx.x / S, j = unit / CS;
+  const int col0 = j * BN + (unit % CS) * BNB;
+  const int row0 = blockIdx.y * BT, n_rows = min(BT, a.t_dim - row0);
+  const int tid = threadIdx.x;
+  const TX* x = static_cast<const TX*>(a.x);
+  const TW* vt = static_cast<const TW*>(a.vt);
+  const TW* vals = static_cast<const TW*>(a.vals);
+
+  if (tid < BT) rowidx[tid] = tid < n_rows ? row0 + tid : -1;
+  const int cnt = max(0, min(a.counts[j], a.maxb));
+  for (int e = tid; e < cnt; e += kFThreads) colrows[e] = a.rows[(int64_t)j * a.maxb + e];
+  const int n_t = cnt * BSUB, n_r = (a.r + KS - 1) / KS;
+  const int t_lo = n_t * s / S, t_n = n_t * (s + 1) / S - t_lo;
+  const int r_lo = n_r * s / S, r_n = n_r * (s + 1) / S - r_lo;
+  const int n_st = t_n + r_n;
+  __syncthreads();   // rowidx and the live-tile rows are in
+
+  bool waited = false;
+  auto issue = [&](int i) {
+    if (i < n_st) {
+      unsigned char* slot = smem + (i % kUStages) * L.slot;
+      TW* ws = reinterpret_cast<TW*>(slot);
+      if (i < t_n) {
+        const int st = t_lo + i, tile = st / BSUB, u = st % BSUB;
+        stage_tile<TW>(ws, BNB, vals + (((int64_t)j * a.maxb + tile) * BN + u * KS) * BN +
+                                    (col0 - j * BN), BN, KS, BNB, KS, BNB, vals);
+        stage_rows<TX, BT>(reinterpret_cast<TX*>(slot + W_BYTES), KS, x, rowidx, a.k_dim,
+                           colrows[tile] * BN + u * KS, KS, KS);
+      } else {
+        const int st = r_lo + i - t_n;
+        stage_tile<TW>(ws, BNB, vt + (int64_t)st * KS * a.m_dim + col0, a.m_dim, KS, BNB,
+                       a.r - st * KS, min(BNB, a.m_dim - col0), vt);
+        if (!waited) {   // t is the x @ P kernel's output
+          griddep_wait();
+          waited = true;
+        }
+        stage_rows<float, BT>(reinterpret_cast<float*>(slot + W_BYTES), KS, a.t, rowidx, a.rp,
+                              st * KS, KS, KS);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int cq = tid % CQ, rg = (tid / CQ) % RG, kg = tid / (CQ * RG);
+  float acc[RT][4];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 1
+  for (int i = 0; i < kUStages - 1; ++i) issue(i);
+  for (int i = 0; i < n_st; ++i) {
+    cp_async_wait<kUStages - 2>();
+    __syncthreads();   // stage i landed; the slot issued next was consumed
+    issue(i + kUStages - 1);
+    const unsigned char* slot = smem + (i % kUStages) * L.slot;
+    const TW* ws = reinterpret_cast<const TW*>(slot);
+    if (i < t_n)
+      stream_stage<BNB, KS, KG>(ws, reinterpret_cast<const TX*>(slot + W_BYTES), cq, rg, kg, acc);
+    else
+      stream_stage<BNB, KS, KG>(ws, reinterpret_cast<const float*>(slot + W_BYTES), cq, rg, kg,
+                                acc);
+  }
+  if (!waited) griddep_wait();   // the call ends after the x @ P kernel, always
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: it takes the k-group partials
+
+  TX* y = static_cast<TX*>(a.y);
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+    *reinterpret_cast<float4*>(red + (kg * BT + rg * RT + i) * BNB + 4 * cq) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+  for (int e = tid; e < BT * BNB; e += kFThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int g = 0; g < KG; ++g) v += red[g * BT * BNB + e];
+    const int i = e / BNB, c = e % BNB;
+    if (S > 1)
+      tp[e] = v;
+    else if (i < n_rows && col0 + c < a.m_dim)
+      y[(int64_t)(row0 + i) * a.m_dim + col0 + c] = from_f32<TX>(v);
+  }
+  if (S > 1) {
+    cluster.sync();
+    const float* src[kCluster];
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) src[q] = cluster.map_shared_rank(tp, q < S ? q : 0);
+    const int e_hi = (s + 1) * BT * BNB / S;
+    for (int e = s * BT * BNB / S + tid; e < e_hi; e += kFThreads) {
+      const int i = e / BNB, c = e % BNB;
+      if (i >= n_rows || col0 + c >= a.m_dim) continue;
+      float v = src[0][e];
+#pragma unroll
+      for (int q = 1; q < kCluster; ++q)
+        if (q < S) v += src[q][e];
+      y[(int64_t)(row0 + i) * a.m_dim + col0 + c] = from_f32<TX>(v);
+    }
+    cluster.sync();   // no block leaves while a peer reads its tp
+  }
+}
+
+template <typename TX, typename TW, int BN, int BT, int CS>
+cudaError_t launch_unstacked(const UnstackedArgs& a, cudaStream_t stream) {
+  constexpr int R = BT == 1 ? 1 : kXPRows;
+  auto xp_kernel = unstacked_xp_kernel<TX, TW, R>;
+  auto stream_kernel = unstacked_stream_kernel<TX, TW, BN, BT, CS>;
+  const int xp_smem = 4 * (a.kseg * R + 8 * R * kXPCols + R * kXPCols);
+  const UnstackedSmem L = unstacked_smem(BT, BN, CS, (int)sizeof(TW), a.maxb);
+  if (xp_smem > kMaxSmem || L.total > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(xp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, xp_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return err;
+
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = kXPCluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kXPCluster, a.rp / kXPCols, (a.t_dim + R - 1) / R);
+  cfg.blockDim = dim3(kFThreads);
+  cfg.dynamicSmemBytes = xp_smem;
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, xp_kernel, a);
+  if (err != cudaSuccess) return err;
+
+  attrs[0].val.clusterDim.x = a.nseg;
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.gridDim = dim3(a.jb * CS * a.nseg, (a.t_dim + BT - 1) / BT);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, stream_kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename TX, typename TW, int BT>
-cudaError_t launch_unstacked(int bs, const UnstackedArgs& a, cudaStream_t stream) {
-  dim3 grid_a((a.t_dim + BT - 1) / BT, (a.r + kRC - 1) / kRC, a.n_ksplit);
-  lowrank_partial_kernel<TX, TW, BT><<<grid_a, kThreads, 0, stream>>>(
-      static_cast<const TX*>(a.x), static_cast<const TW*>(a.p), a.part, a.t_dim, a.k_dim, a.r);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+cudaError_t dispatch_unstacked_bs(int bs, const UnstackedArgs& a, cudaStream_t stream) {
   switch (bs) {
-    case 8: err = launch_emit<TX, TW, 8, BT>(a, stream); break;
-    case 16: err = launch_emit<TX, TW, 16, BT>(a, stream); break;
-    case 32: err = launch_emit<TX, TW, 32, BT>(a, stream); break;
-    case 64: err = launch_emit<TX, TW, 64, BT>(a, stream); break;
-    case 128: err = launch_emit<TX, TW, 128, BT>(a, stream); break;
+    case 8: return launch_unstacked<TX, TW, 8, BT, 1>(a, stream);
+    case 16: return launch_unstacked<TX, TW, 16, BT, 1>(a, stream);
+    case 32: return launch_unstacked<TX, TW, 32, BT, 1>(a, stream);
+    case 64: return launch_unstacked<TX, TW, 64, BT, 1>(a, stream);
+    case 128: return launch_unstacked<TX, TW, 128, BT, 2>(a, stream);
     default: return cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return err;
-  const int64_t n = (int64_t)a.t_dim * a.m_dim;
-  sum_splits_kernel<TX><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      a.ypart, static_cast<TX*>(a.y), n, a.n_ssplit);
-  return cudaGetLastError();
 }
 
 template <typename TX, typename TW>
 cudaError_t dispatch_unstacked_bt(int bs, int bt, const UnstackedArgs& a,
                                   cudaStream_t stream) {
-  if (bt == 8) return launch_unstacked<TX, TW, 8>(bs, a, stream);
-  if (bt == 32) return launch_unstacked<TX, TW, 32>(bs, a, stream);
+  if (bt == 1) return dispatch_unstacked_bs<TX, TW, 1>(bs, a, stream);
+  if (bt == 8) return dispatch_unstacked_bs<TX, TW, 8>(bs, a, stream);
+  if (bt == 32) return dispatch_unstacked_bs<TX, TW, 32>(bs, a, stream);
   return cudaErrorInvalidValue;
 }
-
 
 }  // namespace
 }  // namespace salaad
@@ -1178,21 +1317,25 @@ extern "C" int lowrank_matmul_launch(const void* x, const void* p, const void* v
 
 // One unstacked weight: y = x @ p @ vt + x @ S with x (T, K), p (K, r),
 // vt (r, M), S block-CSC counts (JB,), rows (JB, MAXB), vals (JB, MAXB, bs,
-// bs); f32 scratch part (n_ksplit, T, r) with n_ksplit = ceil(K / ksplit) and
-// ypart (n_ssplit, T, M); bt (8 or 32) rows per block; x and y of dtype, the
-// tables of wdtype.
+// bs); t (T, rp) f32 scratch for x @ p with rp = r rounded up to 32; bt (8 or
+// 32) rows per streaming block, nseg segments per column block, kseg rows of
+// K per x @ P block (kernels/slr_matmul.py::unstacked_plan); x and y of
+// dtype, the tables of wdtype. Two launches, the second a programmatic
+// dependent of the first.
 extern "C" int slr_matmul_launch(const void* x, const void* p, const void* vt,
                                  const int* counts, const int* rows, const void* vals,
-                                 float* part, float* ypart, void* y, int t_dim, int k_dim,
-                                 int m_dim, int r, int jb, int maxb, int bs, int bt,
-                                 int n_ksplit, int ksplit, int n_ssplit, int dtype, int wdtype,
-                                 void* stream) {
-  if (t_dim < 1 || k_dim < 1 || r < 1 || jb < 1 || maxb < 1 || bs < 8 || n_ssplit < 1 ||
-      ksplit != kKSplit || n_ksplit != (k_dim + kKSplit - 1) / kKSplit ||
-      jb != (m_dim + bs - 1) / bs)
+                                 float* t, void* y, int t_dim, int k_dim, int m_dim, int r,
+                                 int rp, int jb, int maxb, int bs, int bt, int nseg, int kseg,
+                                 int dtype, int wdtype, void* stream) {
+  if (t_dim < 1 || k_dim < 1 || r < 1 || jb < 1 || maxb < 1 || bs < 8 ||
+      jb != (m_dim + bs - 1) / bs || rp != (r + 31) / 32 * 32 ||
+      nseg < 1 || nseg > kCluster || kseg < 1 || (int64_t)kseg * kXPCluster < k_dim ||
+      t_dim > 65535 * kXPRows || (t_dim + bt - 1) / bt > 65535)
     return cudaErrorInvalidValue;
-  UnstackedArgs a{x, p, vt, counts, rows, vals, part, ypart, y, t_dim, k_dim, m_dim, r, jb,
-                  maxb, n_ksplit, n_ssplit};
+  const int wsize = wdtype == kF32 ? 4 : 2;
+  const int pvec = r % 4 == 0 && reinterpret_cast<uintptr_t>(p) % (4 * wsize) == 0;
+  const UnstackedArgs a{x, p, vt, counts, rows, vals, t, y, t_dim, k_dim, m_dim, r, rp, jb,
+                        maxb, nseg, kseg, pvec};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32 && wdtype == kF32) return dispatch_unstacked_bt<float, float>(bs, bt, a, s);
   if (dtype == kBF16 && wdtype == kBF16)

@@ -17,7 +17,8 @@ CUDA kernel ``csrc/slr_matmul.cu`` for CUDA tensors; each counts its own
 launches. The stacked and per-slot entries share one fused body, cut by
 ``fused_plan``: its ``partition`` fixes every output element's sums from the
 table shape and the card alone, so a row of y never depends on T, B or the
-slot that carries it.
+slot that carries it. The unstacked entry's two kernels are cut by
+``unstacked_plan`` from the table shape and T's row-tile class.
 """
 from __future__ import annotations
 
@@ -33,11 +34,9 @@ from ._build import check_cuda, check_int32, dtype_code, launch, library, table_
 from .bsr_matmul import BLOCK_SIZES, MAX_ROW_TILE, BsrMatrix, row_tile
 
 __all__ = ["BsrStack", "stack_bsr", "row_tile", "slr_matmul", "slr_matmul_stacked",
-           "slr_matmul_multi", "BLOCK_SIZES", "K_SPLIT", "MAX_ROW_TILE", "FusedPlan",
-           "fused_plan", "fused_smem_bytes"]
-
-# rows of P per block of the unstacked entry's x @ P pass (kKSplit in the source)
-K_SPLIT = 256
+           "slr_matmul_multi", "BLOCK_SIZES", "MAX_ROW_TILE", "FusedPlan", "fused_plan",
+           "fused_smem_bytes", "UnstackedPlan", "unstacked_plan", "unstacked_smem_bytes",
+           "unstacked_segments", "unstacked_parts", "unstacked_stage_rows"]
 
 # the fused body's constants (kCluster, kStep, kPass, kStages, kMaxSmem in the source)
 FUSED_CLUSTER = 8
@@ -134,6 +133,95 @@ def fused_plan(k_dim: int, r: int, m_dim: int, bs: int, maxb: int, itemsize: int
     return FusedPlan(c, nseg, kseg, bt, loops, ypn)
 
 
+# the unstacked entry's constants (kUStages, kXPCluster, kXPRows, kXPCols in
+# the source)
+UNSTACKED_STAGES = 4
+XP_CLUSTER = 8
+XP_ROWS = 8
+XP_COLS = 16
+STREAM_BLOCKS = 8    # streaming blocks per column block: nseg x cs
+
+
+@dataclass(frozen=True)
+class UnstackedPlan:
+    """How one call of the unstacked entry is cut.
+
+    The x @ P kernel runs clusters of ``XP_CLUSTER`` blocks, block c taking
+    rows [c kseg, (c+1) kseg) of K, into t of row stride ``rp`` (r rounded
+    up to 32). The streaming kernel runs ``nseg`` blocks (one cluster) per
+    (column part, row tile of ``bt`` rows of x), a column block of bs
+    columns cut into ``cs`` parts; each block sums one segment of the
+    column block's reduction axis (``unstacked_segments``); ``smem`` and
+    ``xp_smem`` are the two kernels' dynamic shared memory per block."""
+    bt: int
+    nseg: int
+    kseg: int
+    rp: int
+    cs: int
+    smem: int
+    xp_smem: int
+
+
+def unstacked_parts(bs: int) -> int:
+    """Column parts of one column block (CS in the source): a 128-wide
+    block streams as two 64-wide parts, each stage a (64, 64) tile."""
+    return 2 if bs == 128 else 1
+
+
+def unstacked_stage_rows(bs: int) -> int:
+    """Reduction rows per stage (``stream_rows`` in the source)."""
+    return min(bs, unstacked_parts(bs) * FUSED_STEP)
+
+
+def unstacked_smem_bytes(bt: int, bs: int, itemsize: int, maxb: int) -> int:
+    """Dynamic shared memory of one streaming block over one column part
+    (``unstacked_smem`` in the source): the ring (or the k-group partials),
+    the partial tile, the row indices and the column block's live-tile
+    rows."""
+    ks, bnb = unstacked_stage_rows(bs), bs // unstacked_parts(bs)
+    ring = UNSTACKED_STAGES * (ks * bnb * itemsize + bt * ks * 4)
+    red = 16 * 256 * min(bt, 8)          # the k groups' partial tiles
+    return max(ring, red) + 4 * bt * bnb + 4 * bt + 4 * maxb
+
+
+def unstacked_segments(n_tile: int, n_rank: int, nseg: int) -> list[tuple[range, range]]:
+    """The stages of one column block that each segment sums, in the
+    kernel's order: segment s takes live-tile stages [n_tile s / nseg,
+    n_tile (s+1) / nseg) and then rank stages [n_rank s / nseg, n_rank (s+1)
+    / nseg) (``n_tile`` = counts[j] x bs / KS, ``n_rank`` = ceil(r / KS),
+    KS = ``unstacked_stage_rows(bs)``)."""
+    return [(range(n_tile * s // nseg, n_tile * (s + 1) // nseg),
+             range(n_rank * s // nseg, n_rank * (s + 1) // nseg)) for s in range(nseg)]
+
+
+@functools.lru_cache(maxsize=4096)
+def unstacked_plan(k_dim: int, r: int, bs: int, maxb: int, itemsize: int,
+                   rows: int) -> UnstackedPlan:
+    """The launch plan of an unstacked call over tables of shape (K, r, bs)
+    with MAXB tile slots per column block, in a dtype of ``itemsize`` bytes,
+    for ``rows`` rows of x.
+
+    Every column block streams through ``STREAM_BLOCKS`` blocks: cs parts
+    (2 at bs = 128) of nseg segments each. On the card that beat the other
+    counts at Zamba2's q, gate and down sites alike (20 to 80 column blocks;
+    PERF.md), so the split depends on bs alone, never on T, x or the counts;
+    bt is 1 row for a one-row call, 8 for a decode call (T <= 8) and 32
+    otherwise. Raises where a block's shared memory would exceed the card's
+    227 KB."""
+    cs = unstacked_parts(bs)
+    nseg = STREAM_BLOCKS // cs
+    bt = 1 if rows == 1 else 8 if rows <= 8 else 32
+    xp_rows = 1 if bt == 1 else XP_ROWS
+    kseg = -(-k_dim // XP_CLUSTER)
+    smem = unstacked_smem_bytes(bt, bs, itemsize, maxb)
+    xp_smem = 4 * (kseg * xp_rows + 9 * xp_rows * XP_COLS)
+    if max(smem, xp_smem) > FUSED_MAX_SMEM:
+        raise ValueError(f"unstacked SLR kernel: K={k_dim}, bs={bs} and {maxb} tile slots "
+                         f"need {max(smem, xp_smem)} bytes of shared memory per block, more "
+                         f"than {FUSED_MAX_SMEM}")
+    return UnstackedPlan(bt, nseg, kseg, -(-r // 32) * 32, cs, smem, xp_smem)
+
+
 @functools.cache
 def card_residency(device: int, dtype: torch.dtype, bs: int) -> Callable[[int, int], int]:
     """``fused_plan``'s ``resident`` on CUDA device ``device`` for the fused
@@ -202,11 +290,10 @@ def slr_matmul(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
     vt (r, M), ``bsr`` block-CSC S of shape (K, M) -> y (T, M) in x.dtype.
     The tables share x's dtype, or are float32 under bfloat16 x.
 
-    The kernel runs x @ P once into f32 partials over splits of K_SPLIT rows,
-    then one block per (row tile, column block, work split) sums them, adds
-    t @ Vt and the live tiles, and a last pass sums the work splits. The
-    work splits are sized from the card's SM count so that the column blocks
-    fill it."""
+    Two kernels (``unstacked_plan``): t = x @ P into a (T, rp) f32 buffer,
+    then the column blocks' live tiles and t @ Vt streamed and summed on
+    chip; the second starts on the live tiles while the first runs. The
+    launch counter counts the call once."""
     if x.device.type == "cpu":
         return ref.slr_matmul_ref(x, p, vt, bsr)
     name = "slr_matmul"
@@ -237,25 +324,14 @@ def slr_matmul(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
     y = torch.empty((t_dim, m_dim), dtype=x.dtype, device=dev)
     if t_dim == 0:
         return y
-    bt = 8 if t_dim <= 8 else 32
-    n_ksplit = -(-k_dim // K_SPLIT)
-    # about two blocks of the emit pass per SM, at most one work item each
-    blocks = jb * -(-t_dim // bt)
-    items = -(-r // 128) + maxb
-    n_ssplit = max(1, min(items, -(-2 * _sm_count(dev) // blocks)))
-    part = torch.empty((n_ksplit, t_dim, r), dtype=torch.float32, device=dev)
-    ypart = torch.empty((n_ssplit, t_dim, m_dim), dtype=torch.float32, device=dev)
+    plan = unstacked_plan(k_dim, r, bs, maxb, p.element_size(), t_dim)
+    t = torch.empty((t_dim, plan.rp), dtype=torch.float32, device=dev)
     launch("slr_matmul_launch", dev, x.data_ptr(), p.data_ptr(), vt.data_ptr(),
-           bsr.counts.data_ptr(), bsr.rows.data_ptr(), bsr.vals.data_ptr(), part.data_ptr(),
-           ypart.data_ptr(), y.data_ptr(), t_dim, k_dim, m_dim, r, jb, maxb, bs, bt, n_ksplit,
-           K_SPLIT, n_ssplit, code, wcode)
+           bsr.counts.data_ptr(), bsr.rows.data_ptr(), bsr.vals.data_ptr(), t.data_ptr(),
+           y.data_ptr(), t_dim, k_dim, m_dim, r, plan.rp, jb, maxb, bs, plan.bt, plan.nseg,
+           plan.kseg, code, wcode)
     slr_matmul.launches += 1
     return y
-
-
-@functools.cache
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 slr_matmul.launches = 0

@@ -157,6 +157,31 @@ def test_slr_matmul_unstacked_corners(cuda, xdt, wdt):
     assert counts["slr_matmul"] == 0
 
 
+@pytest.mark.parametrize("xdt,wdt", DTYPE_PAIRS, ids=["f32", "bf16", "bf16-f32"])
+@pytest.mark.parametrize("k,m,r,bs,occ", [
+    (2560, 10240, 640, 128, 1.0),   # Zamba2's gate site, full S
+    (300, 260, 130, 32, 0.5),       # ragged K, M and r
+])
+def test_slr_matmul_unstacked_is_deterministic(cuda, xdt, wdt, k, m, r, bs, occ):
+    """Two calls on the same inputs give bit-identical output (every split
+    sum runs in a fixed order), and the wrapper counts one launch per call
+    whatever kernels it runs, so 4i's launches-per-decode-call check keeps
+    its meaning."""
+    rng = np.random.default_rng(k + r)
+    p = torch.from_numpy(rng.standard_normal((k, r), dtype=np.float32) / 16).to(cuda, wdt)
+    vt = torch.from_numpy(rng.standard_normal((r, m), dtype=np.float32) / 16).to(cuda, wdt)
+    mat = make_bsr(rng, k, m, bs, occ, cuda, wdt)
+    for t in (1, 8, 37):
+        x = torch.from_numpy(rng.standard_normal((t, k), dtype=np.float32)).to(cuda, xdt)
+        before = ops.launch_counts()["slr_matmul"]
+        first = ops.slr_matmul(x, p, vt, mat)
+        second = ops.slr_matmul(x, p, vt, mat)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["slr_matmul"] == before + 2
+        assert torch.equal(first, second)
+        assert_close(first, ref.slr_matmul_ref(x, p, vt, mat), xdt)
+
+
 def test_slr_matmul_unstacked_rejects_bad_dtypes(cuda):
     x = torch.zeros((2, 16), device=cuda)
     p, vt = torch.zeros((16, 2), device=cuda, dtype=torch.bfloat16), torch.zeros((2, 8), device=cuda)
@@ -358,6 +383,10 @@ def test_page_copy_matches_plain(cuda, dtype, tail):
     (2, 4, 2, 16, 16, 32, True), (8, 8, 8, 128, 128, 64, True), (1, 4, 2, 256, 256, 64, False),
     (8, 8, 8, 512, 512, 64, True), (2, 4, 2, 128, 256, 64, True), (1, 2, 1, 48, 48, 256, True),
     (3, 6, 3, 100, 100, 128, False),
+    # Zamba2's 32 heads of 80, GQA at D = 80, ragged D (zero-padded to the
+    # kernel's head-dim bucket), T != S
+    (2, 32, 32, 128, 128, 80, True), (2, 8, 4, 100, 100, 80, False), (2, 8, 4, 256, 256, 80, True),
+    (2, 4, 2, 37, 37, 50, True), (2, 4, 2, 256, 256, 20, False), (2, 4, 4, 256, 128, 96, True),
 ])
 def test_flash_attention_matches_plain(cuda, dtype, b, hq, hkv, t, s, d, causal):
     rng = np.random.default_rng(t + d)

@@ -19,7 +19,9 @@ from repro.kernels.slr_matmul import slr_matmul_pallas as jslr_matmul_pallas
 from repro.kernels.slr_matmul import stack_bsr as jax_stack_bsr
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bsr_matmul import bsr_from_dense, bsr_to_dense
-from repro_torch.kernels.slr_matmul import fused_plan, fused_smem_bytes, row_tile, stack_bsr
+from repro_torch.kernels.slr_matmul import (FUSED_MAX_SMEM, fused_plan, fused_smem_bytes, row_tile,
+                                           stack_bsr, unstacked_plan, unstacked_segments,
+                                           unstacked_smem_bytes, unstacked_stage_rows)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -430,3 +432,64 @@ def test_fused_plan_partition_ignores_rows(k, r, m, bs, itemsize, clusters):
     assert -(-jb // (decode.cluster // decode.nseg)) <= clusters or decode.nseg == 1
     if decode.nseg < decode.cluster:
         assert -(-jb // (decode.cluster // (2 * decode.nseg))) > clusters
+
+
+# The unstacked entry's launch plan: (K, M, r, bs) of Zamba2's shared block
+# (q, gate, down at r = 640 and bs = 128; gate at bs = 32) and ragged shapes.
+UNSTACKED_SHAPES = [
+    (2560, 2560, 640, 128), (2560, 10240, 640, 128), (10240, 2560, 640, 128),
+    (2560, 10240, 320, 32), (300, 260, 130, 32), (40, 36, 5, 8), (200, 130, 17, 64),
+]
+
+
+@pytest.mark.parametrize("k,m,r,bs", UNSTACKED_SHAPES)
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_unstacked_plan_ignores_rows_within_a_class(k, m, r, bs, itemsize):
+    """The unstacked kernel's splits (column parts and segments per column
+    block, K per x @ P block) come from the table shape only: one plan for
+    every T of a row-tile class (T = 1: one-row tiles; 2 <= T <= 8: 8; T > 8:
+    32), the same splits in every class, and shared memory within the card's
+    227 KB."""
+    maxb = -(-k // bs)
+    classes = [{unstacked_plan(k, r, bs, maxb, itemsize, t) for t in ts}
+               for ts in ((1,), range(2, 9), (9, 37, 64, 512))]
+    assert [len(c) for c in classes] == [1, 1, 1]
+    plans = [c.pop() for c in classes]
+    assert [pl.bt for pl in plans] == [1, 8, 32]
+    assert len({(pl.nseg, pl.cs, pl.kseg, pl.rp) for pl in plans}) == 1
+    pl = plans[0]
+    # eight streaming blocks per column block: two 64-wide parts of 4
+    # segments at bs = 128, else 8 segments of the whole block
+    assert (pl.cs, pl.nseg) == ((2, 4) if bs == 128 else (1, 8))
+    assert 8 * pl.kseg >= k > 8 * (pl.kseg - 1)
+    assert pl.rp % 32 == 0 and r <= pl.rp < r + 32
+    for pl in plans:
+        assert pl.smem == unstacked_smem_bytes(pl.bt, bs, itemsize, maxb)
+        assert max(pl.smem, pl.xp_smem) <= FUSED_MAX_SMEM
+
+
+@pytest.mark.parametrize("k,m,r,bs", UNSTACKED_SHAPES)
+def test_unstacked_segments_cover_each_stage_once(k, m, r, bs):
+    """Every stage of every column block (its live tiles' stages, then its
+    rank stages) is summed by exactly one segment, whatever the column
+    block's count of live tiles, at the plan's segment count."""
+    rng = np.random.default_rng(k + m)
+    ks = unstacked_stage_rows(bs)
+    maxb = -(-k // bs)
+    nseg = unstacked_plan(k, r, bs, maxb, 4, 1).nseg
+    n_rank = -(-r // ks)
+    for count in sorted({0, 1, maxb, *rng.integers(0, maxb + 1, 8).tolist()}):
+        n_tile = count * (bs // ks)
+        segs = unstacked_segments(n_tile, n_rank, nseg)
+        assert len(segs) == nseg
+        tiles = [i for t_range, _ in segs for i in t_range]
+        ranks = [i for _, r_range in segs for i in r_range]
+        assert tiles == list(range(n_tile)) and ranks == list(range(n_rank))
+
+
+def test_unstacked_plan_refuses_what_does_not_fit():
+    """A K whose x @ P block would hold more than 227 KB of x rows (8 rows
+    of a decode call) raises; one row of the same K fits."""
+    with pytest.raises(ValueError, match="shared memory"):
+        unstacked_plan(60000, 64, 128, 469, 4, 8)
+    assert unstacked_plan(60000, 64, 128, 469, 4, 1).bt == 1
