@@ -20,7 +20,13 @@ error:
    the card, at the main path's shapes (f32 and bf16) and at ragged shapes
    (3a and 3h also hold the fused SLR kernels' rows bit for bit across calls
    of other T and B, and 3h times their six target shapes on the device
-   alone, replayed from a CUDA graph),
+   alone, replayed from a CUDA graph; 3b and 3c hold the low-rank and
+   block-CSC kernels' rows bit for bit across T, and two calls bit for bit,
+   at every site, the block-CSC kernel at every block size with bf16
+   activations over f32 tiles, and time the gate site at T = 512 and 8 and
+   the q site at T = 8 with events and on the device alone beside their
+   one-call yardsticks; 3h holds the per-slot empty-S corner's slots across
+   B and against the low-rank kernel, bit for bit),
    then timed with CUDA events beside its plain version, a one-call PyTorch
    yardstick and its bound (bytes over 3.35 TB/s or operations over the
    peak of the kernel's route, whichever is larger, for this run's data:
@@ -53,8 +59,8 @@ error:
       chunked prefill of 64;
    d. ``python -m repro_torch.launch.serve`` runs once as a bank and once
       with ``--adapters 3 --max-resident-adapters 2``, and prints its lines;
-   e. run (a) again under torch.profiler: device busy time, idle share and
-      each kernel's share of device time;
+   e. run (a) and (b) again under torch.profiler: device busy time, idle
+      share and each kernel's share of device time;
    f. the adapter bank serves 24 greedy requests round-robin over its four
       tenants (the prompts of (a), one-shot prefill, the prefix cache, 8
       slots) in ``batched`` mode: the per-slot SLR kernel must launch, and
@@ -408,7 +414,10 @@ def main() -> None:
                  2 * 8 * (k_dim * r * 2 + q_live * q_bs * q_bs), PEAK_3XTF32_FLOPS))
 
     # 3b. low-rank matmul (the empty-S corner, and the bsr format's L part) on
-    # the gate site's factors
+    # the gate site's factors: f32, bf16 and bf16 activations over f32
+    # factors; then, at every site, rows bit for bit across T and two calls
+    # bit-identical (inputs from a generator of their own: later phases draw
+    # as before)
     lr_err = 0.0
     for t_dim in (8, 512, 37):
         x = rand(t_dim, k_dim)
@@ -419,20 +428,64 @@ def main() -> None:
     check("lowrank_matmul gate T=512", ops.lowrank_matmul(
         x, bf(gate.p[lay]), bf(gate.vt[lay])), ref.lowrank_matmul_ref(
         x, bf(gate.p[lay]), bf(gate.vt[lay])), torch.bfloat16)
-    x = rand(512, k_dim)
-    p_l, vt_l = gate.p[lay], gate.vt[lay]
-    results["lowrank_matmul"] = dict(
-        shape=f"gate factors, T=512, K={k_dim} M={m_dim} r={r}",
-        max_abs_err=lr_err,
-        ms=time_ms(torch, lambda: ops.lowrank_matmul(x, p_l, vt_l)),
-        plain_ms=time_ms(torch, lambda: ref.lowrank_matmul_ref(x, p_l, vt_l)),
-        library_ms=time_ms(torch, lambda: torch.linalg.multi_dot([x, p_l, vt_l])),
-        bound=bound_ms(4 * (512 * k_dim + k_dim * r + r * m_dim + 512 * m_dim),
-                       2 * 512 * (k_dim * r + r * m_dim)),
-    )
+    st_rng = np.random.default_rng(SEED + 2)
 
-    # 3c. block-CSC matmul: every site's S at the bsr format's widths, bf16,
-    # ragged T / n / m with per-column counts below MAXB
+    def st_rand(*shape):
+        return torch.from_numpy(st_rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    for t_dim in (8, 37):
+        x = bf(st_rand(t_dim, k_dim))
+        check(f"lowrank_matmul gate T={t_dim} [float32 factors]", ops.lowrank_matmul(
+            x, gate.p[lay], gate.vt[lay]), ref.lowrank_matmul_ref(x, gate.p[lay], gate.vt[lay]),
+            torch.bfloat16)
+
+    def rows_hold(name, call, n_in):
+        """A row of y is bit for bit the same in a call of any T, and two
+        calls on the same inputs agree bit for bit."""
+        x = st_rand(512, n_in)
+        y = call(x)
+        if not torch.equal(call(x), y):
+            fail(f"{name}: two calls on the same inputs differ")
+        for t in (1, 8, 37):
+            if not torch.equal(call(x[:t].contiguous()), y[:t]):
+                fail(f"{name}: x[:{t}] differs from the first {t} rows of the call on T=512")
+
+    for name, lin in sorted(sites.items()):
+        rows_hold(f"lowrank_matmul {name}", lambda x, lin=lin: ops.lowrank_matmul(
+            x, lin.p[lay], lin.vt[lay]), lin.shape[0])
+    print("  check lowrank_matmul: x[:t] gives the first t rows of the call on x, bit for bit, "
+          "t in (1, 8, 37), T = 512, and two calls agree bit for bit, every site")
+
+    def stream_row(call, plain_call, lib_call, nbytes, flops):
+        """Event and device-alone (CUDA graph) times of a kernel call and of
+        its one-call PyTorch yardstick, the plain version's time, the bound
+        at the kernel's route (3xTF32 products, 495 / 3 TFLOP/s)."""
+        return dict(ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
+                    plain_ms=time_ms(torch, plain_call), library_ms=time_ms(torch, lib_call),
+                    library_graph_ms=graph_ms(torch, lib_call),
+                    bound=bound_ms(nbytes, flops, PEAK_3XTF32_FLOPS))
+
+    # timed rows: the T = 512 input draws from rng as the phase always did,
+    # the decode rows' from st_rng
+    stream_rows = {}           # the low-rank and block-CSC rows, timed both ways
+    for name, lin, t_dim in (("gate", gate, 512), ("gate", gate, 8), ("q", q_site, 8)):
+        p_l, vt_l = lin.p[lay], lin.vt[lay]
+        (k_l, m_l), r_l = lin.shape, p_l.shape[-1]
+        x = rand(t_dim, k_l) if t_dim == 512 else st_rand(t_dim, k_l)
+        stream_rows[f"lowrank_matmul {name} T={t_dim}"] = stream_row(
+            lambda x=x, p_l=p_l, vt_l=vt_l: ops.lowrank_matmul(x, p_l, vt_l),
+            lambda x=x, p_l=p_l, vt_l=vt_l: ref.lowrank_matmul_ref(x, p_l, vt_l),
+            lambda x=x, p_l=p_l, vt_l=vt_l: torch.linalg.multi_dot([x, p_l, vt_l]),
+            4 * (t_dim * k_l + k_l * r_l + r_l * m_l + t_dim * m_l),
+            2 * t_dim * (k_l * r_l + r_l * m_l))
+    results["lowrank_matmul"] = dict(
+        shape=f"gate factors, T=512, K={k_dim} M={m_dim} r={r}", max_abs_err=lr_err,
+        **stream_rows["lowrank_matmul gate T=512"])
+
+    # 3c. block-CSC matmul: every site's S at the bsr format's widths, bf16 and
+    # bf16 activations over f32 tiles, ragged T / n / m with per-column counts
+    # below MAXB at every block size; rows bit for bit across T and two calls
+    # bit-identical at every site
     bsr_err = 0.0
     for name, lin in sorted(sites.items()):
         mat = lin.s_stack.at_layer(lay)
@@ -458,22 +511,38 @@ def main() -> None:
                         ops.bsr_matmul(x, mat_d), ref.bsr_matmul_ref(x, mat_d), dt)
             if dt == torch.float32:
                 bsr_err = max(bsr_err, err)
-    x = rand(512, k_dim)
+    for bs_r, n_r, m_r in ((8, 40, 36), (16, 72, 50), (32, 100, 70), (64, 200, 130),
+                           (128, 300, 260)):
+        ib, jb = -(-n_r // bs_r), -(-m_r // bs_r)
+        live_r = st_rng.random((ib, jb)) < 0.5
+        s_np = st_rng.standard_normal((ib * bs_r, jb * bs_r)).astype(np.float32)
+        s_np *= np.repeat(np.repeat(live_r, bs_r, 0), bs_r, 1)
+        mat = bsr_from_dense(s_np[:n_r, :m_r], bs_r, device=dev)
+        x = bf(st_rand(21, n_r))
+        check(f"bsr_matmul ragged bs={bs_r} n={n_r} m={m_r} T=21 [float32 tiles]",
+              ops.bsr_matmul(x, mat), ref.bsr_matmul_ref(x, mat), torch.bfloat16)
+        rows_hold(f"bsr_matmul ragged bs={bs_r}", lambda x, mat=mat: ops.bsr_matmul(x, mat), n_r)
+    for name, lin in sorted(sites.items()):
+        rows_hold(f"bsr_matmul {name}", lambda x, mat=lin.s_stack.at_layer(lay): ops.bsr_matmul(
+            x, mat), lin.shape[0])
+    print("  check bsr_matmul: x[:t] gives the first t rows of the call on x, bit for bit, "
+          "t in (1, 8, 37), T = 512, and two calls agree bit for bit, every site and block size")
+    s_q = q_site.s_stack.at_layer(lay)
+    for name, mat, t_dim in (("gate", s_gate, 512), ("gate", s_gate, 8), ("q", s_q, 8)):
+        n_l, m_l = mat.shape
+        live_l, bs_l = int(mat.counts.sum()), mat.block_size
+        dense_l = bsr_to_dense(mat).contiguous()
+        x = rand(t_dim, n_l) if t_dim == 512 else st_rand(t_dim, n_l)
+        stream_rows[f"bsr_matmul {name} T={t_dim} (bs={bs_l})"] = stream_row(
+            lambda x=x, mat=mat: ops.bsr_matmul(x, mat),
+            lambda x=x, mat=mat: ref.bsr_matmul_ref(x, mat),
+            lambda x=x, d=dense_l: torch.matmul(x, d),
+            4 * (t_dim * n_l + t_dim * m_l + live_l * bs_l * bs_l) + 4 * (mat.counts.numel()
+                                                                         + live_l),
+            2 * t_dim * live_l * bs_l * bs_l)
     results["bsr_matmul"] = dict(
         shape=f"gate site S, T=512, n={k_dim} m={m_dim} bs={bs} live tiles {live}",
-        max_abs_err=bsr_err,
-        ms=time_ms(torch, lambda: ops.bsr_matmul(x, s_gate)),
-        plain_ms=time_ms(torch, lambda: ref.bsr_matmul_ref(x, s_gate)),
-        library_ms=time_ms(torch, lambda: torch.matmul(x, s_dense)),
-        bound=bound_ms(4 * (512 * k_dim + 512 * m_dim + live * bs * bs)
-                       + 4 * (s_gate.counts.shape[0] + live), 2 * 512 * live * bs * bs),
-    )
-    decode_rows["bsr_matmul gate T=8"] = (
-        time_ms(torch, lambda: ops.bsr_matmul(x8, s_gate)),
-        time_ms(torch, lambda: ref.bsr_matmul_ref(x8, s_gate)),
-        time_ms(torch, lambda: torch.matmul(x8, s_dense)),
-        bound_ms(4 * (8 * k_dim + 8 * m_dim + live * bs * bs)
-                 + 4 * (s_gate.counts.shape[0] + live), 2 * 8 * live * bs * bs))
+        max_abs_err=bsr_err, **stream_rows[f"bsr_matmul gate T=512 (bs={bs})"])
 
     # 3d/3e. paged attention at the engine's pool shapes: 8 slots, 8 heads,
     # head_dim 64, 16-token pages, 32 pages per slot (max_len 512)
@@ -681,19 +750,33 @@ def main() -> None:
                 fail(f"slr_matmul_multi {name}: slot {b} differs from the stacked kernel")
     print("  check slr_matmul_multi: every slot equals the stacked kernel on its rows, "
           "bit for bit")
-    # row invariance across B: slots 0..b-1 of an 8-slot call equal a b-slot call
+    # row invariance across B: slots 0..b-1 of an 8-slot call equal a b-slot call,
+    # for the fused form and the empty-S corner (the low-rank kernel's per-slot
+    # form, whose slots also equal lowrank_matmul on their rows and agree bit
+    # for bit across two calls)
     for name, lin in sorted(pooled.items()):
         for t_dim in (1, 8):
             x = inv_rand(8, t_dim, lin.shape[0])
-            y = ops.slr_matmul_multi(x, lin.p, lin.vt, lin.s_stack, ids, nl, lay)
-            for b in (1, 3):
-                if not torch.equal(ops.slr_matmul_multi(x[:b].contiguous(), lin.p, lin.vt,
-                                                        lin.s_stack, ids[:b].contiguous(), nl,
-                                                        lay), y[:b]):
-                    fail(f"slr_matmul_multi {name}: a {b}-slot call differs from slots "
-                         f"0..{b - 1} of the 8-slot call (T={t_dim})")
+            for stack in (lin.s_stack, None):
+                what = "empty-S corner" if stack is None else "fused"
+                y = ops.slr_matmul_multi(x, lin.p, lin.vt, stack, ids, nl, lay)
+                for b in (1, 3):
+                    if not torch.equal(ops.slr_matmul_multi(x[:b].contiguous(), lin.p, lin.vt,
+                                                            stack, ids[:b].contiguous(), nl,
+                                                            lay), y[:b]):
+                        fail(f"slr_matmul_multi {name} ({what}): a {b}-slot call differs from "
+                             f"slots 0..{b - 1} of the 8-slot call (T={t_dim})")
+            if not torch.equal(ops.slr_matmul_multi(x, lin.p, lin.vt, None, ids, nl, lay), y):
+                fail(f"slr_matmul_multi {name} (empty-S corner): two calls differ")
+            for b in range(8):
+                row = int(ids_np[b]) * nl + lay
+                if not torch.equal(y[b], ops.lowrank_matmul(x[b].contiguous(), lin.p[row],
+                                                            lin.vt[row])):
+                    fail(f"slr_matmul_multi {name} (empty-S corner): slot {b} differs from "
+                         f"lowrank_matmul on its row (T={t_dim})")
     print("  check slr_matmul_multi: slots 0..b-1 of an 8-slot call equal a b-slot call, bit "
-          "for bit, b in (1, 3), T in (1, 8), every site")
+          "for bit, b in (1, 3), T in (1, 8), every site, fused and empty-S corner; every "
+          "empty-S slot equals lowrank_matmul on its row, and two calls agree, bit for bit")
 
     def multi_timing(name, t_dim):
         """(ms, plain ms, library ms, bound) of one per-slot call on site
@@ -916,6 +999,12 @@ def main() -> None:
         print(f"  time {name} ({r_['shape']}): kernel {r_['ms']:.4f} ms, plain "
               f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms, bound "
               f"{r_['bound'][0]:.4f} ms ({r_['bound'][1]})")
+    for name, r_ in stream_rows.items():
+        lib = "torch.linalg.multi_dot" if name.startswith("lowrank") else "torch.matmul, dense S"
+        print(f"  time {name}: kernel {r_['ms']:.4f} ms (device alone {r_['graph_ms']:.4f}), "
+              f"plain {r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms (device alone "
+              f"{r_['library_graph_ms']:.4f}; {lib}), bound {r_['bound'][0]:.4f} ms "
+              f"({r_['bound'][1]})")
     for name, (ms, plain, lib, (b_ms, b_by)) in decode_rows.items():
         print(f"  time {name} (decode tick): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"library {lib:.4f} ms (torch.matmul, dense W), bound {b_ms:.4f} ms ({b_by})")
@@ -996,7 +1085,7 @@ def main() -> None:
         print(f"main path 4d launcher {' '.join(extra)} ({time.perf_counter() - t0:.1f} s): "
               f"{json.dumps(line)}")
 
-    # 4e. where the time goes: a run under torch.profiler (here 4a; 4f's
+    # 4e. where the time goes: runs under torch.profiler (here 4a and 4b; 4f's
     # batched run below)
 
     def profiled(label: str, run) -> None:
@@ -1028,10 +1117,20 @@ def main() -> None:
         for base, (ms_, calls) in sorted(shares.items(), key=lambda kv: -kv[1][0]):
             print(f"  share {base}: {ms_:.1f} ms of {busy_ms:.1f} device ms = "
                   f"{ms_ / busy_ms:.3f} ({calls} launches)")
+        # the low-rank kernel's two products, one call of lowrank_matmul
+        pair = [shares[b] for b in ("lowrank_xp_kernel", "lowrank_tv_kernel") if b in shares]
+        if pair:
+            ms_ = sum(ms for ms, _ in pair)
+            print(f"  share lowrank_matmul (both kernels): {ms_:.1f} ms of {busy_ms:.1f} device ms "
+                  f"= {ms_ / busy_ms:.3f}")
 
     engine = PagedServingEngine(banks["fused"], bank_ecfg)
     profiled("4a", lambda: serve_batch(engine, cfg.vocab_size, len(prompts), MAX_NEW, SEED,
                                        tiers=tuple(range(len(BUDGETS))), prompts=prompts))
+    engine = PagedServingEngine(banks["bsr"], EngineConfig(max_slots=8, max_len=512,
+                                                           block_size=16))
+    profiled("4b", lambda: serve_batch(engine, cfg.vocab_size, len(bsr_prompts), MAX_NEW, SEED,
+                                       tiers=tuple(range(len(BUDGETS))), prompts=bsr_prompts))
 
     phase("4f")
     # 4f. multi-tenant adapters: the adapter bank in batched mode (one decode
@@ -1563,7 +1662,7 @@ def main() -> None:
                                "src/repro/kernels/slr_matmul.py:316"),
         "slr_matmul_multi": ("src/repro_torch/kernels/csrc/slr_matmul.cu",
                              "src/repro/kernels/slr_matmul.py:448"),
-        "lowrank_matmul": ("src/repro_torch/kernels/csrc/slr_matmul.cu",
+        "lowrank_matmul": ("src/repro_torch/kernels/csrc/lowrank_matmul.cu",
                            "src/repro/kernels/lowrank_matmul.py:55"),
         "bsr_matmul": ("src/repro_torch/kernels/csrc/bsr_matmul.cu",
                        "src/repro/kernels/bsr_matmul.py:158"),

@@ -33,8 +33,9 @@ NVCC_FLAGS = [
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: name -> argument types (every one returns cudaError_t as int)
 SIGNATURES = {
-    # x, counts, rows, vals, y, T, n, m, JB, MAXB, bs, bt, dtype, wdtype, stream
-    "bsr_matmul_launch": [_P] * 5 + [_I] * 9 + [_P],
+    # x, counts, rows, vals, y, T, n, m, JB, MAXB, bs, nseg, xrows, split, dtype, wdtype,
+    # stream
+    "bsr_matmul_launch": [_P] * 5 + [_I] * 11 + [_P],
     # pool, src, dst, n_pairs, n_layers, n_pages, page_bytes, stream
     "page_copy_launch": [_P] * 3 + [_I] * 3 + [_L, _P],
     # q, k, v, out, B, Hq, Hkv, T, S, D, causal, scale, dtype, stream
@@ -47,8 +48,9 @@ SIGNATURES = {
     "slr_matmul_multi_launch": [_P] * 8 + [_I] * 17 + [_P],
     # dtype, bs, bt, smem, out (int*): clusters of the fused body the card holds at once
     "slr_fused_resident": [_I] * 4 + [_P],
-    # x, p, vt, y, T, K, M, r, bt, dtype, wdtype, stream
-    "lowrank_matmul_launch": [_P] * 4 + [_I] * 7 + [_P],
+    # x, p, vt, ids, t, y, B, T, K, M, r, rp, layers, layer, N, nseg_p, nseg_v, xrows,
+    # split_p, split_v, dtype, wdtype, stream
+    "lowrank_matmul_launch": [_P] * 6 + [_I] * 16 + [_P],
     # x, p, vt, counts, rows, vals, t, y, T, K, M, r, rp, JB, MAXB, bs, bt, nseg, kseg,
     # dtype, wdtype, stream
     "slr_matmul_launch": [_P] * 8 + [_I] * 13 + [_P],

@@ -9,29 +9,35 @@ Dims that do not divide ``block_size`` are zero-padded at conversion, so the
 tables cover ``ceil(n/bs) x ceil(m/bs)`` tiles. This layout is the contract
 the fused SLR kernel (``slr_matmul.py``), this module's kernel and the bridge
 share. ``bsr_matmul`` runs the plain version for CPU tensors and the CUDA
-kernel ``csrc/bsr_matmul.cu`` for CUDA tensors.
+kernel ``csrc/bsr_matmul.cu`` (the stream kernel over each column block's
+live tiles, cut by ``bsr_plan``) for CUDA tensors.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import functools
 
 import numpy as np
 import torch
 
 from . import ref
 from ._build import check_cuda, check_int32, dtype_code, launch, table_dtype_code
+from .stream import StreamPlan, card_sms, segment_count
 
-__all__ = ["BsrMatrix", "bsr_from_dense", "bsr_to_dense", "bsr_matmul", "row_tile",
-           "BLOCK_SIZES", "MAX_ROW_TILE"]
+__all__ = ["BsrMatrix", "bsr_from_dense", "bsr_to_dense", "bsr_matmul", "bsr_plan",
+           "row_tile", "BLOCK_SIZES"]
 
 # block sizes the kernels are instantiated for: every size _fit_block produces
 BLOCK_SIZES = (8, 16, 32, 64, 128)
-MAX_ROW_TILE = 32   # rows of x per thread block (kMaxBT in the kernels)
 
 
 def row_tile(t_dim: int, dtype: torch.dtype, cap: int = 128) -> int:
-    """Decode-width row tile: T rounded up to the dtype's sublane tile, capped
-    at ``cap`` (a 4-row decode batch runs at 8 rows, not 128)."""
+    """The JAX kernels' decode-width row tile: T rounded up to the dtype's
+    sublane tile, capped at ``cap`` (a 4-row decode batch runs at 8 rows, not
+    128). The CUDA kernels take their rows per block from ``StreamPlan.cut``
+    and the fused plans; this is the TPU rule's counterpart, held against it
+    by the tests."""
     sub = {4: 8, 2: 16, 1: 32}.get(dtype.itemsize, 8)
     return min(cap, -(-t_dim // sub) * sub)
 
@@ -101,6 +107,27 @@ def bsr_to_dense(bsr: BsrMatrix) -> torch.Tensor:
     return dense.permute(0, 2, 1, 3).reshape(n_pad, jb * bs)[:n, :m]
 
 
+@functools.lru_cache(maxsize=4096)
+def bsr_plan(n: int, m: int, bs: int, maxb: int, x_size: int, w_size: int,
+             sms: int) -> StreamPlan:
+    """The launch plan of a block-CSC product over an (n, m) S of bs x bs
+    tiles with MAXB slots per column block, x of ``x_size`` bytes per value
+    and tiles of ``w_size``, on a card of ``sms`` SMs; never T.
+
+    Columns per block: 16 for bs < 32 (an mma tile is 16 columns), bs up to
+    64, two parts of 64 at bs = 128; stages of min(bs, 32) rows; segments:
+    the most (up to 8, a power of two) that a full column block's stages
+    (MAXB x bs / stage rows) fill. Raises where a block's shared memory would
+    exceed the card's 227 KB."""
+    if bs not in BLOCK_SIZES:
+        raise ValueError(f"bsr_matmul: block size {bs} not in {BLOCK_SIZES}")
+    bnb = 16 if bs < 32 else min(bs, 64)
+    ks = min(bs, 32)
+    plan = StreamPlan(bnb, ks, segment_count(maxb * bs // ks), -(-m // bs) * max(1, bs // bnb),
+                      x_size, w_size, maxb, sms)
+    return plan.check(f"bsr_matmul: n={n}, m={m}, bs={bs}, MAXB={maxb}")
+
+
 def bsr_matmul(x: torch.Tensor, bsr: BsrMatrix) -> torch.Tensor:
     """x (T, n) @ block-CSC S (n, m) -> y (T, m) in x.dtype; vals share x's
     dtype, or are float32 under bfloat16 x."""
@@ -126,15 +153,15 @@ def bsr_matmul(x: torch.Tensor, bsr: BsrMatrix) -> torch.Tensor:
     for arg, (got, want) in expect.items():
         if got != want:
             raise ValueError(f"{name}: {arg} has shape {got}, expected {want}")
-    if bs not in BLOCK_SIZES:
-        raise ValueError(f"{name}: block size {bs} not in {BLOCK_SIZES}")
+    plan = bsr_plan(n_dim, m_dim, bs, maxb, x.element_size(), bsr.vals.element_size(),
+                    card_sms(dev.index))
     y = torch.empty((t_dim, m_dim), dtype=x.dtype, device=dev)
     if t_dim == 0:
         return y
-    bt = row_tile(t_dim, x.dtype, cap=MAX_ROW_TILE)
+    xrows, split = plan.cut(t_dim)
     launch("bsr_matmul_launch", dev, x.data_ptr(), bsr.counts.data_ptr(),
            bsr.rows.data_ptr(), bsr.vals.data_ptr(), y.data_ptr(), t_dim, n_dim, m_dim,
-           jb, maxb, bs, bt, code, wcode)
+           jb, maxb, bs, plan.nseg, xrows, split, code, wcode)
     bsr_matmul.launches += 1
     return y
 

@@ -6,114 +6,66 @@
 // indices, vals (JB, MAXB, bs, bs) the tiles. x is (T, n), y (T, m); n and m
 // need not be multiples of bs (the tables cover the zero-padded matrix).
 //
-// Design. One thread block per (row tile of x, output column block j). The
-// Pallas grid walks (row tile, j, slot) and carries the (bt, bs) accumulator
-// across the slot axis in VMEM scratch; here the block loops over its
-// counts[j] live slots itself (padded slots are never read), gathering the
-// x columns rows[j, s] * bs .. + bs that each tile multiplies - the block's
-// own index load in place of the TPU's scalar prefetch - and writes its
-// (bt, bs) tile of y once. Every block-CSC size that deployment produces
-// (8..128) is its own template instance; ragged T, n and m are masked in the
-// loads and the store.
+// What bounds it on this card: at decode widths the bytes of the live tiles,
+// read once (salaad_llama_60m's gate S at T = 8: 688 tiles of 32 x 32 f32,
+// 2.8 MB, 0.9 us at 3.35 TB/s); at prefill widths the operations (T = 512:
+// 721 MFLOP, 4.4 us as 3xTF32 products at 495 / 3 TFLOP/s).
 //
-// Bound on this card: bytes at decode widths (each live tile is read once per
-// row tile), operations at prefill widths. Products run on the CUDA cores in
-// f32 from shared memory; no tensor cores (wgmma) and no TMA yet. x and y
-// have one type (TX), the tiles one dtype too (TW): equal, or bf16
-// activations over f32 tiles (a bf16 model deployed from an f32 SLR state).
-#include <stdint.h>
-
-#include "common.cuh"
+// Design: the stream kernel (stream_matmul.cuh) over each column block's
+// live tiles, a column block of bs = 128 cut into two parts of 64 columns.
+// What it does about the first design (one block per (row tile of at most 32
+// rows, column block), synchronous loads, f32 FMAs from shared memory, 88.7
+// us at the gate site, T = 512, and 35.4 us at T = 8 on an NVIDIA H100 80GB
+// HBM3 at 700 W):
+//   - decode widths: a column block's live tiles are cut into up to 8
+//     segments, one block each, summed in segment order through distributed
+//     shared memory (the gate site runs 344 blocks instead of 43);
+//   - the live tiles and the gathered x columns arrive through a 4-deep ring
+//     of 16-byte cp.async stages, three in flight while the tensor cores run
+//     on the fourth;
+//   - tensor-core products (3xTF32 for f32 tiles, one TF32 product for bf16
+//     x bf16, two for bf16 x over f32 tiles), the rows of x on the n side;
+//   - prefill widths: 64 rows of x per block, so each live tile is read from
+//     L2 once per 64 rows (was once per 32), and one block walks its column
+//     block's whole axis where the row tiles alone fill the card.
+// Measured (chip_smoke.py phase 3c, 20 calls replayed from a CUDA graph, on
+// an NVIDIA H100 80GB HBM3 at 700 W): gate S at T = 512 30.6 us (torch.matmul
+// on the dense S: 24.2), at T = 8 6.2 us (6.9), the q site's S (bs = 128) at
+// T = 8 5.7 us (6.2). At T = 512 neither bytes nor operations bound it: the
+// load path alone and the product path alone (per k8 step, fragment loads
+// and TF32 splits from shared memory) each take most of its time
+// (tools/stream_variants.py).
+// The segments (kernels/stream.py::bsr_plan) come from the table shape, so
+// rows are bit for bit independent of T. Instances: the three dtype pairs x
+// four (columns, stage rows) shapes: (16, 8) for bs = 8, (16, 16) for 16,
+// (32, 32) for 32, (64, 32) for 64 and 128.
+#include "stream_matmul.cuh"
 
 namespace salaad {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBT = 32;   // rows of x per block
-
-template <typename TX, typename TW, int BN>
-__global__ void __launch_bounds__(kThreads)
-bsr_matmul_kernel(const TX* __restrict__ x, const int* __restrict__ counts,
-                  const int* __restrict__ rows, const TW* __restrict__ vals,
-                  TX* __restrict__ y, int t_dim, int n_dim, int m_dim, int maxb, int bt) {
-  constexpr int KC = BN < 32 ? BN : 32;          // reduction chunk
-  constexpr int NACC = (kMaxBT * BN + kThreads - 1) / kThreads;
-  constexpr int ACC_RSTRIDE = kThreads / BN;     // rows between a thread's outputs
-
-  __shared__ float xs[kMaxBT][KC];
-  __shared__ float ws[KC][BN];
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * bt;
-  const int j = blockIdx.y;
-  const int col0 = j * BN;
-  const int n_rows = min(bt, t_dim - row0);
-  const int acc_c = tid % BN;
-  const int acc_r = tid / BN;
-
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-
-  const int cnt = min(counts[j], maxb);
-  for (int s = 0; s < cnt; ++s) {
-    const int rb = rows[(int64_t)j * maxb + s];
-    const TW* tile = vals + ((int64_t)j * maxb + s) * BN * BN;
-    for (int k0 = 0; k0 < BN; k0 += KC) {
-      const int kbase = rb * BN + k0;
-      for (int e = tid; e < kMaxBT * KC; e += kThreads) {
-        const int rr = e / KC, kk = e % KC;
-        xs[rr][kk] = (rr < n_rows && kbase + kk >= 0 && kbase + kk < n_dim)
-                         ? to_f32(x[(int64_t)(row0 + rr) * n_dim + kbase + kk]) : 0.f;
-      }
-      for (int e = tid; e < KC * BN; e += kThreads) {
-        const int kk = e / BN, cc = e % BN;
-        ws[kk][cc] = to_f32(tile[(k0 + kk) * BN + cc]);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        const float w = ws[kk][acc_c];
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) {
-          const int rr = acc_r + i * ACC_RSTRIDE;
-          if (rr < kMaxBT) acc[i] += xs[rr][kk] * w;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  if (col0 + acc_c < m_dim) {
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-      const int rr = acc_r + i * ACC_RSTRIDE;
-      if (rr < n_rows) y[(int64_t)(row0 + rr) * m_dim + col0 + acc_c] = from_f32<TX>(acc[i]);
-    }
-  }
+template <typename TX, typename TW, int BNB, int KS, int ROWS>
+__global__ void __launch_bounds__(stream::block_threads(BNB, ROWS), stream::min_blocks(BNB, ROWS))
+    bsr_matmul_kernel(const stream::Args a) {
+  stream::stream_body<TX, TW, TX, BNB, KS, ROWS>(a);
 }
 
-template <typename TX, typename TW, int BN>
-cudaError_t launch(const void* x, const int* counts, const int* rows, const void* vals,
-                   void* y, int t_dim, int n_dim, int m_dim, int jb, int maxb, int bt,
-                   cudaStream_t stream) {
-  dim3 grid((t_dim + bt - 1) / bt, jb);
-  bsr_matmul_kernel<TX, TW, BN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), counts, rows, static_cast<const TW*>(vals),
-      static_cast<TX*>(y), t_dim, n_dim, m_dim, maxb, bt);
-  return cudaGetLastError();
+template <typename TX, typename TW, int BNB, int KS>
+cudaError_t launch_bs(const stream::Args& a, cudaStream_t s) {
+  if (a.xrows == 8)
+    return stream::launch<TX, TW, BNB, KS, 8>(bsr_matmul_kernel<TX, TW, BNB, KS, 8>, a, s);
+  return stream::launch<TX, TW, BNB, KS, stream::kMaxRows>(
+      bsr_matmul_kernel<TX, TW, BNB, KS, stream::kMaxRows>, a, s);
 }
 
 template <typename TX, typename TW>
-cudaError_t dispatch_bs(int bs, const void* x, const int* counts, const int* rows,
-                        const void* vals, void* y, int t_dim, int n_dim, int m_dim, int jb,
-                        int maxb, int bt, cudaStream_t stream) {
-  switch (bs) {
-    case 8: return launch<TX, TW, 8>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
-    case 16: return launch<TX, TW, 16>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
-    case 32: return launch<TX, TW, 32>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
-    case 64: return launch<TX, TW, 64>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
-    case 128: return launch<TX, TW, 128>(x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb, maxb, bt, stream);
+cudaError_t dispatch_bs(const stream::Args& a, cudaStream_t s) {
+  switch (a.bs) {
+    case 8: return launch_bs<TX, TW, 16, 8>(a, s);
+    case 16: return launch_bs<TX, TW, 16, 16>(a, s);
+    case 32: return launch_bs<TX, TW, 32, 32>(a, s);
+    case 64:
+    case 128: return launch_bs<TX, TW, 64, 32>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -122,23 +74,24 @@ cudaError_t dispatch_bs(int bs, const void* x, const int* counts, const int* row
 }  // namespace salaad
 
 // x (T, n), counts (JB,), rows (JB, MAXB), vals (JB, MAXB, bs, bs), y (T, m);
-// x and y of dtype, vals of wdtype.
+// x and y of dtype, vals of wdtype (equal, or bf16 activations over f32
+// tiles); nseg segments per column block, xrows rows per block, split or
+// walk (kernels/stream.py::bsr_plan and its launch cut).
 extern "C" int bsr_matmul_launch(const void* x, const int* counts, const int* rows,
                                  const void* vals, void* y, int t_dim, int n_dim, int m_dim,
-                                 int jb, int maxb, int bs, int bt, int dtype, int wdtype,
-                                 void* stream) {
+                                 int jb, int maxb, int bs, int nseg, int xrows, int split,
+                                 int dtype, int wdtype, void* stream) {
   using namespace salaad;
-  if (bt < 1 || bt > kMaxBT || t_dim < 1 || jb < 1 || maxb < 1)
-    return cudaErrorInvalidValue;
+  if (maxb < 1 || jb != (m_dim + bs - 1) / bs) return cudaErrorInvalidValue;
+  stream::Args a{};
+  a.x = x, a.w = vals, a.counts = counts, a.rows = rows, a.y = y;
+  a.b_dim = 1, a.t_dim = t_dim, a.k_dim = n_dim, a.m_dim = m_dim, a.ldx = n_dim, a.ldy = m_dim;
+  a.layers = 1, a.n_tab = 1;
+  a.bs = bs, a.jb = jb, a.maxb = maxb, a.cs = bs > 64 ? bs / 64 : 1;
+  a.nseg = nseg, a.xrows = xrows, a.split = split;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32 && wdtype == kF32)
-    return dispatch_bs<float, float>(bs, x, counts, rows, vals, y, t_dim, n_dim, m_dim, jb,
-                                     maxb, bt, s);
-  if (dtype == kBF16 && wdtype == kBF16)
-    return dispatch_bs<__nv_bfloat16, __nv_bfloat16>(bs, x, counts, rows, vals, y, t_dim,
-                                                     n_dim, m_dim, jb, maxb, bt, s);
-  if (dtype == kBF16 && wdtype == kF32)
-    return dispatch_bs<__nv_bfloat16, float>(bs, x, counts, rows, vals, y, t_dim, n_dim,
-                                             m_dim, jb, maxb, bt, s);
+  if (dtype == kF32 && wdtype == kF32) return dispatch_bs<float, float>(a, s);
+  if (dtype == kBF16 && wdtype == kBF16) return dispatch_bs<__nv_bfloat16, __nv_bfloat16>(a, s);
+  if (dtype == kBF16 && wdtype == kF32) return dispatch_bs<__nv_bfloat16, float>(a, s);
   return cudaErrorInvalidValue;
 }

@@ -1,11 +1,11 @@
 // Fused SLR matmul for Hopper (sm_90a):  y = x @ P[l] @ Vt[l] + x @ S[l]
 //
-// Replaces four TPU kernels of repro/kernels/: slr_matmul_stacked_pallas and
-// slr_matmul_multi_pallas (slr_matmul.py; the stacked and per-slot entries,
-// both the fused body slr_fused_kernel below), slr_matmul_pallas
-// (slr_matmul.py; the unstacked entry) and lowrank_matmul_pallas
-// (lowrank_matmul.py; the low-rank body, also the per-slot entry's empty-S
-// corner). S[l] is row l of a block-CSC stack (counts (N, JB), rows (N, JB,
+// Replaces three TPU kernels of repro/kernels/slr_matmul.py:
+// slr_matmul_stacked_pallas and slr_matmul_multi_pallas (the stacked and
+// per-slot entries, both the fused body slr_fused_kernel below) and
+// slr_matmul_pallas (the unstacked entry). The per-slot entry's empty-S
+// corner is the low-rank kernel's per-slot form (lowrank_matmul.cu).
+// S[l] is row l of a block-CSC stack (counts (N, JB), rows (N, JB,
 // MAXB), vals (N, JB, MAXB, bs, bs)), the layout built by
 // kernels/bsr_matmul.py; the leading axis is a layer axis (L) or, for pooled
 // adapter tables, an (adapter, layer) axis of A * L rows.
@@ -80,14 +80,9 @@
 // misaligned rows are staged element by element. A per-slot table row
 // outside [0, n_tab) writes NaN rows instead of reading past the pool.
 //
-// The low-rank body (lowrank_tile: lowrank_matmul and the per-slot entry's
-// empty-S corner, which must stay equal bit for bit) is the first design:
-// one block per (slot, row tile of 32 or fewer rows, column block of 64),
-// x @ P recomputed per column block, f32 products from shared memory.
-//
 // x and y have one type (TX) and the tables another (TW): the stacked and
-// per-slot entries take one dtype for both, the unstacked and low-rank
-// entries also bf16 activations over f32 tables (a bf16 model deployed from
+// per-slot entries take one dtype for both, the unstacked entry also bf16
+// activations over f32 tables (a bf16 model deployed from
 // an f32 SLR state, as the hybrid's shared block is), each read into f32.
 //
 // The unstacked entry (slr_matmul_launch; one (K, M) weight, the shared
@@ -129,164 +124,6 @@ namespace salaad {
 namespace {
 
 namespace cg = cooperative_groups;
-
-constexpr int kThreads = 256;
-constexpr int kMaxBT = 32;   // rows of x per block of the low-rank body
-constexpr int kRC = 128;     // rank chunk held in shared memory
-constexpr int kLowRankBN = 64;
-
-// The low-rank body: rows row0 .. row0 + n_rows - 1 of x against one table
-// row (the pointers arrive offset to it), output column block blockIdx.y.
-template <typename TX, typename TW, int BN>
-__device__ __forceinline__ void lowrank_tile(const TX* __restrict__ x, const TW* __restrict__ p,
-                                             const TW* __restrict__ vt, TX* __restrict__ y,
-                                             int k_dim, int m_dim, int r, int row0,
-                                             int n_rows) {
-  constexpr int KC = BN < 32 ? BN : 32;          // reduction chunk
-  constexpr int NACC = (kMaxBT * BN + kThreads - 1) / kThreads;
-  constexpr int NT = kMaxBT * kRC / kThreads;
-  constexpr int ACC_RSTRIDE = kThreads / BN;     // rows between a thread's outputs
-  constexpr int T_RSTRIDE = kThreads / kRC;
-
-  __shared__ float xs[kMaxBT][KC];
-  __shared__ float ws[KC][kRC > BN ? kRC : BN];
-  __shared__ float ts[kMaxBT][kRC];
-
-  const int tid = threadIdx.x;
-  const int j = blockIdx.y;
-  const int col0 = j * BN;
-
-  const int acc_c = tid % BN;
-  const int acc_r = tid / BN;
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-
-  // acc = (x_tile @ P) @ Vt[:, j-block], rank-chunked
-  const int t_c = tid % kRC;
-  const int t_r = tid / kRC;
-  for (int rc0 = 0; rc0 < r; rc0 += kRC) {
-    const int rcw = min(kRC, r - rc0);
-    float tacc[NT];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) tacc[i] = 0.f;
-    for (int k0 = 0; k0 < k_dim; k0 += KC) {
-      for (int e = tid; e < kMaxBT * KC; e += kThreads) {
-        const int rr = e / KC, kk = e % KC;
-        xs[rr][kk] = (rr < n_rows && k0 + kk < k_dim)
-                         ? to_f32(x[(int64_t)(row0 + rr) * k_dim + k0 + kk]) : 0.f;
-      }
-      for (int e = tid; e < KC * kRC; e += kThreads) {
-        const int kk = e / kRC, cc = e % kRC;
-        ws[kk][cc] = (k0 + kk < k_dim && cc < rcw)
-                         ? to_f32(p[(int64_t)(k0 + kk) * r + rc0 + cc]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        const float w = ws[kk][t_c];
-#pragma unroll
-        for (int i = 0; i < NT; ++i) tacc[i] += xs[t_r + i * T_RSTRIDE][kk] * w;
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < NT; ++i) ts[t_r + i * T_RSTRIDE][t_c] = tacc[i];
-    __syncthreads();
-    for (int q0 = 0; q0 < rcw; q0 += KC) {
-      for (int e = tid; e < KC * BN; e += kThreads) {
-        const int kk = e / BN, cc = e % BN;
-        ws[kk][cc] = (q0 + kk < rcw && col0 + cc < m_dim)
-                         ? to_f32(vt[(int64_t)(rc0 + q0 + kk) * m_dim + col0 + cc]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        const float w = ws[kk][acc_c];
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) {
-          const int rr = acc_r + i * ACC_RSTRIDE;
-          if (rr < kMaxBT) acc[i] += ts[rr][q0 + kk] * w;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // one write of the (bt, BN) tile
-  if (col0 + acc_c < m_dim) {
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-      const int rr = acc_r + i * ACC_RSTRIDE;
-      if (rr < n_rows)
-        y[(int64_t)(row0 + rr) * m_dim + col0 + acc_c] = from_f32<TX>(acc[i]);
-    }
-  }
-}
-
-// One table row for the whole grid: blockIdx.x is the row tile (the host
-// offsets the factors to the row).
-template <typename TX, typename TW, int BN>
-__global__ void __launch_bounds__(kThreads)
-lowrank_kernel(const TX* __restrict__ x, const TW* __restrict__ p, const TW* __restrict__ vt,
-               TX* __restrict__ y, int t_dim, int k_dim, int m_dim, int r, int bt) {
-  const int row0 = blockIdx.x * bt;
-  lowrank_tile<TX, TW, BN>(x, p, vt, y, k_dim, m_dim, r, row0, min(bt, t_dim - row0));
-}
-
-// Per-slot factor rows: blockIdx.x = slot * tiles + row tile of the slot; the
-// block reads its row ids[slot] * layers + layer on the device.
-template <typename TX, typename TW, int BN>
-__global__ void __launch_bounds__(kThreads)
-lowrank_multi_kernel(const TX* __restrict__ x, const TW* __restrict__ p,
-                     const TW* __restrict__ vt, const int* __restrict__ ids, TX* __restrict__ y,
-                     int t_dim, int k_dim, int m_dim, int r, int bt, int tiles, int layers,
-                     int layer, int n_tab) {
-  const int slot = blockIdx.x / tiles;
-  const int row0 = (blockIdx.x % tiles) * bt;
-  const int n_rows = min(bt, t_dim - row0);
-  x += (int64_t)slot * t_dim * k_dim;
-  y += (int64_t)slot * t_dim * m_dim;
-  const int64_t tab = (int64_t)ids[slot] * layers + layer;
-  if (tab < 0 || tab >= n_tab) {   // uniform over the block: no barrier is skipped
-    const int c = blockIdx.y * BN + threadIdx.x % BN;
-    if (c < m_dim) {
-      for (int rr = threadIdx.x / BN; rr < n_rows; rr += kThreads / BN)
-        y[(int64_t)(row0 + rr) * m_dim + c] = from_f32<TX>(__int_as_float(0x7fc00000));
-    }
-    return;
-  }
-  lowrank_tile<TX, TW, BN>(x, p + tab * k_dim * r, vt + tab * r * m_dim, y, k_dim, m_dim, r,
-                           row0, n_rows);
-}
-
-struct LowRankArgs {
-  const void* x;       // (B, T, K)
-  const void* p;       // (N, K, r), or one row's (K, r) without ids
-  const void* vt;      // (N, r, M)
-  const int* ids;      // (B,) slot -> table selector, or null (one row)
-  void* y;             // (B, T, M)
-  int b_dim, t_dim, k_dim, m_dim, r, bt, layers, layer, n_tab;
-};
-
-template <typename TX, typename TW>
-cudaError_t launch_lowrank(const LowRankArgs& a, cudaStream_t stream) {
-  if (a.bt < 1 || a.bt > kMaxBT || a.t_dim < 1 || a.b_dim < 1) return cudaErrorInvalidValue;
-  const int tiles = (a.t_dim + a.bt - 1) / a.bt;
-  dim3 grid(a.b_dim * tiles, (a.m_dim + kLowRankBN - 1) / kLowRankBN);
-  const TX* x = static_cast<const TX*>(a.x);
-  const TW* p = static_cast<const TW*>(a.p);
-  const TW* vt = static_cast<const TW*>(a.vt);
-  TX* y = static_cast<TX*>(a.y);
-  if (a.ids == nullptr)
-    lowrank_kernel<TX, TW, kLowRankBN><<<grid, kThreads, 0, stream>>>(
-        x, p, vt, y, a.t_dim, a.k_dim, a.m_dim, a.r, a.bt);
-  else
-    lowrank_multi_kernel<TX, TW, kLowRankBN><<<grid, kThreads, 0, stream>>>(
-        x, p, vt, a.ids, y, a.t_dim, a.k_dim, a.m_dim, a.r, a.bt, tiles, a.layers, a.layer,
-        a.n_tab);
-  return cudaGetLastError();
-}
 
 // ---- the fused body: the stacked and per-slot entries ----------------------
 
@@ -1260,27 +1097,19 @@ extern "C" int slr_matmul_stacked_launch(const void* x, const void* p, const voi
 }
 
 // Per slot: slot b of x (B, T, K) runs table row ids[b] * layers + layer of
-// p (N, K, r), vt (N, r, M) and, when counts is not null, of the block-CSC
-// stack counts (N, JB), rows (N, JB, MAXB), vals (N, JB, MAXB, bs, bs);
-// y (B, T, M); ids is read on the device. counts == null runs the low-rank
-// body (bt <= 32 rows per slot; bs and the plan ignored).
+// p (N, K, r), vt (N, r, M) and the block-CSC stack counts (N, JB), rows
+// (N, JB, MAXB), vals (N, JB, MAXB, bs, bs); y (B, T, M); ids is read on the
+// device.
 extern "C" int slr_matmul_multi_launch(const void* x, const void* p, const void* vt,
                                        const int* counts, const int* rows, const void* vals,
                                        const int* ids, void* y, int b_dim, int t_dim, int k_dim,
                                        int m_dim, int r, int layers, int layer, int n_tab,
                                        int jb, int maxb, int bs, int bt, int nseg, int kseg,
                                        int loops, int ypn, int dtype, void* stream) {
-  if (ids == nullptr || n_tab < 1 || layers < 1 || layer < 0 || layer >= layers ||
-      n_tab % layers)
+  if (ids == nullptr || counts == nullptr || n_tab < 1 || layers < 1 || layer < 0 ||
+      layer >= layers || n_tab % layers)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (counts == nullptr) {
-    const LowRankArgs l{x, p, vt, ids, y, b_dim, t_dim, k_dim, m_dim, r, bt, layers, layer,
-                        n_tab};
-    if (dtype == kF32) return launch_lowrank<float, float>(l, s);
-    if (dtype == kBF16) return launch_lowrank<__nv_bfloat16, __nv_bfloat16>(l, s);
-    return cudaErrorInvalidValue;
-  }
   FusedArgs f{};
   f.x = x, f.p = p, f.vt = vt, f.counts = counts, f.rows = rows, f.vals = vals, f.ids = ids;
   f.y = y;
@@ -1298,20 +1127,6 @@ extern "C" int slr_fused_resident(int dtype, int bs, int bt, int smem, int* out)
   if (dtype == kF32) return dispatch_fused_bs<float>(bs, bt, a, 0, 0, smem, out, nullptr);
   if (dtype == kBF16)
     return dispatch_fused_bs<__nv_bfloat16>(bs, bt, a, 0, 0, smem, out, nullptr);
-  return cudaErrorInvalidValue;
-}
-
-// y = x @ p @ vt with x (T, K), p (K, r), vt (r, M), y (T, M); x and y of
-// dtype, the factors of wdtype (equal, or bf16 activations over f32 tables).
-extern "C" int lowrank_matmul_launch(const void* x, const void* p, const void* vt, void* y,
-                                     int t_dim, int k_dim, int m_dim, int r, int bt,
-                                     int dtype, int wdtype, void* stream) {
-  const LowRankArgs a{x, p, vt, nullptr, y, 1, t_dim, k_dim, m_dim, r, bt, 1, 0, 1};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32 && wdtype == kF32) return launch_lowrank<float, float>(a, s);
-  if (dtype == kBF16 && wdtype == kBF16)
-    return launch_lowrank<__nv_bfloat16, __nv_bfloat16>(a, s);
-  if (dtype == kBF16 && wdtype == kF32) return launch_lowrank<__nv_bfloat16, float>(a, s);
   return cudaErrorInvalidValue;
 }
 

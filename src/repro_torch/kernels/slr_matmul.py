@@ -31,10 +31,11 @@ import torch
 
 from . import ref
 from ._build import check_cuda, check_int32, dtype_code, launch, library, table_dtype_code
-from .bsr_matmul import BLOCK_SIZES, MAX_ROW_TILE, BsrMatrix, row_tile
+from .bsr_matmul import BLOCK_SIZES, BsrMatrix, row_tile
+from .lowrank_matmul import lowrank_launch
 
 __all__ = ["BsrStack", "stack_bsr", "row_tile", "slr_matmul", "slr_matmul_stacked",
-           "slr_matmul_multi", "BLOCK_SIZES", "MAX_ROW_TILE", "FusedPlan", "fused_plan",
+           "slr_matmul_multi", "BLOCK_SIZES", "FusedPlan", "fused_plan",
            "fused_smem_bytes", "UnstackedPlan", "unstacked_plan", "unstacked_smem_bytes",
            "unstacked_segments", "unstacked_parts", "unstacked_stage_rows"]
 
@@ -399,7 +400,8 @@ def slr_matmul_multi(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
     """Per-slot fused SLR matmul: slot ``b`` of x (B, T, K) runs table row
     ``ids[b] * layers + layer`` of p (N, K, r), vt (N, r, M) and ``stack``
     (leading N) -> y (B, T, M) in x.dtype. ``stack=None`` runs the low-rank
-    body of the kernel (the empty-S corner). ``ids`` (B,) int32 stays on
+    kernel's per-slot form (the empty-S corner: each slot bit for bit what
+    ``lowrank_matmul`` gives on its row). ``ids`` (B,) int32 stays on
     the device: the kernel reads it, so no slot assignment costs a host sync.
     ``layers``/``layer`` select a layer inside pooled (adapter, layer) rows
     as launch scalars. The fused body gathers the rows of every slot that
@@ -450,17 +452,15 @@ def slr_matmul_multi(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
     if b_dim == 0 or t_dim == 0:
         return y
     if stack is None:
-        tab_ptrs = (None, None, None)
-        bt, nseg, kseg, loops, ypn = row_tile(t_dim, x.dtype, cap=MAX_ROW_TILE), 0, 0, 0, 0
-    else:
-        tab_ptrs = (stack.counts.data_ptr(), stack.rows.data_ptr(), stack.vals.data_ptr())
-        plan = fused_plan(k_dim, r, m_dim, bs, maxb, x.element_size(), b_dim * t_dim,
-                          card_residency(dev.index, x.dtype, bs),
-                          min(b_dim, n_tab // layers + 1))
-        bt, nseg, kseg, loops, ypn = plan.bt, plan.nseg, plan.kseg, plan.loops, plan.ypn
+        lowrank_launch(x, p, vt, y, ids, layers, layer)
+        slr_matmul_multi.launches += 1
+        return y
+    plan = fused_plan(k_dim, r, m_dim, bs, maxb, x.element_size(), b_dim * t_dim,
+                      card_residency(dev.index, x.dtype, bs), min(b_dim, n_tab // layers + 1))
     launch("slr_matmul_multi_launch", dev, x.data_ptr(), p.data_ptr(), vt.data_ptr(),
-           *tab_ptrs, ids.data_ptr(), y.data_ptr(), b_dim, t_dim, k_dim, m_dim, r, layers,
-           layer, n_tab, jb, maxb, bs, bt, nseg, kseg, loops, ypn, code)
+           stack.counts.data_ptr(), stack.rows.data_ptr(), stack.vals.data_ptr(),
+           ids.data_ptr(), y.data_ptr(), b_dim, t_dim, k_dim, m_dim, r, layers, layer, n_tab,
+           jb, maxb, bs, plan.bt, plan.nseg, plan.kseg, plan.loops, plan.ypn, code)
     slr_matmul_multi.launches += 1
     return y
 

@@ -359,6 +359,99 @@ def test_bsr_matmul_empty_s_launches_nothing(cuda):
     assert ops.launch_counts()["bsr_matmul"] == 0 and not bool(got.any())
 
 
+# (x, tables) dtypes of the block-CSC and low-rank kernels: one dtype, or
+# bf16 activations over f32 tables
+DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("bs,n,m", [(8, 40, 36), (16, 72, 50), (32, 100, 70), (64, 200, 130),
+                                    (128, 300, 260)])
+@pytest.mark.parametrize("t", [1, 8, 37])
+def test_bsr_matmul_bf16_over_f32_tiles(cuda, bs, n, m, t):
+    """bf16 activations over f32 tiles at every block size, ragged T, n and m
+    (a bf16 model deployed from an f32 SLR state)."""
+    rng = np.random.default_rng(bs + n + t)
+    mat = make_stack(rng, 1, n, m, bs, 0.6, cuda, torch.float32).at_layer(0)
+    x = torch.from_numpy(rng.standard_normal((t, n), dtype=np.float32)).to(cuda, torch.bfloat16)
+    assert_close(ops.bsr_matmul(x, mat), ref.bsr_matmul_ref(x, mat), torch.bfloat16)
+
+
+@pytest.mark.parametrize("xdt,wdt", DTYPE_PAIRS)
+@pytest.mark.parametrize("bs,n,m", [(8, 40, 36), (32, 512, 1376), (64, 200, 130),
+                                    (128, 512, 512)])
+def test_bsr_matmul_rows_ignore_t(cuda, xdt, wdt, bs, n, m):
+    """A row of y is bit for bit the same in a call of any T (decode rows of
+    8 and prefill rows of 64 per block, split or walked), and two calls agree
+    bit for bit."""
+    rng = np.random.default_rng(bs * 3 + n)
+    mat = make_stack(rng, 1, n, m, bs, 0.7, cuda, wdt).at_layer(0)
+    x = torch.from_numpy(rng.standard_normal((512, n), dtype=np.float32)).to(cuda, xdt)
+    full = ops.bsr_matmul(x, mat)
+    assert torch.equal(ops.bsr_matmul(x, mat), full)
+    for t in (1, 3, 8, 37, 100):
+        assert torch.equal(ops.bsr_matmul(x[:t].contiguous(), mat), full[:t])
+
+
+@pytest.mark.parametrize("xdt,wdt", DTYPE_PAIRS)
+@pytest.mark.parametrize("k,m,r", [(512, 1376, 128), (1376, 512, 128), (70, 90, 130), (40, 36, 5)])
+def test_lowrank_matmul_rows_ignore_t(cuda, xdt, wdt, k, m, r):
+    """Within tolerance of the plain version; a row of y is bit for bit the
+    same in a call of any T, and two calls agree bit for bit."""
+    rng = np.random.default_rng(k + r)
+    x = torch.from_numpy(rng.standard_normal((512, k), dtype=np.float32)).to(cuda, xdt)
+    p = torch.from_numpy(rng.standard_normal((k, r), dtype=np.float32) / 8).to(cuda, wdt)
+    vt = torch.from_numpy(rng.standard_normal((r, m), dtype=np.float32) / 8).to(cuda, wdt)
+    ops.reset_launch_counts()
+    full = ops.lowrank_matmul(x, p, vt)
+    assert ops.launch_counts()["lowrank_matmul"] == 1      # two kernels, one call counted
+    assert_close(full, ref.lowrank_matmul_ref(x, p, vt), xdt)
+    assert torch.equal(ops.lowrank_matmul(x, p, vt), full)
+    for t in (1, 3, 8, 37, 100):
+        assert torch.equal(ops.lowrank_matmul(x[:t].contiguous(), p, vt), full[:t])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 8, 37])
+def test_lowrank_multi_rows_ignore_b(cuda, dtype, t):
+    """The per-slot empty-S corner: slots 0..b-1 of an 8-slot call equal a
+    b-slot call, every slot equals lowrank_matmul on its table row, and two
+    calls agree, bit for bit."""
+    rng = np.random.default_rng(t)
+    layers, k, m, r = 2, 512, 1376, 128
+    x = torch.from_numpy(rng.standard_normal((8, t, k), dtype=np.float32)).to(cuda, dtype)
+    p = torch.from_numpy(rng.standard_normal((6, k, r), dtype=np.float32) / 8).to(cuda, dtype)
+    vt = torch.from_numpy(rng.standard_normal((6, r, m), dtype=np.float32) / 8).to(cuda, dtype)
+    ids = torch.tensor([2, 0, 1, 1, 0, 2, 2, 0], dtype=torch.int32, device=cuda)
+    full = ops.slr_matmul_multi(x, p, vt, None, ids, layers, 1)
+    assert torch.equal(ops.slr_matmul_multi(x, p, vt, None, ids, layers, 1), full)
+    for b in (1, 3):
+        got = ops.slr_matmul_multi(x[:b].contiguous(), p, vt, None, ids[:b].contiguous(),
+                                   layers, 1)
+        assert torch.equal(got, full[:b])
+    for b, i in enumerate(ids.tolist()):
+        row = i * layers + 1
+        assert torch.equal(full[b], ops.lowrank_matmul(x[b].contiguous(), p[row], vt[row]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lowrank_multi_outside_pool_writes_nan(cuda, dtype):
+    """A table row outside [0, N) (a negative id, or an id past the pool)
+    writes NaN rows for its slot and reads nothing past the pool; the other
+    slots keep their values."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((5, 9, 64), dtype=np.float32)).to(cuda, dtype)
+    p = torch.from_numpy(rng.standard_normal((4, 64, 12), dtype=np.float32)).to(cuda, dtype)
+    vt = torch.from_numpy(rng.standard_normal((4, 12, 40), dtype=np.float32)).to(cuda, dtype)
+    ids = torch.tensor([0, -1, 1, 2, 1], dtype=torch.int32, device=cuda)
+    got = ops.slr_matmul_multi(x, p, vt, None, ids, 2, 1)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[[1, 3]]).all())
+    for b, i in ((0, 0), (2, 1), (4, 1)):
+        assert torch.equal(got[b], ops.lowrank_matmul(x[b].contiguous(), p[i * 2 + 1],
+                                                      vt[i * 2 + 1]))
+
+
 @pytest.mark.parametrize("dtype,tail", [(torch.float32, 64), (torch.bfloat16, 64),
                                          (torch.int8, 64), (torch.float32, 1)])
 def test_page_copy_matches_plain(cuda, dtype, tail):

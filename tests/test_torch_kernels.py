@@ -17,8 +17,12 @@ from repro.kernels.bsr_matmul import bsr_from_dense as jax_bsr_from_dense
 from repro.kernels.bsr_matmul import bsr_to_dense as jax_bsr_to_dense
 from repro.kernels.slr_matmul import slr_matmul_pallas as jslr_matmul_pallas
 from repro.kernels.slr_matmul import stack_bsr as jax_stack_bsr
+from repro_torch.configs import get_arch
+from repro_torch.kernels import lowrank_matmul as lowrank_mod
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.bsr_matmul import bsr_from_dense, bsr_to_dense
+from repro_torch.kernels.bsr_matmul import bsr_from_dense, bsr_plan, bsr_to_dense
+from repro_torch.kernels.lowrank_matmul import lowrank_launch, lowrank_plan
+from repro_torch.kernels.stream import MAX_SMEM, stream_segments, stream_smem_bytes
 from repro_torch.kernels.slr_matmul import (FUSED_MAX_SMEM, fused_plan, fused_smem_bytes, row_tile,
                                            stack_bsr, unstacked_plan, unstacked_segments,
                                            unstacked_smem_bytes, unstacked_stage_rows)
@@ -493,3 +497,122 @@ def test_unstacked_plan_refuses_what_does_not_fit():
     with pytest.raises(ValueError, match="shared memory"):
         unstacked_plan(60000, 64, 128, 469, 4, 8)
     assert unstacked_plan(60000, 64, 128, 469, 4, 1).bt == 1
+
+
+# The stream kernel's plans (block-CSC and low-rank): every linear site of the
+# four salaad_llama_* configs and of zamba2_2p7b's shared block, at the block
+# size deployment gives it (128 halved until it divides both dims, floor 8).
+def _deployed_bs(n, m, bs=128):
+    while (n % bs or m % bs) and bs > 8:
+        bs //= 2
+    return bs
+
+
+def _sites():
+    out = set()
+    for arch in ("salaad_llama_60m", "salaad_llama_130m", "salaad_llama_350m",
+                 "salaad_llama_1b", "zamba2_2p7b"):
+        c = get_arch(arch)
+        attn, kv = c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim
+        for n, m in ((c.d_model, attn), (c.d_model, kv), (attn, c.d_model),
+                     (c.d_model, c.d_ff), (c.d_ff, c.d_model)):
+            out.add((n, m, _deployed_bs(n, m)))
+    return sorted(out)
+
+
+STREAM_SITES = _sites() + [(40, 36, 8), (64, 48, 16), (200, 130, 64), (70, 90, 32)]
+ITEMSIZES = [(4, 4), (2, 2), (2, 4)]     # (x, tables): f32, bf16, bf16 x over f32 tables
+
+
+@pytest.mark.parametrize("n,m,bs", STREAM_SITES)
+@pytest.mark.parametrize("x_size,w_size", ITEMSIZES)
+def test_stream_plans_fit_every_site(n, m, bs, x_size, w_size):
+    """Every cut of every plan (8 or 64 rows per block, split or walk) fits
+    the card's 227 KB of shared memory at full MAXB and full rank."""
+    maxb = -(-n // bs)
+    plans = [bsr_plan(n, m, bs, maxb, x_size, w_size, 132)]
+    for r in sorted({min(n, m), 128, 5}):
+        lp = lowrank_plan(n, r, m, x_size, w_size, 132)
+        plans += [lp.xp, lp.tv]
+        assert lp.rp % 4 == 0 and r <= lp.rp < r + 4
+    for pl in plans:
+        for xrows in (8, 64):
+            for split in (False, True):
+                assert pl.smem(xrows, split) <= MAX_SMEM
+        assert pl.smem(64, True) == stream_smem_bytes(pl.bnb, pl.ks, 64, pl.x_size, pl.w_size,
+                                                      pl.nseg > 1, pl.ncols)
+        assert pl.nseg in (1, 2, 4, 8) and pl.bnb in (16, 32, 64) and pl.ks % 8 == 0
+
+
+@pytest.mark.parametrize("n,m,bs", STREAM_SITES)
+@pytest.mark.parametrize("x_size,w_size", ITEMSIZES)
+def test_stream_plans_ignore_rows(n, m, bs, x_size, w_size, monkeypatch):
+    """The sums' partition (columns per block, stage rows, segments) comes
+    from the table's shape: the low-rank wrapper launches the same partition
+    for T in {1, 8, 37, 512} and B in {1, 8}, one table row or per slot;
+    only the rows per block (8 at T <= 8, else 64) and split or walk follow
+    the call, and every cut fits the shared memory."""
+    launched = []
+    monkeypatch.setattr(lowrank_mod, "launch", lambda name, dev, *args: launched.append(args))
+    monkeypatch.setattr(lowrank_mod, "card_sms", lambda device: 132)
+    maxb = -(-n // bs)
+    r = min(n, m, 128)
+    pl = bsr_plan(n, m, bs, maxb, x_size, w_size, 132)
+    dt = {2: torch.bfloat16, 4: torch.float32}
+    p, vt = torch.zeros((2, n, r), dtype=dt[w_size]), torch.zeros((2, r, m), dtype=dt[w_size])
+    cuts = {}
+    for t in (1, 8, 37, 512):
+        for b in (1, 8):
+            xrows, split = pl.cut(t, b)
+            assert xrows == (8 if t <= 8 else 64)
+            assert pl.smem(xrows, bool(split)) <= MAX_SMEM
+            x = torch.zeros((b, t, n), dtype=dt[x_size])
+            y = torch.empty((b, t, m), dtype=x.dtype)
+            if b == 1:
+                lowrank_launch(x, p[0], vt[0], y)
+            if x_size == w_size:
+                lowrank_launch(x, p, vt, y, torch.zeros(b, dtype=torch.int32), 2, 1)
+            cuts[(t, b)] = xrows, split
+    # (x, p, vt, ids, t, y, B, T, K, M, r, rp, layers, layer, N, nseg_p, nseg_v, xrows,
+    #  split_p, split_v, dtype, wdtype)
+    assert len({a[9:12] + a[15:17] for a in launched}) == 1
+    assert {a[17] for a in launched} == {8, 64}
+    assert len({xr for xr, _ in cuts.values()}) == 2
+
+
+@pytest.mark.parametrize("n,m,bs", STREAM_SITES)
+def test_bsr_segments_cover_each_stage_once(n, m, bs):
+    """Every stage of every column block is summed by exactly one segment,
+    in order, whatever the column block's count of live tiles; and the walk
+    (one block folding its chain into the running sum at each segment's
+    end, as the kernel's loop does) folds the same segments in the same
+    order as the cluster (one block per segment, partials summed in
+    segment order)."""
+    rng = np.random.default_rng(n + m)
+    maxb = -(-n // bs)
+    pl = bsr_plan(n, m, bs, maxb, 4, 4, 132)
+    for count in sorted({0, 1, maxb, *rng.integers(0, maxb + 1, 8).tolist()}):
+        n_st = count * (bs // pl.ks)
+        segs = stream_segments(n_st, pl.nseg)
+        assert len(segs) == pl.nseg
+        assert [i for seg in segs for i in seg] == list(range(n_st))
+        # the walk's folds: after stage i, fold each segment that ends at i + 1
+        folds, chain, sg = [], [], 0
+        seg_end = n_st // pl.nseg
+        while sg < pl.nseg and seg_end == 0:
+            folds.append(chain); chain = []; sg += 1; seg_end = n_st * (sg + 1) // pl.nseg
+        for i in range(n_st):
+            chain.append(i)
+            while sg < pl.nseg and seg_end == i + 1:
+                folds.append(chain); chain = []; sg += 1; seg_end = n_st * (sg + 1) // pl.nseg
+        assert folds == [list(seg) for seg in segs]
+
+
+def test_stream_plans_refuse_what_does_not_fit():
+    """A block-CSC table whose live-tile rows would not fit a block's shared
+    memory raises, as does a block size the kernel has no instance for."""
+    with pytest.raises(ValueError, match="shared memory"):
+        bsr_plan(8 * 60000, 64, 8, 60000, 4, 4, 132)
+    with pytest.raises(ValueError, match="block size"):
+        bsr_plan(96, 96, 24, 4, 4, 4, 132)
+    assert bsr_plan(8 * 4000, 64, 8, 4000, 4, 4, 132).nseg == 8

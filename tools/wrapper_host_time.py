@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Host time per call of the low-rank wrapper, with and without the
+allocation of its f32 ``t = x @ P`` buffer, on one card.
+
+    python3 tools/wrapper_host_time.py
+
+For salaad_llama_60m's gate (512 -> 1376) and q (512 -> 512) factors at
+r = 128 (random, seed 0), f32, T = 1 and 8, it times on the host clock
+(no synchronisation inside the loop; the card takes less time per call than
+the host, so no launch waits on the queue):
+  - ``lowrank_matmul``: the wrapper as a model layer calls it;
+  - ``lowrank_launch``: its launch path alone (plan, cut, ``t`` allocated,
+    the C entry), into a preallocated y;
+  - ``cached t``: the same launch path with one ``t`` reused for every call;
+  - ``torch.empty(t)``: the allocation alone;
+  - ``bsr_matmul`` on the gate S (bs 32, every tile live), for scale.
+It holds the cached-t output bit for bit against the wrapper's and prints
+the median of 5 repeats of 400 calls per form, in microseconds, then the
+card's name and power limit.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.kernels._build import dtype_code, launch  # noqa: E402
+from repro_torch.kernels.bsr_matmul import bsr_from_dense, bsr_matmul  # noqa: E402
+from repro_torch.kernels.lowrank_matmul import (lowrank_launch, lowrank_matmul,  # noqa: E402
+                                                lowrank_plan)
+from repro_torch.kernels.stream import card_sms  # noqa: E402
+
+
+def host_us(fn, calls=400, repeats=5):
+    """Median host time per call, in microseconds."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return round(statistics.median(times), 2)
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("wrapper_host_time: needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    for site, (k, m) in (("gate", (512, 1376)), ("q", (512, 512))):
+        r = 128
+        p, vt = rand(k, r) / 8, rand(r, m) / 8
+        plan = lowrank_plan(k, r, m, 4, 4, card_sms(dev.index or 0))
+        for t_dim in (1, 8):
+            x = rand(t_dim, k)
+            x3 = x[None]
+            y = torch.empty((t_dim, m), device=dev)
+            t_cached = torch.empty((t_dim, plan.rp), dtype=torch.float32, device=dev)
+
+            def cached():
+                xrows, split_p = plan.xp.cut(t_dim, 1)
+                _, split_v = plan.tv.cut(t_dim, 1)
+                launch("lowrank_matmul_launch", dev, x.data_ptr(), p.data_ptr(), vt.data_ptr(),
+                       None, t_cached.data_ptr(), y.data_ptr(), 1, t_dim, k, m, r, plan.rp, 1,
+                       0, 1, plan.xp.nseg, plan.tv.nseg, xrows, split_p, split_v,
+                       dtype_code(x.dtype), dtype_code(p.dtype))
+
+            want = lowrank_matmul(x, p, vt)
+            cached()
+            torch.cuda.synchronize()
+            if not torch.equal(y, want):
+                sys.exit(f"wrapper_host_time: cached t changed the output ({site}, T={t_dim})")
+            row = {
+                "lowrank_matmul": host_us(lambda: lowrank_matmul(x, p, vt)),
+                "lowrank_launch": host_us(lambda: lowrank_launch(x3, p, vt, y)),
+                "cached t": host_us(cached),
+                "torch.empty(t)": host_us(lambda: torch.empty(
+                    (t_dim, plan.rp), dtype=torch.float32, device=dev)),
+            }
+            print(f"lowrank {site} K={k} r={r} M={m} T={t_dim}, host us per call: "
+                  f"{json.dumps(row)}")
+
+    n, m, bs = 512, 1376, 32
+    mat = bsr_from_dense(rng.standard_normal((n, m)).astype(np.float32), bs, device=dev)
+    for t_dim in (1, 8):
+        x = rand(t_dim, n)
+        print(f"bsr gate n={n} m={m} bs={bs} T={t_dim}, host us per call: "
+              f"{json.dumps({'bsr_matmul': host_us(lambda: bsr_matmul(x, mat))})}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()
