@@ -32,9 +32,17 @@ error:
    peak of the kernel's route, whichever is larger, for this run's data:
    f32 at 67 TFLOP/s, 3xTF32 (the fused SLR body, flash attention in f32)
    at 495 / 3 TFLOP/s, bf16 at 989 TFLOP/s);
+   3d/3e also hold paged decode and k-query bit for bit across two calls,
+   each slot alone (B = 1) against its rows in the batch of 8, and with the
+   other slots' lengths changed, f32 and bf16, kq = 1, 21, 64 and 70, at the
+   engine's table and at a table of 2048 positions (decode in eight
+   segments), and time both kernels in f32 and bf16 on the device alone
+   beside SDPA on the gathered KV and beside the gather with SDPA, each
+   target printed met or missed;
    3f also holds flash attention at head dims 80 (Zamba2) and 128, f32 and
    bf16, and times the main shape in bf16 and on the device alone beside
-   SDPA;
+   SDPA; 3g and 3i also time page copy and soft-threshold on the device
+   alone beside their library calls;
    3i holds the ADMM S-update's soft_threshold at the embedding and
    layer-stack shapes with NaN, +-inf, a zero and an above-max threshold;
    3j holds the unstacked fused SLR kernel (the hybrid's shared block) at
@@ -570,6 +578,15 @@ def main() -> None:
     keys = np.minimum(lengths_np + 1, seq)
     dec_mask = (pos[None, :] <= lengths[:, None])[:, None, None, :]
     q4 = q[:, :, None]
+
+    def paged_bound(itemsize, n_q, n_keys, n_pairs, n_pages_read):
+        """q and out once, each visible K/V row once, the lengths and the
+        table entries read; 4 D flops per (query row, visible key) pair, at
+        the route's rate (3xTF32 for f32, bf16 on the tensor cores)."""
+        return bound_ms(itemsize * (2 * n_q * d + 2 * hkv * d * n_keys)
+                        + 4 * (slots + n_pages_read), 4 * hq * d * n_pairs,
+                        PEAK_3XTF32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS)
+
     results["paged_attention"] = dict(
         shape=f"decode tick: {slots} slots, {hq} heads, head_dim {d}, pages of {pbs}, "
               f"lengths {int(lengths_np.min())}-{int(lengths_np.max())}",
@@ -578,9 +595,8 @@ def main() -> None:
         plain_ms=time_ms(torch, lambda: ref.paged_attention_ref(q, kp, vp, table, lengths)),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k_g, v_g, attn_mask=dec_mask)),
-        bound=bound_ms(4 * (2 * slots * hq * d + 2 * hkv * d * int(keys.sum()) + slots * 4
-                            + int(np.ceil(keys / pbs).sum())),
-                       4 * hq * d * int(keys.sum())),
+        bound=paged_bound(4, slots * hq, int(keys.sum()), int(keys.sum()),
+                          int(np.ceil(keys / pbs).sum())),
     )
 
     kq = 64
@@ -598,7 +614,7 @@ def main() -> None:
         q_rag, kp, vp, table[:3], lengths_kq[:3]), torch.float32))
     lk = lengths_kq.cpu().numpy().astype(np.int64)
     pairs = int(sum(np.minimum(lk[b] + np.arange(kq) + 1, seq).sum() for b in range(slots)))
-    kq_keys = int(np.minimum(lk + kq, seq).sum())
+    kq_keys = np.minimum(lk + kq, seq)
     kq_mask = (pos[None, None, :] <= (lengths_kq[:, None] + torch.arange(kq, device=dev))[
         :, :, None])[:, None]
     results["paged_attention_kquery"] = dict(
@@ -609,10 +625,136 @@ def main() -> None:
             qk, kp, vp, table, lengths_kq)),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qk, k_g, v_g, attn_mask=kq_mask)),
-        bound=bound_ms(4 * (2 * slots * hq * kq * d + 2 * hkv * d * kq_keys + slots * 4
-                            + int(np.ceil(np.minimum(lk + kq, seq) / pbs).sum())),
-                       4 * hq * d * pairs),
+        bound=paged_bound(4, slots * hq * kq, int(kq_keys.sum()), pairs,
+                          int(np.ceil(kq_keys / pbs).sum())),
     )
+
+    # device alone (20 calls replayed from one CUDA graph), f32 and bf16: each
+    # kernel beside SDPA on K/V gathered beforehand and SDPA with the page
+    # gather (the engine's path without the kernel); each target met or missed
+    def gathered(pages):
+        return pages[table.long()].permute(0, 2, 1, 3, 4).reshape(slots, hkv, seq, d)
+
+    paged_rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        kp_, vp_ = kp.to(dt), vp.to(dt)
+        kg_, vg_ = gathered(kp_), gathered(vp_)
+        size = torch.empty((), dtype=dt).element_size()
+        for name, q_, lens_, mask_, bnd in (
+                ("paged_attention", q.to(dt), lengths, dec_mask, paged_bound(
+                    size, slots * hq, int(keys.sum()), int(keys.sum()),
+                    int(np.ceil(keys / pbs).sum()))),
+                ("paged_attention_kquery", qk.to(dt), lengths_kq, kq_mask, paged_bound(
+                    size, slots * hq * kq, int(kq_keys.sum()), pairs,
+                    int(np.ceil(kq_keys / pbs).sum())))):
+            q4_ = q_[:, :, None] if q_.dim() == 3 else q_
+            call = lambda name=name, q_=q_, kp_=kp_, vp_=vp_, lens_=lens_: (  # noqa: E731
+                getattr(ops, name)(q_, kp_, vp_, table, lens_))
+            paged_rows[(name, str(dt)[6:])] = dict(
+                ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
+                sdpa_ms=time_ms(torch, lambda q4_=q4_, kg_=kg_, vg_=vg_, mask_=mask_:
+                                F.scaled_dot_product_attention(q4_, kg_, vg_, attn_mask=mask_)),
+                sdpa_graph_ms=graph_ms(torch, lambda q4_=q4_, kg_=kg_, vg_=vg_, mask_=mask_:
+                                       F.scaled_dot_product_attention(q4_, kg_, vg_,
+                                                                      attn_mask=mask_)),
+                gather_sdpa_graph_ms=graph_ms(
+                    torch, lambda q4_=q4_, kp_=kp_, vp_=vp_, mask_=mask_:
+                    F.scaled_dot_product_attention(q4_, gathered(kp_), gathered(vp_),
+                                                   attn_mask=mask_)),
+                bound=bnd)
+    for (name, dt), r_ in paged_rows.items():
+        target = r_["sdpa_graph_ms"]
+        also = ""
+        if dt == "float32":
+            cap = 0.010 if name == "paged_attention" else 4 * r_["bound"][0]
+            target, also = min(target, cap), f" and {cap:.4f} ms"
+        print(f"  time {name} [{dt}]: kernel {r_['ms']:.4f} ms (device alone "
+              f"{r_['graph_ms']:.4f}), SDPA on gathered KV {r_['sdpa_ms']:.4f} ms (device alone "
+              f"{r_['sdpa_graph_ms']:.4f}), gather + SDPA device alone "
+              f"{r_['gather_sdpa_graph_ms']:.4f} ms, bound {r_['bound'][0]:.4f} ms "
+              f"({r_['bound'][1]}); target: device alone <= SDPA's{also}: "
+              f"{'met' if r_['graph_ms'] <= target else 'missed'}")
+
+    # bit for bit: two calls agree; each slot alone (B = 1) equals its rows in
+    # the batch of 8, and so do its rows with the other slots' lengths
+    # changed; at 3d/3e's table and at a long one (128 pages, 2048 positions:
+    # decode in eight segments of 256); inputs from a generator of their own,
+    # so later phases draw as before
+    pg_rng = np.random.default_rng(SEED + 3)
+    long_nb = 128
+    long_kp = torch.from_numpy(pg_rng.standard_normal((slots * long_nb, hkv, pbs, d),
+                                                      dtype=np.float32)).to(dev)
+    long_vp = torch.from_numpy(pg_rng.standard_normal((slots * long_nb, hkv, pbs, d),
+                                                      dtype=np.float32)).to(dev)
+    long_table = torch.from_numpy(pg_rng.permutation(slots * long_nb).reshape(
+        slots, long_nb).astype(np.int32)).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        for tab_, kp_, vp_ in ((table, kp, vp), (long_table, long_kp, long_vp)):
+            kp_, vp_ = kp_.to(dt), vp_.to(dt)
+            n_pos = tab_.shape[1] * pbs
+            for kq_ in (1, 21, 64, 70):
+                top = n_pos - kq_
+                lens_np = pg_rng.integers(0, top + 1, slots).astype(np.int32)
+                lens_np[:3] = (0, pbs - 1, top)
+                q_ = torch.from_numpy(pg_rng.standard_normal(
+                    (slots, hq, kq_, d), dtype=np.float32)).to(dev, dt)
+                what = (f"paged_attention{'' if kq_ == 1 else '_kquery'} [{str(dt)[6:]}] "
+                        f"table of {n_pos} kq={kq_}")
+
+                def call(q_, lens_np, tab_=tab_, kp_=kp_, vp_=vp_, kq_=kq_):
+                    lens_ = torch.from_numpy(np.ascontiguousarray(lens_np)).to(dev)
+                    if kq_ == 1:
+                        return ops.paged_attention(q_[:, :, 0].contiguous(), kp_, vp_,
+                                                   tab_.contiguous(), lens_)
+                    return ops.paged_attention_kquery(q_.contiguous(), kp_, vp_,
+                                                      tab_.contiguous(), lens_)
+
+                y = call(q_, lens_np)
+                if n_pos > seq or kq_ == 70:
+                    err = check(what, y, ref.paged_attention_kquery_ref(
+                        q_, kp_, vp_, tab_, torch.from_numpy(lens_np).to(dev)).reshape(y.shape),
+                        dt)
+                    if dt == torch.float32:
+                        if kq_ == 1:
+                            pa_err = max(pa_err, err)
+                        else:
+                            kq_err = max(kq_err, err)
+                if not torch.equal(call(q_, lens_np), y):
+                    fail(f"{what}: two calls on the same inputs differ")
+                other = pg_rng.integers(0, top + 1, slots).astype(np.int32)
+                for i in range(slots):
+                    moved = other.copy()
+                    moved[i] = lens_np[i]
+                    if not torch.equal(call(q_[i:i + 1], lens_np[i:i + 1], tab_=tab_[i:i + 1]),
+                                       y[i:i + 1]):
+                        fail(f"{what}: slot {i} alone differs from its rows in the batch")
+                    if not torch.equal(call(q_, moved)[i], y[i]):
+                        fail(f"{what}: slot {i} differs when the other slots' lengths change")
+    print("  check paged_attention, paged_attention_kquery: two calls agree, each slot alone "
+          "equals its rows in the batch of 8, also with the other slots' lengths changed, bit "
+          "for bit, f32 and bf16, kq in (1, 21, 64, 70), tables of 512 and 2048 positions")
+    results["paged_attention"]["max_abs_err"] = pa_err
+    results["paged_attention_kquery"]["max_abs_err"] = kq_err
+    long_lens = torch.from_numpy(pg_rng.integers(300, 1980, slots).astype(np.int32)).to(dev)
+    long_q = torch.from_numpy(pg_rng.standard_normal((slots, hq, kq, d),
+                                                     dtype=np.float32)).to(dev)
+    long_pos = torch.arange(long_nb * pbs, device=dev)
+    long_g = [p_[long_table.long()].permute(0, 2, 1, 3, 4).reshape(slots, hkv, -1, d)
+              for p_ in (long_kp, long_vp)]
+    for name, q_, width in (("paged_attention", long_q[:, :, 0].contiguous(), 1),
+                            ("paged_attention_kquery", long_q, kq)):
+        lens_ = torch.clamp(long_lens, max=long_nb * pbs - width)
+        mask_ = (long_pos[None, None, :] <= (lens_[:, None] + torch.arange(width, device=dev))[
+            :, :, None])[:, None]
+        q4_ = q_[:, :, None] if width == 1 else q_
+        kernel_ms = graph_ms(torch, lambda: getattr(ops, name)(q_, long_kp, long_vp, long_table,
+                                                              lens_))
+        sdpa_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(q4_, *long_g,
+                                                                         attn_mask=mask_))
+        print(f"  device-only {name} (table of {long_nb * pbs} positions, lengths "
+              f"{int(lens_.min())}-{int(lens_.max())}, f32): kernel {kernel_ms:.4f} ms, SDPA on "
+              f"gathered KV {sdpa_ms:.4f} ms per call (CUDA graph of 20 calls)")
+    del long_kp, long_vp, long_g
 
     # 3f. flash attention at one-shot prefill shapes: 8 rows, 8 heads, head_dim
     # 64, causal, T = S = a prompt bucket; GQA, non-causal, T != S, bf16; then
@@ -704,6 +846,11 @@ def main() -> None:
             (slice(None), dst8.long()), pool[:, src8.long()])),
         bound=bound_ms(2 * 8 * cfg.num_layers * page_bytes + 2 * 8 * 4, 0),
     )
+    kernel_ms = graph_ms(torch, lambda: ops.page_copy(pool, src8, dst8))
+    library_ms = graph_ms(torch, lambda: pool.__setitem__((slice(None), dst8.long()),
+                                                          pool[:, src8.long()]))
+    print(f"  device-only page_copy (same pairs): kernel {kernel_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms per call (CUDA graph of 20 calls)")
     # 3h. per-slot SLR matmul over every site's pooled tables (3 rows of
     # (adapter, layer) tables): 8 slots with repeated and permuted pool rows,
     # T = 1, 8, 37, 64 per slot, f32 and bf16, the r = 0 and empty-S corners,
@@ -892,12 +1039,17 @@ def main() -> None:
             ms=time_ms(torch, lambda: ops.soft_threshold(x, tau)),
             plain_ms=time_ms(torch, lambda: ref.soft_threshold_ref(x, tau)),
             library_ms=time_ms(torch, lambda: F.softshrink(x, lam)),
+            graph_ms=graph_ms(torch, lambda: ops.soft_threshold(x, tau)),
+            library_graph_ms=graph_ms(torch, lambda: F.softshrink(x, lam)),
             bound=bound_ms(2 * 4 * x.numel() + 4 * shape[0], 0))
     results["soft_threshold"] = soft_rows[(1, 32000, 512)]
     r_ = soft_rows[(8, 512, 1376)]
     print(f"  time soft_threshold ({r_['shape']}): kernel {r_['ms']:.4f} ms, plain "
           f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']:.4f} ms (F.softshrink, one "
           f"scalar tau), bound {r_['bound'][0]:.4f} ms ({r_['bound'][1]})")
+    for r_ in soft_rows.values():
+        print(f"  device-only soft_threshold ({r_['shape']}): kernel {r_['graph_ms']:.4f} ms, "
+              f"F.softshrink {r_['library_graph_ms']:.4f} ms per call (CUDA graph of 20 calls)")
 
     phase("3j")
     # 3j. the unstacked fused SLR kernel (the hybrid's shared block) at

@@ -54,10 +54,10 @@ SIGNATURES = {
     # x, p, vt, counts, rows, vals, t, y, T, K, M, r, rp, JB, MAXB, bs, bt, nseg, kseg,
     # dtype, wdtype, stream
     "slr_matmul_launch": [_P] * 8 + [_I] * 13 + [_P],
-    # q, k, v, table, lengths, out, B, Hq, Hkv, D, N, bs, nb, dtype, stream
-    "paged_attention_launch": [_P] * 6 + [_I] * 8 + [_P],
-    # q, k, v, table, lengths, out, B, Hq, Hkv, kq, D, N, bs, nb, dtype, stream
-    "paged_attention_kquery_launch": [_P] * 6 + [_I] * 9 + [_P],
+    # q, k, v, table, lengths, out, B, Hq, Hkv, D, N, bs, nb, seg_keys, dtype, stream
+    "paged_attention_launch": [_P] * 6 + [_I] * 9 + [_P],
+    # q, k, v, table, lengths, out, B, Hq, Hkv, kq, D, N, bs, nb, seg_keys, dtype, stream
+    "paged_attention_kquery_launch": [_P] * 6 + [_I] * 10 + [_P],
     # x, tau, out, nb, per, dtype, stream
     "soft_threshold_launch": [_P] * 3 + [_I, _L, _I, _P],
 }

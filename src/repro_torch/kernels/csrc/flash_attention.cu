@@ -10,7 +10,9 @@
 // What bounds it on this card: operations at the prefill widths the engine
 // runs (T = S = 16..512, D = 64 or 80): every (query, visible key) pair costs
 // 4 D flops against 2 D bytes read per key per tile. The design is
-// FlashAttention-2 on the tensor cores with mma.sync:
+// FlashAttention-2 on the tensor cores with mma.sync (the warp tile -
+// products and online softmax - is attention_tile.cuh, shared with paged
+// attention):
 //   - one block of 4 warps per (batch x q head, tile of 64 query rows), each
 //     warp owning 16 rows; the block walks the KV sequence in chunks of 64
 //     keys (32 at D > 128), so nothing crosses blocks (the Pallas grid
@@ -42,7 +44,7 @@
 
 #include <cmath>
 
-#include "common.cuh"
+#include "attention_tile.cuh"
 
 namespace salaad {
 namespace {
@@ -50,41 +52,13 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;   // query rows per block
-constexpr float kLog2e = 1.4426950408889634f;
 
 // keys per chunk of head-dim bucket dp
 __host__ __device__ constexpr int chunk_keys(int dp) { return dp > 128 ? 32 : 64; }
-// row stride of the staged tiles, in elements: 4 words mod 32 (f32) or 4
-// words mod 8 (bf16, 2 elements a word), so the fragment loads of a warp hit
-// distinct banks; a multiple of 16 bytes for cp.async
-template <typename T>
-__host__ __device__ constexpr int row_stride(int dp) { return sizeof(T) == 4 ? dp + 4 : dp + 8; }
 // Q tile, then two slots of (K chunk, V chunk)
 template <typename T>
 __host__ __device__ constexpr int flash_smem(int dp) {
   return (int)sizeof(T) * row_stride<T>(dp) * (kRows + 4 * chunk_keys(dp));
-}
-
-// d += a b on the tensor cores: one m16n8k16 bf16 product, f32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two bf16 in one register, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // dst (n, dp), row stride LD, from src rows of d elements: rows >= valid and
@@ -105,97 +79,6 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int n, int valid, in
     for (int e = threadIdx.x; e < n * dp; e += kThreads) {
       const int i = e / dp, c = e % dp;
       dst[i * LD + c] = i < valid && c < d ? src[(int64_t)i * d + c] : from_f32<T>(0.f);
-    }
-  }
-}
-
-// s (16 rows of the warp x BC keys) = Q_w K^T, 3xTF32
-template <int DP, int BC, int LD>
-__device__ __forceinline__ void qk(const float* qw, const float* ks, float (&s)[BC / 8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int k8 = 0; k8 < DP / 8; ++k8) {
-    const float* qa = qw + g * LD + k8 * 8 + q;
-    uint32_t ah[4], al[4];
-    split_tf32_fast(qa[0], ah[0], al[0]);
-    split_tf32_fast(qa[8 * LD], ah[1], al[1]);
-    split_tf32_fast(qa[4], ah[2], al[2]);
-    split_tf32_fast(qa[8 * LD + 4], ah[3], al[3]);
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j) {
-      const float* kb = ks + (j * 8 + g) * LD + k8 * 8 + q;
-      uint32_t bh[2], bl[2];
-      split_tf32_fast(kb[0], bh[0], bl[0]);
-      split_tf32_fast(kb[4], bh[1], bl[1]);
-      mma_tf32(s[j], al, bh);
-      mma_tf32(s[j], ah, bl);
-      mma_tf32(s[j], ah, bh);
-    }
-  }
-}
-
-// s = Q_w K^T, bf16
-template <int DP, int BC, int LD>
-__device__ __forceinline__ void qk(const __nv_bfloat16* qw, const __nv_bfloat16* ks,
-                                   float (&s)[BC / 8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int k16 = 0; k16 < DP / 16; ++k16) {
-    const __nv_bfloat16* qa = qw + g * LD + k16 * 16 + 2 * q;
-    const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LD), ld32(qa + 8), ld32(qa + 8 * LD + 8)};
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j) {
-      const __nv_bfloat16* kb = ks + (j * 8 + g) * LD + k16 * 16 + 2 * q;
-      const uint32_t b[2] = {ld32(kb), ld32(kb + 8)};
-      mma_bf16(s[j], a, b);
-    }
-  }
-}
-
-// o (16 rows x DP) += P V, 3xTF32. P's accumulator fragment p[kk] holds
-// keys 2q and 2q + 1 of the 8: they are A's columns q and q + 4, and V's
-// rows are read in that order.
-template <int DP, int BC, int LD>
-__device__ __forceinline__ void pv(const float (&p)[BC / 8][4], const float* vs,
-                                   float (&o)[DP / 8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < BC / 8; ++kk) {
-    uint32_t ah[4], al[4];
-    split_tf32_fast(p[kk][0], ah[0], al[0]);
-    split_tf32_fast(p[kk][2], ah[1], al[1]);
-    split_tf32_fast(p[kk][1], ah[2], al[2]);
-    split_tf32_fast(p[kk][3], ah[3], al[3]);
-#pragma unroll
-    for (int nt = 0; nt < DP / 8; ++nt) {
-      const float* vb = vs + (kk * 8 + 2 * q) * LD + nt * 8 + g;
-      uint32_t bh[2], bl[2];
-      split_tf32_fast(vb[0], bh[0], bl[0]);
-      split_tf32_fast(vb[LD], bh[1], bl[1]);
-      mma_tf32(o[nt], al, bh);
-      mma_tf32(o[nt], ah, bl);
-      mma_tf32(o[nt], ah, bh);
-    }
-  }
-}
-
-// o += P V, bf16: P rounded to bf16 from the accumulator fragments of two
-// 8-key tiles (the m16n8k16 A layout)
-template <int DP, int BC, int LD>
-__device__ __forceinline__ void pv(const float (&p)[BC / 8][4], const __nv_bfloat16* vs,
-                                   float (&o)[DP / 8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < BC / 16; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int nt = 0; nt < DP / 8; ++nt) {
-      const __nv_bfloat16* vb = vs + (kk * 16 + 2 * q) * LD + nt * 8 + g;
-      const uint32_t b[2] = {pack_bf16(vb[0], vb[LD]), pack_bf16(vb[8 * LD], vb[9 * LD])};
-      mma_bf16(o[nt], a, b);
     }
   }
 }
@@ -265,32 +148,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[j][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
-    // online softmax: the row's max over its quad, the correction of the
-    // running sums, then P = exp2(s - max) (exactly 0 where masked)
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      const float m_new = fmaxf(m[rr], mx[rr]);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(m[rr] - m_use);
-      m[rr] = m_new;
-      l[rr] *= corr;
-#pragma unroll
-      for (int nt = 0; nt < DP / 8; ++nt) {
-        o[nt][2 * rr] *= corr;
-        o[nt][2 * rr + 1] *= corr;
-      }
-      mx[rr] = m_use;
-    }
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - mx[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
+    online_softmax<DP, BC>(s, mx, m, l, o);
     pv<DP, BC, LD>(s, ks + BC * LD, o);
   }
 

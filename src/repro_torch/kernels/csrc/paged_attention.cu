@@ -7,175 +7,375 @@
 // clamped to N - 1 and hidden by the mask. Query i of slot b sits at position
 // lengths[b] + i and sees keys at positions <= lengths[b] + i (and < nb * bs).
 //
-// Design. One thread block per (row tile, KV head, slot). A row is one
-// (query, GQA group member) pair, rows ordered query-major, kRows per tile, so
-// a decode block covers the whole GQA group of one KV head and a k-query
-// block one tile of the chunk. The block walks the slot's keys in chunks of
-// kKeys positions from 0 up to the last position any of its rows can see
-// (the tile-level page skip of the Pallas kernel), each key found through its
-// own block-table entry, and keeps an f32 online softmax (running max, sum
-// and output rows) in shared memory. Masked scores contribute exactly zero.
-//
-// Bound on this card: bytes - every visible K and V row is read once per
-// (slot, KV head, row tile), scores and weights stay in shared memory.
-// Products run on the CUDA cores in f32; the softmax bookkeeping is one
-// thread per row. A tensor-core (wgmma) score tile and cp.async/TMA page
-// loads are the next steps.
+// What bounds it on this card: bytes. Each visible K and V row is read once
+// per (slot, KV head, row tile) and meets one query row per GQA group member
+// (decode: 4 D flops per 2 D elements read); at the chunked-prefill width
+// (kq = 64, the engine's shapes) the K/V bytes still outweigh the 3xTF32
+// products. At these sizes the kernel is far from either: its time is the
+// latency of a few dependent steps per block (block-table read, 16-byte
+// copies, products, sums across warps and blocks), so the design keeps every
+// block's chain short and the card full:
+//   - the warp tile of flash attention (attention_tile.cuh): S = Q K^T and
+//     O += P V on the tensor cores (3xTF32 m16n8k8 for f32, m16n8k16 for
+//     bf16, f32 accumulation), scores and the online softmax in registers;
+//   - rows are (query, GQA group member) pairs, query-major, 16 per block
+//     (one m16 tile: a decode query's whole group at group <= 16), so one
+//     tile shares one KV head; the block's 4 warps split each chunk's keys
+//     (16-row tiles beat 32- and 64-row ones, tools/paged_variants.py);
+//   - decode cuts the key axis into up to 8 segments of at least two chunks,
+//     from the table shape, D and dtype alone (paged_plan in
+//     kernels/paged_attention.py): one block per (segment, row tile x KV
+//     head, slot), a tile's segments one thread-block cluster - 256 blocks
+//     for a decode tick of 8 slots x 8 heads at 512 positions, where one
+//     block per (slot, head) gave 64 on 132 SMs. k-query walks the key axis
+//     whole: its 16-row tiles already fill the card, and a split cost more
+//     than it saved;
+//   - a block walks its segment in chunks of 64 keys (32 for f32 at D > 128)
+//     up to the last position its tile's last row sees (the Pallas page
+//     skip), double-buffered in shared memory through 16-byte cp.async rows
+//     (a (page, head) row of D elements is contiguous in the pool); each
+//     key's pool offset comes from one block-table read, issued a chunk
+//     before its copies; a warp skips a chunk none of its rows sees, and
+//     only chunks that cross a row's last position are masked;
+//   - the partials (running max m, denominator l, unnormalised output o) are
+//     summed in a fixed order: the warps in the block's shared memory, then
+//     the cluster's segments in rank order in distributed shared memory,
+//     each rank finishing a slice of the tile's outputs; a part that saw no
+//     key of a row adds nothing to it.
+// Nothing here depends on B, on the other slots' lengths or on the call, so
+// a slot's output is bit for bit the same alone or in any batch, and across
+// calls; the grid comes from nb on the host (no host sync, capturable in a
+// CUDA graph). Masked scores contribute exactly zero; the output is q.dtype
+// with the denominator floored at 1e-30.
 #include <stdint.h>
 
+#include <climits>
 #include <cmath>
 
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include "attention_tile.cuh"
 
 namespace salaad {
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 16;    // query rows per block
-constexpr int kKeys = 32;    // key positions per chunk
-constexpr float kNegInf = -1e30f;
+namespace cg = cooperative_groups;
 
-size_t smem_bytes(int d) {
-  // q rows, K chunk (padded stride), V chunk, scores, output rows, m, l, corr
-  return sizeof(float) * ((size_t)kRows * d + (size_t)kKeys * (d + 1) +
-                          (size_t)kKeys * d + kRows * kKeys + (size_t)kRows * d + 3 * kRows);
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+// warps along rows, 16 rows each: one, so a block holds 16 rows and its 4
+// warps split each chunk's keys (tools/paged_variants.py times 2 and 4)
+constexpr int kRowWarps = 1;
+constexpr int kKeyWarps = kWarps / kRowWarps;
+constexpr int kRows = 16 * kRowWarps;
+constexpr int kMaxSeg = 8;    // segments per row tile = blocks per cluster (the portable limit)
+
+// keys per chunk: 64, or 32 for f32 at D > 128, where two slots of 64 f32
+// K and V rows would not fit beside the Q tile (paged_plan's chunk)
+template <typename T>
+__host__ __device__ constexpr int chunk_keys(int dp) {
+  return sizeof(T) == 4 && dp > 128 ? 32 : 64;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                       const T* __restrict__ vp, const int* __restrict__ table,
-                       const int* __restrict__ lengths, T* __restrict__ out, int hq,
-                       int hkv, int kq, int d, int n_pages, int bs, int nb, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                          // [kRows][d]
-  float* ks = qs + kRows * d;                // [kKeys][d + 1]
-  float* vs = ks + kKeys * (d + 1);          // [kKeys][d]
-  float* ss = vs + kKeys * d;                // [kRows][kKeys]
-  float* os = ss + kRows * kKeys;            // [kRows][d]
-  float* ms = os + kRows * d;                // [kRows]
-  float* ls = ms + kRows;
-  float* cs = ls + kRows;
+struct PagedArgs {
+  const void* q;
+  const void* kp;
+  const void* vp;
+  const int* table;
+  const int* lengths;
+  void* out;
+  int hq, hkv, kq, d, n_pages, bs, nb, seg_keys, nseg, vec;
+  float sl2;   // the softmax scale times log2 e
+};
 
-  const int tid = threadIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = hq / hkv;
-  const int r0 = blockIdx.x * kRows;
-  const int n_rows = min(kRows, kq * group - r0);
-  const int length = lengths[b];
-  const int dk = d + 1;
+// One instance's shared memory: two chunks of key offsets, the Q tile
+// (kRows, LD), then two slots of (K, V) chunks (BC, LD) - or one, for a
+// segment of one chunk, the launch allocating no more; after the walk the
+// same bytes hold the warps' partials (o, m, l) and the block's (m, l).
+template <typename T, int DP>
+struct Tile {
+  static constexpr int BC = chunk_keys<T>(DP);   // keys per chunk
+  static constexpr int BCW = BC / kKeyWarps;     // keys of a chunk per warp
+  static constexpr int LD = row_stride<T>(DP);
+  static constexpr int koff_bytes = 2 * BC * (int)sizeof(int64_t);
+  static constexpr int q_bytes = (int)sizeof(T) * LD * kRows;
+  static constexpr int slot_bytes = (int)sizeof(T) * LD * 2 * BC;
+  static constexpr int part_bytes =
+      4 * (kKeyWarps * kRows * DP + 2 * kKeyWarps * kRows + 2 * kRows);
+  // the bytes of a launch whose walk uses `slots` slots
+  static constexpr int smem(int slots) {
+    return koff_bytes + q_bytes + slots * slot_bytes > part_bytes
+               ? koff_bytes + q_bytes + slots * slot_bytes
+               : part_bytes;
+  }
+  static_assert(BCW % (sizeof(T) == 4 ? 8 : 16) == 0, "a warp's keys fill whole k steps");
+  static_assert(smem(2) <= 232448, "two slots fit a block's shared memory");
+};
 
-  // q / out offset of tile row rr (query qi, group member g -> head h*group+g)
-  auto q_off = [&](int rr) -> int64_t {
-    const int r = r0 + rr, qi = r / group, g = r % group;
-    return (((int64_t)b * hq + h * group + g) * kq + qi) * d;
+// grid (nseg, row tiles x Hkv, B), clusters of (nseg, 1, 1) when nseg > 1
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedArgs a) {
+  using L = Tile<T, DP>;
+  constexpr int BC = L::BC, BCW = L::BCW, LD = L::LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* koff = reinterpret_cast<int64_t*>(smem);                 // (2, BC)
+  T* qs = reinterpret_cast<T*>(smem + L::koff_bytes);               // (kRows, LD)
+  T* kvs = qs + kRows * LD;                                          // slot c & 1: K, then V
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int s = static_cast<int>(cluster.block_rank());   // the block's segment
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;
+  const int wk = warp / kRowWarps, wrow = warp % kRowWarps * 16;   // keys, first row
+  const int h = blockIdx.y % a.hkv, tile = blockIdx.y / a.hkv, b = blockIdx.z;
+  const int group = a.hq / a.hkv;
+  const int r0 = tile * kRows, n_rows = min(kRows, a.kq * group - r0);
+  const int length = a.lengths[b], n_keys = a.nb * a.bs;
+  // the last key position tile row i sees
+  auto last_key = [&](int i) { return min(length + (r0 + i) / group, n_keys - 1); };
+  const int seg0 = s * a.seg_keys;
+  const int seg_end = min(seg0 + a.seg_keys, last_key(n_rows - 1) + 1);
+  const int n_chunks = seg_end > seg0 ? (seg_end - seg0 + BC - 1) / BC : 0;
+  const T* q = static_cast<const T*>(a.q);
+  const T* kp = static_cast<const T*>(a.kp);
+  const T* vp = static_cast<const T*>(a.vp);
+  const int* tab = a.table + (int64_t)b * a.nb;
+  // element offset of tile row i (query r / group, head h group + r % group)
+  auto row_off = [&](int i) -> int64_t {
+    const int r = r0 + i;
+    return (((int64_t)b * a.hq + h * group + r % group) * a.kq + r / group) * a.d;
+  };
+  // the pool offset of key tid of chunk c (-1 past the table): one
+  // block-table read, which the 32 keys of a warp share one or two of, a
+  // chunk before the copies
+  auto key_off = [&](int c) -> int64_t {
+    const int pos = seg0 + c * BC + tid;
+    if (pos >= n_keys) return -1;
+    const int page = max(min(__ldg(tab + pos / a.bs), a.n_pages - 1), 0);
+    return (((int64_t)page * a.hkv + h) * a.bs + pos % a.bs) * a.d;
+  };
+  // chunk c's K and V rows into slot c & 1: 16-byte copies of the segment's
+  // keys, zeros past its end
+  auto stage_chunk = [&](int c) {
+    T* ks = kvs + (c & 1) * 2 * BC * LD;
+    T* vs = ks + BC * LD;
+    const int64_t* ko = koff + (c & 1) * BC;
+    const int n_live = seg_end - seg0 - c * BC;
+    if (a.vec) {
+      constexpr int V = 16 / (int)sizeof(T), CPR = DP / V;
+      for (int e = tid; e < BC * CPR; e += kThreads) {
+        const int i = e / CPR, col = (e % CPR) * V;
+        const int64_t off = ko[i];
+        const bool live = i < n_live && col < a.d;
+        cp_async16(ks + i * LD + col, live ? kp + off + col : kp, live ? 16 : 0);
+        cp_async16(vs + i * LD + col, live ? vp + off + col : vp, live ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < BC * DP; e += kThreads) {
+        const int i = e / DP, col = e % DP;
+        const int64_t off = ko[i];
+        const bool live = i < n_live && col < a.d;
+        ks[i * LD + col] = live ? kp[off + col] : from_f32<T>(0.f);
+        vs[i * LD + col] = live ? vp[off + col] : from_f32<T>(0.f);
+      }
+    }
   };
 
-  for (int e = tid; e < kRows * d; e += kThreads) {
-    const int rr = e / d, c = e % d;
-    qs[e] = rr < n_rows ? to_f32(q[q_off(rr) + c]) * scale : 0.f;
-    os[e] = 0.f;
+  const int last_a = last_key(wrow + g), last_b = last_key(wrow + g + 8);
+  const int last_0 = last_key(wrow);                          // the fewest keys a row sees
+  const int last_n = last_key(min(wrow + 15, n_rows - 1));    // the most
+  const bool warp_live = wrow < n_rows;
+  float o[DP / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY};   // running max (log2 domain), rows g and g + 8
+  float l[2] = {0.f, 0.f};               // the thread's part of the denominators
+  // the Q tile, the length and chunk 0's table rows load at once
+  if (a.vec) {
+    constexpr int V = 16 / (int)sizeof(T), CPR = DP / V;
+    for (int e = tid; e < kRows * CPR; e += kThreads) {
+      const int i = e / CPR, col = (e % CPR) * V;
+      const bool live = i < n_rows && col < a.d;
+      cp_async16(qs + i * LD + col, live ? q + row_off(i) + col : q, live ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < kRows * DP; e += kThreads) {
+      const int i = e / DP, col = e % DP;
+      qs[i * LD + col] = i < n_rows && col < a.d ? q[row_off(i) + col] : from_f32<T>(0.f);
+    }
   }
-  if (tid < kRows) {
-    ms[tid] = kNegInf;
-    ls[tid] = 0.f;
-  }
-  // last key position any row of this tile may see
-  const int qi_last = (r0 + n_rows - 1) / group;
-  const int kmax = min(length + qi_last, nb * bs - 1);
+  if (tid < BC) koff[tid] = key_off(0);
   __syncthreads();
-
-  for (int c0 = 0; c0 <= kmax; c0 += kKeys) {
-    for (int e = tid; e < kKeys * d; e += kThreads) {
-      const int kk = e / d, c = e % d, pos = c0 + kk;
-      float kv = 0.f, vv = 0.f;
-      if (pos <= kmax) {
-        const int page = max(min(table[(int64_t)b * nb + pos / bs], n_pages - 1), 0);
-        const int64_t idx = (((int64_t)page * hkv + h) * bs + pos % bs) * d + c;
-        kv = to_f32(kp[idx]);
-        vv = to_f32(vp[idx]);
+  if (n_chunks > 0) stage_chunk(0);
+  cp_async_commit();                 // the Q tile and chunk 0
+  if (tid < BC) koff[BC + tid] = key_off(1);
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();   // chunk c landed, chunk c + 1's offsets are in; chunk c - 1's slot is free
+    if (c + 1 < n_chunks) stage_chunk(c + 1);
+    cp_async_commit();
+    if (c + 2 < n_chunks && tid < BC) koff[(c & 1) * BC + tid] = key_off(c + 2);
+    const int c0 = seg0 + c * BC + wk * BCW;   // the warp's first key of the chunk
+    if (!warp_live || c0 > last_n) continue;   // no row of the warp sees these keys
+    const T* ks = kvs + (c & 1) * 2 * BC * LD + wk * BCW * LD;
+    float sc[BCW / 8][4] = {};
+    qk<DP, BCW, LD>(qs + wrow * LD, ks, sc);
+    const bool edge = c0 + BCW - 1 > last_0;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BCW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = c0 + j * 8 + 2 * qd + (e & 1);
+        float val = sc[j][e] * a.sl2;
+        if (edge && key > (e < 2 ? last_a : last_b)) val = -INFINITY;
+        sc[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
-      ks[kk * dk + c] = kv;
-      vs[e] = vv;
-    }
-    __syncthreads();
-    for (int e = tid; e < kRows * kKeys; e += kThreads) {
-      const int rr = e / kKeys, kk = e % kKeys, pos = c0 + kk;
-      const int qi = (r0 + rr) / group;
-      float sc = kNegInf;
-      if (rr < n_rows && pos <= kmax && pos <= length + qi) {
-        sc = 0.f;
-        for (int c = 0; c < d; ++c) sc += qs[rr * d + c] * ks[kk * dk + c];
-      }
-      ss[e] = sc;
-    }
-    __syncthreads();
-    if (tid < n_rows) {
-      float* row = ss + tid * kKeys;
-      const float m_prev = ms[tid];
-      float mx = m_prev;
-      for (int kk = 0; kk < kKeys; ++kk) mx = fmaxf(mx, row[kk]);
-      float sum = 0.f;
-      for (int kk = 0; kk < kKeys; ++kk) {
-        const float pk = row[kk] <= 0.5f * kNegInf ? 0.f : expf(row[kk] - mx);
-        row[kk] = pk;
-        sum += pk;
-      }
-      const float corr = expf(m_prev - mx);
-      ls[tid] = corr * ls[tid] + sum;
-      ms[tid] = mx;
-      cs[tid] = corr;
-    }
-    __syncthreads();
-    for (int e = tid; e < kRows * d; e += kThreads) {
-      const int rr = e / d, c = e % d;
-      if (rr < n_rows) {
-        float a = os[e] * cs[rr];
-        for (int kk = 0; kk < kKeys; ++kk) a += ss[rr * kKeys + kk] * vs[kk * d + c];
-        os[e] = a;
-      }
-    }
-    __syncthreads();
+    online_softmax<DP, BCW>(sc, mx, m, l, o);
+    pv<DP, BCW, LD>(sc, ks + BC * LD, o);
   }
 
-  for (int e = tid; e < kRows * d; e += kThreads) {
-    const int rr = e / d, c = e % d;
-    if (rr < n_rows) out[q_off(rr) + c] = from_f32<T>(os[e] / fmaxf(ls[rr], 1e-30f));
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
   }
+  cp_async_wait<0>();   // a block with no chunk still has its Q tile in flight
+  __syncthreads();      // every warp is done with the staged tiles
+  float* po = reinterpret_cast<float*>(smem);   // (kKeyWarps, kRows, DP): each warp's o
+  float* pm = po + kKeyWarps * kRows * DP;      // (kKeyWarps, kRows): its m
+  float* pl = pm + kKeyWarps * kRows;           // (kKeyWarps, kRows): its l
+  float* bm = pl + kKeyWarps * kRows;           // (kRows): the block's m
+  float* bl = bm + kRows;                       // (kRows): the block's l
+  {
+    float* ow = po + (wk * kRows + wrow) * DP;
+#pragma unroll
+    for (int nt = 0; nt < DP / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (wrow + g + (e & 2) * 4 < n_rows)   // a decode tile holds `group` live rows
+          ow[(g + (e & 2) * 4) * DP + nt * 8 + 2 * qd + (e & 1)] = o[nt][e];
+    if (qd == 0) {
+      pm[wk * kRows + wrow + g] = m[0];
+      pm[wk * kRows + wrow + g + 8] = m[1];
+      pl[wk * kRows + wrow + g] = l[0];
+      pl[wk * kRows + wrow + g + 8] = l[1];
+    }
+  }
+  __syncthreads();
+  // the block's part: its warps' parts, in order (one that saw no key of a
+  // row adds nothing to it)
+  for (int e = tid; e < n_rows * DP; e += kThreads) {
+    const int i = e / DP, col = e % DP;
+    float mb = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kKeyWarps; ++w) mb = fmaxf(mb, pm[w * kRows + i]);
+    float ob = 0.f, lb = 0.f;
+#pragma unroll
+    for (int w = 0; w < kKeyWarps; ++w) {
+      const float mw = pm[w * kRows + i];
+      if (mw == -INFINITY) continue;
+      const float f = exp2f(mw - mb);
+      ob += po[(w * kRows + i) * DP + col] * f;
+      lb += pl[w * kRows + i] * f;
+    }
+    po[i * DP + col] = ob;   // warp 0's slot: this thread alone reads and writes it
+    if (col == 0) {
+      bm[i] = mb;
+      bl[i] = lb;
+    }
+  }
+  if (a.nseg > 1)
+    cluster.sync();   // every segment's part is in its block's shared memory
+  else
+    __syncthreads();
+
+  // the tile's outputs, rank s's slice, over the segments in rank order
+  const float* rm[kMaxSeg];
+  const float* rl[kMaxSeg];
+  const float* ro[kMaxSeg];
+#pragma unroll
+  for (int r = 0; r < kMaxSeg; ++r) {
+    const int rk = r < a.nseg ? r : 0;
+    rm[r] = a.nseg > 1 ? cluster.map_shared_rank(bm, rk) : bm;
+    rl[r] = a.nseg > 1 ? cluster.map_shared_rank(bl, rk) : bl;
+    ro[r] = a.nseg > 1 ? cluster.map_shared_rank(po, rk) : po;
+  }
+  T* out = static_cast<T*>(a.out);
+  const int n_out = n_rows * a.d;
+  for (int e = s * n_out / a.nseg + tid; e < (s + 1) * n_out / a.nseg; e += kThreads) {
+    const int i = e / a.d, col = e % a.d;
+    float mt = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kMaxSeg; ++r)
+      if (r < a.nseg) mt = fmaxf(mt, rm[r][i]);
+    float ot = 0.f, lt = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSeg; ++r) {
+      if (r >= a.nseg) break;
+      const float mr = rm[r][i];
+      if (mr == -INFINITY) continue;
+      const float f = exp2f(mr - mt);
+      ot += ro[r][i * DP + col] * f;
+      lt += rl[r][i] * f;
+    }
+    out[row_off(i) + col] = from_f32<T>(ot * (1.f / fmaxf(lt, 1e-30f)));
+  }
+  if (a.nseg > 1) cluster.sync();   // no block leaves while a peer reads its part
+}
+
+template <typename T, int DP>
+cudaError_t launch_dp(const PagedArgs& a, int b, cudaStream_t stream) {
+  using L = Tile<T, DP>;
+  if (a.seg_keys % L::BC) return cudaErrorInvalidValue;
+  const int64_t tiles = ((int64_t)a.kq * (a.hq / a.hkv) + kRows - 1) / kRows;
+  if (tiles * a.hkv > 65535 || b > 65535) return cudaErrorInvalidValue;
+  auto kernel = paged_attention_kernel<T, DP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::smem(2));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.nseg;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.nseg, static_cast<unsigned>(tiles * a.hkv), b);
+  cfg.blockDim = dim3(kThreads);
+  // a segment of one chunk never reaches the second slot
+  cfg.dynamicSmemBytes = L::smem(a.seg_keys > L::BC ? 2 : 1);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = a.nseg > 1;   // one segment: each block is a cluster of its own
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* kp, const void* vp, const int* table,
-                   const int* lengths, void* out, int b, int hq, int hkv, int kq, int d,
-                   int n_pages, int bs, int nb, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int row_tiles = (kq * (hq / hkv) + kRows - 1) / kRows;
-  dim3 grid(row_tiles, hkv, b);
-  paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), table,
-      lengths, static_cast<T*>(out), hq, hkv, kq, d, n_pages, bs, nb,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(d))));
-  return cudaGetLastError();
+cudaError_t launch(PagedArgs a, int b, cudaStream_t stream) {
+  a.vec = (a.d * (int)sizeof(T)) % 16 == 0 &&
+          (reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.kp) |
+           reinterpret_cast<uintptr_t>(a.vp)) % 16 == 0;
+  if (a.d <= 64) return launch_dp<T, 64>(a, b, stream);
+  if (a.d <= 80) return launch_dp<T, 80>(a, b, stream);
+  if (a.d <= 128) return launch_dp<T, 128>(a, b, stream);
+  return launch_dp<T, 256>(a, b, stream);
 }
 
 int run(const void* q, const void* kp, const void* vp, const int* table, const int* lengths,
         void* out, int b, int hq, int hkv, int kq, int d, int n_pages, int bs, int nb,
-        int dtype, void* stream) {
-  if (b < 1 || hkv < 1 || hq % hkv || kq < 1 || d < 1 || d > 256 || n_pages < 1 || nb < 1)
+        int seg_keys, int dtype, void* stream) {
+  if (b < 1 || hkv < 1 || hq % hkv || kq < 1 || d < 1 || d > 256 || n_pages < 1 || nb < 1 ||
+      bs < 1 || seg_keys < 1 || (int64_t)nb * bs > INT_MAX / 2 ||
+      (int64_t)kq * (hq / hkv) > INT_MAX / 2)
     return cudaErrorInvalidValue;
+  const int64_t nseg = ((int64_t)nb * bs + seg_keys - 1) / seg_keys;
+  if (nseg > kMaxSeg) return cudaErrorInvalidValue;
+  const PagedArgs a{q, kp, vp, table, lengths, out, hq, hkv, kq, d, n_pages, bs, nb, seg_keys,
+                    static_cast<int>(nseg), 0,
+                    static_cast<float>(1.0 / std::sqrt(static_cast<double>(d))) * kLog2e};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch<float>(q, kp, vp, table, lengths, out, b, hq, hkv, kq, d, n_pages, bs, nb, s);
-  if (dtype == kBF16)
-    return launch<__nv_bfloat16>(q, kp, vp, table, lengths, out, b, hq, hkv, kq, d, n_pages,
-                                 bs, nb, s);
+  if (dtype == kF32) return launch<float>(a, b, s);
+  if (dtype == kBF16) return launch<__nv_bfloat16>(a, b, s);
   return cudaErrorInvalidValue;
 }
 
@@ -183,20 +383,21 @@ int run(const void* q, const void* kp, const void* vp, const int* table, const i
 }  // namespace salaad
 
 // Decode: q / out (B, Hq, D), one query per slot at position lengths[b].
+// seg_keys comes from paged_plan (kernels/paged_attention.py).
 extern "C" int paged_attention_launch(const void* q, const void* kp, const void* vp,
                                       const int* table, const int* lengths, void* out, int b,
                                       int hq, int hkv, int d, int n_pages, int bs, int nb,
-                                      int dtype, void* stream) {
+                                      int seg_keys, int dtype, void* stream) {
   return salaad::run(q, kp, vp, table, lengths, out, b, hq, hkv, 1, d, n_pages, bs, nb,
-                     dtype, stream);
+                     seg_keys, dtype, stream);
 }
 
 // k-query: q / out (B, Hq, kq, D), queries at lengths[b] .. lengths[b] + kq - 1.
 extern "C" int paged_attention_kquery_launch(const void* q, const void* kp, const void* vp,
                                              const int* table, const int* lengths, void* out,
                                              int b, int hq, int hkv, int kq, int d,
-                                             int n_pages, int bs, int nb, int dtype,
-                                             void* stream) {
+                                             int n_pages, int bs, int nb, int seg_keys,
+                                             int dtype, void* stream) {
   return salaad::run(q, kp, vp, table, lengths, out, b, hq, hkv, kq, d, n_pages, bs, nb,
-                     dtype, stream);
+                     seg_keys, dtype, stream);
 }

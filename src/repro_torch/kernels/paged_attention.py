@@ -8,18 +8,51 @@ mask hides whatever they hold. Query i of slot b sits at ``lengths[b] + i``
 (its KV already inserted) and sees keys at positions <= ``lengths[b] + i``.
 
 Both wrappers run the plain version for CPU tensors and the CUDA kernel
-``csrc/paged_attention.cu`` for CUDA tensors.
+``csrc/paged_attention.cu`` for CUDA tensors, its key axis cut by
+``paged_plan`` from the table shape, D and dtype: never from B or the
+lengths, so a slot's output is bit for bit the same alone or in any batch.
+Decode splits the key axis into segments summed by a thread-block cluster;
+k-query walks it whole (one segment), its 16-row tiles filling the card.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from . import ref
 from ._build import check_cuda, dtype_code, launch
 
-__all__ = ["paged_attention", "paged_attention_kquery", "MAX_HEAD_DIM"]
+__all__ = ["paged_attention", "paged_attention_kquery", "paged_plan", "PagedPlan",
+           "MAX_HEAD_DIM", "MAX_SEGMENTS", "MIN_SEGMENT_CHUNKS"]
 
 MAX_HEAD_DIM = 256
+MAX_SEGMENTS = 8        # segments of the key axis: blocks per cluster, the portable limit
+MIN_SEGMENT_CHUNKS = 2  # chunks per segment at least (tools/paged_variants.py: decode at
+                        # 512 positions takes 8 segments of one chunk no faster than 4 of two)
+
+
+@dataclass(frozen=True)
+class PagedPlan:
+    """The key axis of a (slot, KV head, row tile): ``nseg`` segments of
+    ``seg_keys`` positions (the last one ragged), each walked in chunks of
+    ``chunk`` keys by one block of a thread-block cluster."""
+    chunk: int
+    seg_keys: int
+    nseg: int
+
+
+def paged_plan(nb: int, bs: int, d: int, itemsize: int,
+               max_segments: int = MAX_SEGMENTS) -> PagedPlan:
+    """Segments of a table of ``nb`` pages of ``bs`` positions: chunks of 64
+    keys (32 for f32 at D > 128: ``chunk_keys`` in the source), at least
+    ``MIN_SEGMENT_CHUNKS`` per segment and as few more as keep the segments
+    within ``max_segments`` (at most the card's cluster limit). Never reads
+    B or a slot's length."""
+    chunk = 32 if itemsize == 4 and d > 128 else 64
+    chunks = -(-nb * bs // chunk)
+    per_seg = max(MIN_SEGMENT_CHUNKS, -(-chunks // max_segments))
+    return PagedPlan(chunk, per_seg * chunk, -(-chunks // per_seg))
 
 
 def _check(name, q, k_pages, v_pages, block_table, lengths, kq):
@@ -57,10 +90,11 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths) -> torch.Tensor:
         raise ValueError(f"paged_attention: q must be (B, Hq, D), got {tuple(q.shape)}")
     dev, code, (b, hq, hkv, d, n, bs, nb) = _check(
         "paged_attention", q, k_pages, v_pages, block_table, lengths, 1)
+    plan = paged_plan(nb, bs, d, q.element_size())
     out = torch.empty_like(q)
     launch("paged_attention_launch", dev, q.data_ptr(), k_pages.data_ptr(),
            v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
-           out.data_ptr(), b, hq, hkv, d, n, bs, nb, code)
+           out.data_ptr(), b, hq, hkv, d, n, bs, nb, plan.seg_keys, code)
     paged_attention.launches += 1
     return out
 
@@ -79,10 +113,11 @@ def paged_attention_kquery(q, k_pages, v_pages, block_table, lengths) -> torch.T
     kq = q.shape[2]
     dev, code, (b, hq, hkv, d, n, bs, nb) = _check(
         "paged_attention_kquery", q, k_pages, v_pages, block_table, lengths, kq)
+    plan = paged_plan(nb, bs, d, q.element_size(), max_segments=1)
     out = torch.empty_like(q)
     launch("paged_attention_kquery_launch", dev, q.data_ptr(), k_pages.data_ptr(),
            v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
-           out.data_ptr(), b, hq, hkv, kq, d, n, bs, nb, code)
+           out.data_ptr(), b, hq, hkv, kq, d, n, bs, nb, plan.seg_keys, code)
     paged_attention_kquery.launches += 1
     return out
 

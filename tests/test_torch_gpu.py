@@ -305,9 +305,17 @@ def make_pool(rng, b, hq, hkv, d, bs, nb, n, device, dtype):
             torch.from_numpy(table).to(device), torch.from_numpy(lengths).to(device))
 
 
+# (b, hq, hkv, d, bs, nb): head dims 32-256 (each bucket of the kernel), GQA
+# groups 1, 2, 4 and 16, pages of 4, 8, 16 and 32, tables of one to eight
+# segments; make_pool's lengths run 0, a page's last and first position,
+# mid-page and the table's end, the tails unmapped
+PAGED_DECODE = [(5, 4, 2, 32, 4, 6), (8, 8, 8, 64, 16, 32), (3, 32, 2, 128, 8, 5),
+                (5, 8, 8, 80, 16, 20), (5, 16, 4, 256, 32, 12), (5, 8, 4, 64, 4, 600),
+                (5, 16, 1, 128, 32, 80), (5, 8, 2, 256, 16, 160)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hq,hkv,d,bs,nb", [(5, 4, 2, 32, 4, 6), (8, 8, 8, 64, 16, 32),
-                                               (3, 32, 2, 128, 8, 5)])
+@pytest.mark.parametrize("b,hq,hkv,d,bs,nb", PAGED_DECODE)
 def test_paged_attention_matches_plain(cuda, dtype, b, hq, hkv, d, bs, nb):
     rng = np.random.default_rng(b * d)
     n = b * nb + 2
@@ -317,9 +325,17 @@ def test_paged_attention_matches_plain(cuda, dtype, b, hq, hkv, d, bs, nb):
                  ref.paged_attention_ref(q, kp, vp, table, lengths), dtype)
 
 
+# (b, hq, hkv, kq, d, bs, nb): kq 1, 3, 21, 64 and 130 (row tiles of 16, 32
+# and 64 rows, several tiles per KV head), the same heads, groups, pages and
+# tables as above
+PAGED_KQUERY = [(4, 4, 2, 3, 32, 4, 8), (8, 8, 8, 64, 64, 16, 32), (2, 6, 2, 21, 16, 8, 9),
+                (5, 8, 8, 1, 64, 16, 32), (5, 16, 8, 21, 80, 16, 24),
+                (5, 16, 4, 64, 128, 32, 16), (5, 8, 8, 130, 64, 16, 160),
+                (3, 16, 1, 130, 64, 4, 100), (3, 32, 2, 21, 256, 16, 40)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hq,hkv,kq,d,bs,nb", [(4, 4, 2, 3, 32, 4, 8), (8, 8, 8, 64, 64, 16, 32),
-                                                  (2, 6, 2, 21, 16, 8, 9)])
+@pytest.mark.parametrize("b,hq,hkv,kq,d,bs,nb", PAGED_KQUERY)
 def test_paged_attention_kquery_matches_plain(cuda, dtype, b, hq, hkv, kq, d, bs, nb):
     rng = np.random.default_rng(kq)
     n = b * nb + 1
@@ -329,6 +345,47 @@ def test_paged_attention_kquery_matches_plain(cuda, dtype, b, hq, hkv, kq, d, bs
     q = torch.from_numpy(rng.standard_normal((b, hq, kq, d), dtype=np.float32)).to(cuda, dtype)
     assert_close(ops.paged_attention_kquery(q, kp, vp, table, lengths),
                  ref.paged_attention_kquery_ref(q, kp, vp, table, lengths), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kq,d,hq,hkv,nb", [(1, 64, 8, 8, 32), (1, 128, 16, 4, 160),
+                                             (21, 64, 8, 8, 32), (64, 64, 8, 8, 32),
+                                             (70, 80, 8, 4, 160)])
+def test_paged_attention_rows_ignore_batch(cuda, dtype, kq, d, hq, hkv, nb):
+    """A slot's output is bit for bit the same in two calls, alone (B = 1)
+    and inside a batch of 8, and with the other slots' lengths changed: the
+    segments and row tiles come from the table shape, kq and the group,
+    never from B or the lengths (the row-invariance rule of the SLR kernels;
+    the engine's batched streams rely on it). At nb = 160 decode walks eight
+    segments of 320 positions."""
+    rng = np.random.default_rng(kq * d + nb)
+    b, bs = 8, 16
+    n = b * nb
+    kp = torch.from_numpy(rng.standard_normal((n, hkv, bs, d), dtype=np.float32)).to(cuda, dtype)
+    vp = torch.from_numpy(rng.standard_normal((n, hkv, bs, d), dtype=np.float32)).to(cuda, dtype)
+    table = torch.from_numpy(rng.permutation(n).reshape(b, nb).astype(np.int32)).to(cuda)
+    top = nb * bs - kq
+    lens = rng.integers(0, top + 1, b).astype(np.int32)
+    lens[:3] = (0, bs - 1, top)
+    q = torch.from_numpy(rng.standard_normal((b, hq, kq, d), dtype=np.float32)).to(cuda, dtype)
+
+    def call(q_, table_, lens_):
+        lens_ = torch.from_numpy(np.ascontiguousarray(lens_)).to(cuda)
+        if kq == 1:
+            return ops.paged_attention(q_[:, :, 0].contiguous(), kp, vp, table_, lens_)
+        return ops.paged_attention_kquery(q_.contiguous(), kp, vp, table_, lens_)
+
+    y = call(q, table, lens)
+    assert torch.equal(call(q, table, lens), y)
+    other = rng.integers(0, top + 1, b).astype(np.int32)
+    for i in range(b):
+        assert torch.equal(call(q[i:i + 1], table[i:i + 1].contiguous(), lens[i:i + 1]),
+                           y[i:i + 1]), f"slot {i} alone"
+        moved = other.copy()
+        moved[i] = lens[i]
+        assert torch.equal(call(q, table, moved)[i], y[i]), f"slot {i}, other lengths"
+    assert_close(y, ref.paged_attention_kquery_ref(q, kp, vp, table, torch.from_numpy(lens).to(
+        cuda)).reshape(y.shape), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

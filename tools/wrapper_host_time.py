@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Host time per call of the low-rank wrapper, with and without the
-allocation of its f32 ``t = x @ P`` buffer, on one card.
+allocation of its f32 ``t = x @ P`` buffer, and of the two paged attention
+wrappers, part by part, on one card.
 
     python3 tools/wrapper_host_time.py
 
@@ -14,9 +15,15 @@ the host, so no launch waits on the queue):
   - ``cached t``: the same launch path with one ``t`` reused for every call;
   - ``torch.empty(t)``: the allocation alone;
   - ``bsr_matmul`` on the gate S (bs 32, every tile live), for scale.
-It holds the cached-t output bit for bit against the wrapper's and prints
-the median of 5 repeats of 400 calls per form, in microseconds, then the
-card's name and power limit.
+It holds the cached-t output bit for bit against the wrapper's. For paged
+decode (8 slots x 8 heads of 64, f32, 32 pages of 16 per slot:
+``chip_smoke.py`` 3d's shape) and paged k-query (the same with 64 queries per
+slot, 3e's) it times the wrapper, then its parts alone: ``_check`` (the
+argument checks), ``paged_plan``, ``torch.empty_like`` (the output) and the
+launch through ``_build.launch`` into a preallocated output, and holds that
+launch's output bit for bit against the wrapper's.
+Each line is the median of 5 repeats of 400 calls per form, in microseconds;
+the card's name and power limit come last.
 """
 import json
 import statistics
@@ -34,6 +41,8 @@ from repro_torch.kernels._build import dtype_code, launch  # noqa: E402
 from repro_torch.kernels.bsr_matmul import bsr_from_dense, bsr_matmul  # noqa: E402
 from repro_torch.kernels.lowrank_matmul import (lowrank_launch, lowrank_matmul,  # noqa: E402
                                                 lowrank_plan)
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.stream import card_sms  # noqa: E402
 
 
@@ -100,6 +109,37 @@ def main():
         x = rand(t_dim, n)
         print(f"bsr gate n={n} m={m} bs={bs} T={t_dim}, host us per call: "
               f"{json.dumps({'bsr_matmul': host_us(lambda: bsr_matmul(x, mat))})}")
+    slots, hq, hkv, d, bs, nb = 8, 8, 8, 64, 16, 32
+    kp, vp = rand(slots * nb, hkv, bs, d), rand(slots * nb, hkv, bs, d)
+    table = torch.from_numpy(rng.permutation(slots * nb).reshape(slots, nb).astype(np.int32)
+                             ).to(dev)
+    lengths = torch.from_numpy(rng.integers(20, 430, slots).astype(np.int32)).to(dev)
+    for name, kq in (("paged_attention", 1), ("paged_attention_kquery", 64)):
+        q = rand(slots, hq, d) if kq == 1 else rand(slots, hq, kq, d)
+        wrapper = getattr(ops, name)
+        out = torch.empty_like(q)
+        plan = pa.paged_plan(nb, bs, d, 4, max_segments=pa.MAX_SEGMENTS if kq == 1 else 1)
+        shape = (slots, hq, hkv) + (() if kq == 1 else (kq,)) + (d, slots * nb, bs, nb)
+
+        def launch_only():
+            launch(f"{name}_launch", dev, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                   table.data_ptr(), lengths.data_ptr(), out.data_ptr(), *shape,
+                   plan.seg_keys, dtype_code(q.dtype))
+
+        want = wrapper(q, kp, vp, table, lengths)
+        launch_only()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            sys.exit(f"wrapper_host_time: the bare launch changed the output ({name})")
+        row = {
+            name: host_us(lambda: wrapper(q, kp, vp, table, lengths)),
+            "_check": host_us(lambda: pa._check(name, q, kp, vp, table, lengths, kq)),
+            "paged_plan": host_us(lambda: pa.paged_plan(nb, bs, d, 4)),
+            "torch.empty_like(q)": host_us(lambda: torch.empty_like(q)),
+            "launch": host_us(launch_only),
+        }
+        print(f"{name} {slots} slots x {hq} heads x kq={kq} x D={d}, f32, host us per call: "
+              f"{json.dumps(row)}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 
