@@ -36,8 +36,10 @@ SIGNATURES = {
     # x, counts, rows, vals, y, T, n, m, JB, MAXB, bs, nseg, xrows, split, dtype, wdtype,
     # stream
     "bsr_matmul_launch": [_P] * 5 + [_I] * 11 + [_P],
-    # pool, src, dst, n_pairs, n_layers, n_pages, page_bytes, stream
-    "page_copy_launch": [_P] * 3 + [_I] * 3 + [_L, _P],
+    # pool, src, dst, n_pairs, n_layers, n_pages, page_bytes, chunk, grid, stream
+    "page_copy_launch": [_P] * 3 + [_I] * 3 + [_L] + [_I] * 2 + [_P],
+    # chunk, out (int*): blocks of the page copy one SM holds at once
+    "page_copy_resident": [_I, _P],
     # q, k, v, out, B, Hq, Hkv, T, S, D, causal, scale, dtype, stream
     "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
     # x, p, vt, counts, rows, vals, y, T, K, M, r, layer, L, JB, MAXB, bs, bt, nseg, kseg,
@@ -58,8 +60,8 @@ SIGNATURES = {
     "paged_attention_launch": [_P] * 6 + [_I] * 9 + [_P],
     # q, k, v, table, lengths, out, B, Hq, Hkv, kq, D, N, bs, nb, seg_keys, dtype, stream
     "paged_attention_kquery_launch": [_P] * 6 + [_I] * 10 + [_P],
-    # x, tau, out, nb, per, dtype, stream
-    "soft_threshold_launch": [_P] * 3 + [_I, _L, _I, _P],
+    # x, tau, out, per, numel, dtype, stream
+    "soft_threshold_launch": [_P] * 3 + [_L] * 2 + [_I, _P],
 }
 
 

@@ -8,7 +8,8 @@ takes x ``(nb, ...)`` and tau ``(nb,)``, a tensor on x's device: the
 controller's beta stays on the card and the launch needs no host sync.
 
 ``soft_threshold`` runs the plain version for CPU tensors and the CUDA kernel
-``csrc/soft_threshold.cu`` for CUDA tensors.
+``csrc/soft_threshold.cu`` for CUDA tensors; the kernel's C entry cuts the
+call itself, so the wrapper passes the slice length and the element count.
 """
 from __future__ import annotations
 
@@ -32,13 +33,11 @@ def soft_threshold(x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     dev = check_cuda(name, x=x, tau=tau)
     code = dtype_code(x.dtype)
     out = torch.empty_like(x)
-    nb = x.shape[0]
-    if x.numel() == 0:
+    numel = x.numel()
+    if numel == 0:
         return out
-    if nb > 65535:
-        raise ValueError(f"{name}: at most 65535 blocks per call, got {nb}")
-    launch("soft_threshold_launch", dev, x.data_ptr(), tau.data_ptr(), out.data_ptr(), nb,
-           x.numel() // nb, code)
+    launch("soft_threshold_launch", dev, x.data_ptr(), tau.data_ptr(), out.data_ptr(),
+           numel // x.shape[0], numel, code)
     soft_threshold.launches += 1
     return out
 

@@ -528,6 +528,50 @@ def test_page_copy_matches_plain(cuda, dtype, tail):
     assert torch.equal(got, want)
 
 
+def test_page_copy_many_pairs(cuda):
+    """64 pairs x 8 layers of 32 KB f32 pages, every dst a fresh page: more
+    units than the card has SMs, walked by a grid of the card's size."""
+    rng = np.random.default_rng(64)
+    pool = torch.from_numpy(rng.standard_normal((8, 160, 8, 16, 64), dtype=np.float32)).to(cuda)
+    perm = rng.permutation(160).astype(np.int32)
+    src = torch.from_numpy(perm[:64]).to(cuda)
+    dst = torch.from_numpy(perm[64:128]).to(cuda)
+    want = ref.page_copy_ref(pool.clone(), src, dst)
+    got = ops.page_copy(pool, src, dst)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == pool.data_ptr() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_page_copy_ragged_pages(cuda, dtype):
+    """Pages of 3 x 5 x 7 elements (105 bytes int8, 210 bf16): no multiple of
+    16 bytes, so the byte path inside the kernel copies them."""
+    rng = np.random.default_rng(105)
+    pool = torch.from_numpy(rng.standard_normal((4, 30, 3, 5, 7), dtype=np.float32) * 50)
+    pool = pool.to(cuda, dtype)
+    src = torch.tensor([3, 8, 21, 0], dtype=torch.int32, device=cuda)
+    dst = torch.tensor([4, 0, 29, 0], dtype=torch.int32, device=cuda)
+    want = ref.page_copy_ref(pool.clone(), src, dst)
+    got = ops.page_copy(pool, src, dst)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == pool.data_ptr() and torch.equal(got, want)
+
+
+def test_page_copy_skips_identity_and_outside_pairs(cuda):
+    """The (..., 1) f32 scale pool: pairs naming a page outside [0, N) and
+    identity pairs beside real ones are skipped; nothing else moves."""
+    rng = np.random.default_rng(1)
+    pool = torch.from_numpy(rng.standard_normal((8, 40, 8, 16, 1), dtype=np.float32)).to(cuda)
+    src = torch.tensor([5, 9, 13, 0, 50, 7, 0, 3], dtype=torch.int32, device=cuda)
+    dst = torch.tensor([0, 30, 17, 0, 2, -3, 0, 3], dtype=torch.int32, device=cuda)
+    want = ref.page_copy_ref(pool.clone(), src[:3], dst[:3])
+    ops.reset_launch_counts()
+    got = ops.page_copy(pool, src, dst)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["page_copy"] == 1
+    assert got.data_ptr() == pool.data_ptr() and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hq,hkv,t,s,d,causal", [
     (2, 4, 2, 16, 16, 32, True), (8, 8, 8, 128, 128, 64, True), (1, 4, 2, 256, 256, 64, False),
@@ -734,9 +778,9 @@ def test_adapter_streams_on_card_match_cpu(cuda):
 def test_soft_threshold_matches_plain(cuda, dtype, shape):
     """Per-slice thresholds with one slice at 0 (the identity, exactly) and
     one above max |x| (all zeros), NaN and +-inf written through; slices
-    whose length is no multiple of the vector width start unaligned and run
-    the scalar path. Exact in both dtypes: each side computes |x| - tau in
-    f32 from the same operands and rounds once to x's dtype."""
+    whose length is no multiple of the vector width put slice boundaries
+    inside 16-byte vectors. Exact in both dtypes: each side computes |x| -
+    tau in f32 from the same operands and rounds once to x's dtype."""
     rng = np.random.default_rng(sum(shape))
     nb = shape[0]
     x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 3)
@@ -762,6 +806,102 @@ def test_soft_threshold_matches_plain(cuda, dtype, shape):
     assert torch.equal(g[0][~torch.isnan(g[0])], x[0].float()[~torch.isnan(g[0])])
     if nb > 1:
         assert int(torch.count_nonzero(g[-1].nan_to_num(nan=0.0, posinf=0.0))) == 0
+
+
+def soft_exact(got, want):
+    g, w = got.float(), want.float()
+    return torch.equal(torch.isnan(g), torch.isnan(w)) and torch.equal(g.nan_to_num(0.0),
+                                                                       w.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7, 3), (6, 37, 61), (9, 1375), (70000, 1, 3), (3, 4097),
+                                   (2, 300001)])
+def test_soft_threshold_slice_edges(cuda, dtype, shape):
+    """Slice boundaries inside a 16-byte vector (per = 3, 37 x 61, 1375) and
+    inside a tile (per = 4097, 300001), and nb above 65535 (70000 x 3): one
+    launch, exact against the plain version, each slice with its own tau."""
+    rng = np.random.default_rng(shape[-1])
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 2).to(cuda, dtype)
+    tau = torch.from_numpy(rng.random(shape[0]).astype(np.float32) * 2).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.soft_threshold(x, tau)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["soft_threshold"] == 1
+    assert got.shape == x.shape and soft_exact(got, ref.soft_threshold_ref(x, tau))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("skew", [1, 3])
+def test_soft_threshold_unaligned_input(cuda, dtype, skew):
+    """x starting ``skew`` elements past a 16-byte boundary (a view): its
+    output is aligned, so the kernel runs scalar throughout; exact."""
+    rng = np.random.default_rng(skew)
+    base = torch.from_numpy(rng.standard_normal(4 * 5000 + skew, dtype=np.float32)).to(cuda)
+    x = base.to(dtype)[skew:].view(4, 5000)
+    tau = torch.tensor([0.0, 0.3, 1.0, 9.0], device=cuda)
+    got = ops.soft_threshold(x, tau)
+    torch.cuda.synchronize()
+    assert soft_exact(got, ref.soft_threshold_ref(x, tau))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_soft_threshold_special_values(cuda, dtype):
+    """NaN, +-inf, +-0 and the extremes of the dtype in every slice, under
+    tau = 0, a shrink, tau above max |x|, an infinite and a NaN tau: NaN
+    positions and every other value as the plain version gives them."""
+    info = torch.finfo(dtype)
+    specials = [float("nan"), float("inf"), -float("inf"), 0.0, -0.0, info.tiny, -info.tiny,
+                info.max, -info.max, 1.0, -1.0, 0.5]
+    per = 4 * len(specials) + 1
+    x = torch.tensor((specials * 5)[:per], device=cuda).repeat(5, 1).to(dtype)
+    x[:, -1] = 2.0
+    tau = torch.tensor([0.0, 0.7, 1e30, float("inf"), float("nan")], device=cuda)
+    got = ops.soft_threshold(x, tau)
+    torch.cuda.synchronize()
+    assert soft_exact(got, ref.soft_threshold_ref(x, tau))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("skew", [1, 3])
+def test_soft_threshold_scalar_head(cuda, dtype, skew):
+    """x and out both ``skew`` elements past a 16-byte boundary (views of
+    larger buffers, through the C entry: the wrapper's own out is aligned):
+    a scalar head up to the boundary, then vectors with slice boundaries
+    inside them and inside tiles, then a scalar tail; exact."""
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(skew)
+    nb, per = 5, 140001
+    base = torch.from_numpy(rng.standard_normal(nb * per + skew, dtype=np.float32) * 3)
+    x = base.to(cuda, dtype)[skew:].view(nb, per)
+    x[:, 7] = float("nan")
+    tau = torch.tensor([0.0, 0.5, 1.0, 2.0, 100.0], device=cuda)
+    out = torch.empty(nb * per + skew, dtype=dtype, device=cuda)[skew:].view(nb, per)
+    assert x.data_ptr() % 16 and (x.data_ptr() - out.data_ptr()) % 16 == 0
+    _build.launch("soft_threshold_launch", cuda, x.data_ptr(), tau.data_ptr(), out.data_ptr(),
+                  per, x.numel(), _build.dtype_code(dtype))
+    torch.cuda.synchronize()
+    assert soft_exact(out, ref.soft_threshold_ref(x, tau))
+
+
+def test_page_copy_walks_units(cuda):
+    """64 pairs x 54 layers of 32 KB f32 pages: 3456 units, more than the
+    card holds at once, so each block walks several; identity pairs and a
+    page outside the pool among them are skipped; exact and in place."""
+    rng = np.random.default_rng(54)
+    pool = torch.from_numpy(rng.standard_normal((54, 130, 8, 16, 64), dtype=np.float32)).to(cuda)
+    perm = rng.permutation(130).astype(np.int32)
+    src_np, dst_np = perm[:64].copy(), perm[64:128].copy()
+    src_np[[3, 17]] = dst_np[[3, 17]]                      # identity pairs
+    src_np[25] = 130                                       # outside the pool
+    keep = [i for i in range(64) if i not in (3, 17, 25)]
+    src, dst = torch.from_numpy(src_np).to(cuda), torch.from_numpy(dst_np).to(cuda)
+    want = ref.page_copy_ref(pool.clone(), src[keep], dst[keep])
+    got = ops.page_copy(pool, src, dst)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == pool.data_ptr() and torch.equal(got, want)
+    del pool, want, got
 
 
 def test_train_steps_on_card_match_cpu(cuda):

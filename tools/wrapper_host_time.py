@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
 """Host time per call of the low-rank wrapper, with and without the
-allocation of its f32 ``t = x @ P`` buffer, and of the two paged attention
-wrappers, part by part, on one card.
+allocation of its f32 ``t = x @ P`` buffer, and of the paged attention,
+soft-threshold and page-copy wrappers, part by part, on one card.
 
-    python3 tools/wrapper_host_time.py
+    python3 tools/wrapper_host_time.py                  # every wrapper
+    python3 tools/wrapper_host_time.py --copy           # soft-threshold and page copy
+    python3 tools/wrapper_host_time.py --copy --src build/parent/src   # another tree
+
+``--src`` times the ``repro_torch`` of another tree (a ``git archive`` of a
+parent commit under the git-ignored ``build/``), which builds its kernels
+into its own ``build/``; run it in turns with this tree's to compare.
 
 For salaad_llama_60m's gate (512 -> 1376) and q (512 -> 512) factors at
 r = 128 (random, seed 0), f32, T = 1 and 8, it times on the host clock
@@ -21,10 +27,19 @@ decode (8 slots x 8 heads of 64, f32, 32 pages of 16 per slot:
 slot, 3e's) it times the wrapper, then its parts alone: ``_check`` (the
 argument checks), ``paged_plan``, ``torch.empty_like`` (the output) and the
 launch through ``_build.launch`` into a preallocated output, and holds that
-launch's output bit for bit against the wrapper's.
+launch's output bit for bit against the wrapper's. For soft-threshold at
+``chip_smoke.py`` 3i's gate stack (8, 512, 1376) f32 and page copy at 3g's
+shape (8 pairs of 8-layer 32 KB f32 pages, a pool of 128) it times the
+wrapper, ``check_cuda`` (page copy: with ``check_int32``),
+``torch.empty_like(x)`` (soft-threshold), ``page_copy_plan`` (where the
+tree has one) and the launch through ``_build.launch`` alone, with the
+arguments the tree's C entry takes, holding its output against the
+wrapper's.
 Each line is the median of 5 repeats of 400 calls per form, in microseconds;
 the card's name and power limit come last.
 """
+import argparse
+import ctypes
 import json
 import statistics
 import subprocess
@@ -32,16 +47,24 @@ import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+PARSER = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+PARSER.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"),
+                    help="the tree whose repro_torch is timed (default: this one)")
+PARSER.add_argument("--copy", action="store_true",
+                    help="time only the soft-threshold and page-copy wrappers")
+ARGS = PARSER.parse_args()
+sys.path.insert(0, str(Path(ARGS.src).resolve()))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.kernels._build import dtype_code, launch  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import page_copy as pcm  # noqa: E402
+from repro_torch.kernels._build import check_cuda, check_int32, dtype_code, launch  # noqa: E402
 from repro_torch.kernels.bsr_matmul import bsr_from_dense, bsr_matmul  # noqa: E402
 from repro_torch.kernels.lowrank_matmul import (lowrank_launch, lowrank_matmul,  # noqa: E402
                                                 lowrank_plan)
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.stream import card_sms  # noqa: E402
 
@@ -61,6 +84,68 @@ def host_us(fn, calls=400, repeats=5):
     return round(statistics.median(times), 2)
 
 
+def copy_rows(dev, rand):
+    """Soft-threshold at the gate stack and page copy at 3g's shape."""
+    x = rand(8, 512, 1376)
+    tau = torch.rand(8, device=dev) * 0.5
+    out = torch.empty_like(x)
+    per, numel = 512 * 1376, x.numel()
+    # the first design's C entry takes (nb, per), the flat one (per, numel)
+    dims = (8, per) if _build.SIGNATURES["soft_threshold_launch"][3] is ctypes.c_int else (
+        per, numel)
+
+    def soft_launch():
+        launch("soft_threshold_launch", dev, x.data_ptr(), tau.data_ptr(), out.data_ptr(), *dims,
+               dtype_code(x.dtype))
+
+    want = ops.soft_threshold(x, tau)
+    soft_launch()
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        sys.exit("wrapper_host_time: the bare soft_threshold launch changed the output")
+    row = {
+        "soft_threshold": host_us(lambda: ops.soft_threshold(x, tau)),
+        "check_cuda": host_us(lambda: check_cuda("soft_threshold", x=x, tau=tau)),
+        "torch.empty_like(x)": host_us(lambda: torch.empty_like(x)),
+        "launch": host_us(soft_launch),
+    }
+    print(f"soft_threshold (8, 512, 1376) f32, host us per call: {json.dumps(row)}")
+
+    pool = rand(8, 128, 8, 16, 64)
+    src = torch.arange(0, 16, 2, dtype=torch.int32, device=dev)
+    dst = torch.arange(64, 80, 2, dtype=torch.int32, device=dev)
+    page_bytes = 8 * 16 * 64 * 4
+    row = {}
+    cut = ()
+    if hasattr(pcm, "page_copy_plan"):
+        sms, resident = card_sms(dev.index or 0), pcm.card_resident(dev.index or 0)
+
+        def plan():
+            return pcm.page_copy_plan(8, 8, page_bytes, sms, resident)
+
+        cut = (plan().chunk, plan().grid)
+
+    def copy_launch():
+        launch("page_copy_launch", dev, pool.data_ptr(), src.data_ptr(), dst.data_ptr(), 8, 8,
+               128, page_bytes, *cut)
+
+    def checks():
+        check_cuda("page_copy", pool=pool, src=src, dst=dst)
+        check_int32("page_copy", src=src, dst=dst)
+
+    want = ref.page_copy_ref(pool.clone(), src, dst)
+    copy_launch()
+    torch.cuda.synchronize()
+    if not torch.equal(pool, want):
+        sys.exit("wrapper_host_time: the bare page_copy launch did not copy the pages")
+    row["page_copy"] = host_us(lambda: ops.page_copy(pool, src, dst))
+    row["check_cuda, check_int32"] = host_us(checks)
+    if cut:
+        row["page_copy_plan"] = host_us(plan)
+    row["launch"] = host_us(copy_launch)
+    print(f"page_copy 8 pairs x 8 layers, 32 KB f32 pages, host us per call: {json.dumps(row)}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("wrapper_host_time: needs a CUDA card")
@@ -70,6 +155,13 @@ def main():
     def rand(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
+    print(f"repro_torch from {Path(ops.__file__).resolve().parents[2]}")
+    if ARGS.copy:
+        copy_rows(dev, rand)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True
+                             ).stdout.strip())
+        return
     for site, (k, m) in (("gate", (512, 1376)), ("q", (512, 512))):
         r = 128
         p, vt = rand(k, r) / 8, rand(r, m) / 8
@@ -140,6 +232,7 @@ def main():
         }
         print(f"{name} {slots} slots x {hq} heads x kq={kq} x D={d}, f32, host us per call: "
               f"{json.dumps(row)}")
+    copy_rows(dev, rand)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 
