@@ -34,11 +34,13 @@ error:
    at 495 / 3 TFLOP/s, bf16 at 989 TFLOP/s);
    3d/3e also hold paged decode and k-query bit for bit across two calls,
    each slot alone (B = 1) against its rows in the batch of 8, and with the
-   other slots' lengths changed, f32 and bf16, kq = 1, 21, 64 and 70, at the
+   other slots' lengths changed, f32 and bf16, kq = 1, 21, 64 and 70, and
+   f32 queries over bf16 pages (the speculative engine's draft pools), kq =
+   1, 4, 21 and 64, within 1e-4 of the output's largest value, at the
    engine's table and at a table of 2048 positions (decode in eight
-   segments), and time both kernels in f32 and bf16 on the device alone
-   beside SDPA on the gathered KV and beside the gather with SDPA, each
-   target printed met or missed;
+   segments), and time both kernels in f32, bf16 and f32 over bf16 pages on
+   the device alone beside SDPA on the gathered KV and beside the gather
+   with SDPA, each target printed met or missed;
    3f also holds flash attention at head dims 80 (Zamba2) and 128, f32 and
    bf16, and times the main shape in bf16 and on the device alone beside
    SDPA; 3g and 3i also time page copy and soft-threshold on the device
@@ -73,8 +75,10 @@ error:
       launch;
    c. the single fused model of the first slice serves 16 requests with
       chunked prefill of 64;
-   d. ``python -m repro_torch.launch.serve`` runs once as a bank and once
-      with ``--adapters 3 --max-resident-adapters 2``, and prints its lines;
+   d. ``python -m repro_torch.launch.serve`` runs as a bank, with
+      ``--adapters 3 --max-resident-adapters 2``, with ``--engine
+      speculative --spec-k 4`` and with ``--kv-dtype int8``, and prints its
+      lines;
    e. run (a) and (b) again under torch.profiler: device busy time, idle
       share and each kernel's share of device time;
    f. the adapter bank serves 24 greedy requests round-robin over its four
@@ -104,6 +108,17 @@ error:
    j. ``python -m repro_torch.launch.serve --arch zamba2_2p7b`` (the
       fallback note, then the reference engine) and ``--engine reference``
       on salaad_llama_60m;
+   k. (run after f, while the banks are held) ``SpeculativeEngine`` on the
+      fused bank, tier 0 verifying and tier 2 (keep 0.3) drafting into bf16
+      pools, 8 slots, the first 16 of (a)'s prompts, 32 new tokens each:
+      greedy under the parallel schedule with k = 4, whose streams must
+      equal a static ``PagedServingEngine`` run at tier 0, then sampled
+      (T = 0.8) under the sequential schedule with k = 4, where every
+      request must emit 32 tokens; the paged decode and k-query, stacked SLR
+      and flash kernels must launch; tok/s, acceptance rate and decode calls;
+   l. (a)'s run with ``kv_dtype='int8'``: the paged kernels stay idle (the
+      dequantizing gather), page copy copies payload and scale pools; the
+      pools' bytes against (a)'s;
 5. parity: the first one-shot prefill's, the first chunk's and the first
    decode tick's logits on the card against the same model on the CPU; then
    (5b) five train steps and one ADMM step from one full-width state on the
@@ -111,7 +126,10 @@ error:
    fused tier of the hybrid at full width and one group (6 layers, f32) on
    the card and on the CPU: ReferenceEngine streams token-identical, decode
    logits within 1e-3, and on the card prefill(15) + one decode step against
-   the no-cache forward (JAX's ``test_decode_consistency``).
+   the no-cache forward (JAX's ``test_decode_consistency``); (5d) the first
+   decode tick over int8 pages (a chunk quantized once, on the CPU), card
+   against CPU, logits within 1e-3, with each side quantizing its own chunk
+   printed beside it, and the sampler's keyed uniforms equal bit for bit.
 
 Output: the card's name and power limit, build time, per-phase lines, then
 one ``{"kernels": [...]}`` line and, last, the device line the harness reads.
@@ -155,9 +173,15 @@ MAX_NEW_CPU = 8
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 PEAK_3XTF32_FLOPS = 495e12 / 3   # H100 SXM dense TF32, three TF32 products per f32 product
+PEAK_2XTF32_FLOPS = 495e12 / 2   # two TF32 products: f32 queries over bf16 pages
 PEAK_BF16_FLOPS = 989e12         # H100 SXM dense bf16 on the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # relative to the output's max |value|
 LOGIT_TOL = 1e-3                            # card vs CPU, relative to max |logit|
+# int8 pages each side quantized for itself, card vs CPU, relative to max |logit|:
+# rounding flips of int8 quanta cascade over the layers. The card read 2.4e-3
+# (1.168e-2 at max |logit| 4.85), as far as the CPU from itself with its
+# embedding scaled by 1 + 1e-6 N(0, 1) (5d prints that witness): 4x that reading
+INT8_OWN_TOL = 1e-2
 
 
 T_START = time.perf_counter()
@@ -253,7 +277,10 @@ def main() -> None:
     from repro_torch.serving.adapters import AdapterBank, adapterize
     from repro_torch.serving.deployed import DeployedModel
     from repro_torch.serving.elastic import ModelBank
+    from repro_torch.serving import kv_quant
     from repro_torch.serving.engine import EngineConfig, PagedServingEngine, ReferenceEngine
+    from repro_torch.serving.engine import keyed_uniform
+    from repro_torch.serving.speculative import SpeculativeEngine
     from repro_torch.serving.slr_params import deployment_report
     from repro_torch.core.admm import block_sketches
     from repro_torch.tree import tree_map
@@ -330,13 +357,15 @@ def main() -> None:
     def rand(*shape, scale=1.0):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
 
-    def check(name, got, want, dtype) -> float:
+    def check(name, got, want, dtype, floor: float = 1.0) -> float:
+        """``got`` against the plain version's ``want``: max |error| within the
+        dtype's tolerance of max(|want|, ``floor``)."""
         torch.cuda.synchronize()
         got, want = got.float(), want.float()
         if not bool(torch.isfinite(got).all()):
             fail(f"{name}: non-finite output")
         err = float((got - want).abs().max())
-        scale = max(float(want.abs().max()), 1.0)
+        scale = max(float(want.abs().max()), floor)
         tol = TOL[str(dtype).split(".")[-1]]
         status = "ok" if err <= tol * scale else "MISMATCH"
         print(f"  check {name} [{str(dtype).split('.')[-1]}]: max_abs_err {err:.3e} "
@@ -579,6 +608,12 @@ def main() -> None:
                    ref.paged_attention_ref(q, kp, vp, table, lengths), torch.float32)
     check("paged_attention", ops.paged_attention(bf(q), bf(kp), bf(vp), table, lengths),
           ref.paged_attention_ref(bf(q), bf(kp), bf(vp), table, lengths), torch.bfloat16)
+    # f32 queries over bf16 pages (the speculative engine's draft pools under
+    # the f32 model): within 1e-4 of the output's largest value
+    mixed_err = {"paged_attention": check(
+        "paged_attention f32 q over bf16 pages", ops.paged_attention(q, bf(kp), bf(vp), table,
+                                                                     lengths),
+        ref.paged_attention_ref(q, bf(kp), bf(vp), table, lengths), torch.float32, floor=0.0)}
     ragged = torch.tensor([0, 15, 16, 17, 200, 511, 1, 63], dtype=torch.int32, device=dev)
     pa_err = max(pa_err, check("paged_attention ragged lengths", ops.paged_attention(
         q, kp, vp, table, ragged), ref.paged_attention_ref(q, kp, vp, table, ragged),
@@ -587,13 +622,16 @@ def main() -> None:
     dec_mask = (pos[None, :] <= lengths[:, None])[:, None, None, :]
     q4 = q[:, :, None]
 
-    def paged_bound(itemsize, n_q, n_keys, n_pairs, n_pages_read):
+    def paged_bound(itemsize, n_q, n_keys, n_pairs, n_pages_read, kv_itemsize=None):
         """q and out once, each visible K/V row once, the lengths and the
         table entries read; 4 D flops per (query row, visible key) pair, at
-        the route's rate (3xTF32 for f32, bf16 on the tensor cores)."""
-        return bound_ms(itemsize * (2 * n_q * d + 2 * hkv * d * n_keys)
-                        + 4 * (slots + n_pages_read), 4 * hq * d * n_pairs,
-                        PEAK_3XTF32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS)
+        the route's rate (3xTF32 for f32, bf16 on the tensor cores, two TF32
+        products for f32 queries over bf16 pages)."""
+        kv_itemsize = itemsize if kv_itemsize is None else kv_itemsize
+        peak = PEAK_3XTF32_FLOPS if itemsize == kv_itemsize == 4 else (
+            PEAK_BF16_FLOPS if itemsize == 2 else PEAK_2XTF32_FLOPS)
+        return bound_ms(itemsize * 2 * n_q * d + kv_itemsize * 2 * hkv * d * n_keys
+                        + 4 * (slots + n_pages_read), 4 * hq * d * n_pairs, peak)
 
     results["paged_attention"] = dict(
         shape=f"decode tick: {slots} slots, {hq} heads, head_dim {d}, pages of {pbs}, "
@@ -616,6 +654,10 @@ def main() -> None:
     check("paged_attention_kquery", ops.paged_attention_kquery(
         bf(qk), bf(kp), bf(vp), table, lengths_kq), ref.paged_attention_kquery_ref(
         bf(qk), bf(kp), bf(vp), table, lengths_kq), torch.bfloat16)
+    mixed_err["paged_attention_kquery"] = check(
+        "paged_attention_kquery f32 q over bf16 pages", ops.paged_attention_kquery(
+            qk, bf(kp), bf(vp), table, lengths_kq), ref.paged_attention_kquery_ref(
+            qk, bf(kp), bf(vp), table, lengths_kq), torch.float32, floor=0.0)
     q_rag = rand(3, hq, 21, d)
     kq_err = max(kq_err, check("paged_attention_kquery kq=21", ops.paged_attention_kquery(
         q_rag, kp, vp, table[:3], lengths_kq[:3]), ref.paged_attention_kquery_ref(
@@ -644,21 +686,26 @@ def main() -> None:
         return pages[table.long()].permute(0, 2, 1, 3, 4).reshape(slots, hkv, seq, d)
 
     paged_rows = {}
-    for dt in (torch.float32, torch.bfloat16):
-        kp_, vp_ = kp.to(dt), vp.to(dt)
-        kg_, vg_ = gathered(kp_), gathered(vp_)
+    # (q and output, pages): f32, bf16, and f32 queries over bf16 pages, whose
+    # SDPA yardstick runs in f32 on the pages widened
+    for dt, kv_dt, label in ((torch.float32, torch.float32, "float32"),
+                             (torch.bfloat16, torch.bfloat16, "bfloat16"),
+                             (torch.float32, torch.bfloat16, "float32 over bfloat16")):
+        kp_, vp_ = kp.to(kv_dt), vp.to(kv_dt)
+        kg_, vg_ = gathered(kp_).to(dt), gathered(vp_).to(dt)
         size = torch.empty((), dtype=dt).element_size()
+        kv_size = torch.empty((), dtype=kv_dt).element_size()
         for name, q_, lens_, mask_, bnd in (
                 ("paged_attention", q.to(dt), lengths, dec_mask, paged_bound(
                     size, slots * hq, int(keys.sum()), int(keys.sum()),
-                    int(np.ceil(keys / pbs).sum()))),
+                    int(np.ceil(keys / pbs).sum()), kv_size)),
                 ("paged_attention_kquery", qk.to(dt), lengths_kq, kq_mask, paged_bound(
                     size, slots * hq * kq, int(kq_keys.sum()), pairs,
-                    int(np.ceil(kq_keys / pbs).sum())))):
+                    int(np.ceil(kq_keys / pbs).sum()), kv_size))):
             q4_ = q_[:, :, None] if q_.dim() == 3 else q_
             call = lambda name=name, q_=q_, kp_=kp_, vp_=vp_, lens_=lens_: (  # noqa: E731
                 getattr(ops, name)(q_, kp_, vp_, table, lens_))
-            paged_rows[(name, str(dt)[6:])] = dict(
+            paged_rows[(name, label)] = dict(
                 ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
                 sdpa_ms=time_ms(torch, lambda q4_=q4_, kg_=kg_, vg_=vg_, mask_=mask_:
                                 F.scaled_dot_product_attention(q4_, kg_, vg_, attn_mask=mask_)),
@@ -666,9 +713,9 @@ def main() -> None:
                                        F.scaled_dot_product_attention(q4_, kg_, vg_,
                                                                       attn_mask=mask_)),
                 gather_sdpa_graph_ms=graph_ms(
-                    torch, lambda q4_=q4_, kp_=kp_, vp_=vp_, mask_=mask_:
-                    F.scaled_dot_product_attention(q4_, gathered(kp_), gathered(vp_),
-                                                   attn_mask=mask_)),
+                    torch, lambda q4_=q4_, kp_=kp_, vp_=vp_, mask_=mask_, dt=dt:
+                    F.scaled_dot_product_attention(q4_, gathered(kp_).to(dt),
+                                                   gathered(vp_).to(dt), attn_mask=mask_)),
                 bound=bnd)
     for (name, dt), r_ in paged_rows.items():
         target = r_["sdpa_graph_ms"]
@@ -696,18 +743,21 @@ def main() -> None:
                                                       dtype=np.float32)).to(dev)
     long_table = torch.from_numpy(pg_rng.permutation(slots * long_nb).reshape(
         slots, long_nb).astype(np.int32)).to(dev)
-    for dt in (torch.float32, torch.bfloat16):
+    for dt, kv_dt, widths in ((torch.float32, torch.float32, (1, 21, 64, 70)),
+                              (torch.bfloat16, torch.bfloat16, (1, 21, 64, 70)),
+                              (torch.float32, torch.bfloat16, (1, 4, 21, 64))):
         for tab_, kp_, vp_ in ((table, kp, vp), (long_table, long_kp, long_vp)):
-            kp_, vp_ = kp_.to(dt), vp_.to(dt)
+            kp_, vp_ = kp_.to(kv_dt), vp_.to(kv_dt)
             n_pos = tab_.shape[1] * pbs
-            for kq_ in (1, 21, 64, 70):
+            for kq_ in widths:
                 top = n_pos - kq_
                 lens_np = pg_rng.integers(0, top + 1, slots).astype(np.int32)
                 lens_np[:3] = (0, pbs - 1, top)
                 q_ = torch.from_numpy(pg_rng.standard_normal(
                     (slots, hq, kq_, d), dtype=np.float32)).to(dev, dt)
-                what = (f"paged_attention{'' if kq_ == 1 else '_kquery'} [{str(dt)[6:]}] "
-                        f"table of {n_pos} kq={kq_}")
+                mixed = dt != kv_dt
+                what = (f"paged_attention{'' if kq_ == 1 else '_kquery'} [{str(dt)[6:]}"
+                        f"{' over bf16 pages' if mixed else ''}] table of {n_pos} kq={kq_}")
 
                 def call(q_, lens_np, tab_=tab_, kp_=kp_, vp_=vp_, kq_=kq_):
                     lens_ = torch.from_numpy(np.ascontiguousarray(lens_np)).to(dev)
@@ -718,11 +768,14 @@ def main() -> None:
                                                       tab_.contiguous(), lens_)
 
                 y = call(q_, lens_np)
-                if n_pos > seq or kq_ == 70:
+                if n_pos > seq or kq_ == 70 or (mixed and kq_ == 4):
                     err = check(what, y, ref.paged_attention_kquery_ref(
                         q_, kp_, vp_, tab_, torch.from_numpy(lens_np).to(dev)).reshape(y.shape),
-                        dt)
-                    if dt == torch.float32:
+                        dt, floor=0.0 if mixed else 1.0)
+                    if mixed:
+                        name_ = "paged_attention" if kq_ == 1 else "paged_attention_kquery"
+                        mixed_err[name_] = max(mixed_err[name_], err)
+                    elif dt == torch.float32:
                         if kq_ == 1:
                             pa_err = max(pa_err, err)
                         else:
@@ -740,7 +793,11 @@ def main() -> None:
                         fail(f"{what}: slot {i} differs when the other slots' lengths change")
     print("  check paged_attention, paged_attention_kquery: two calls agree, each slot alone "
           "equals its rows in the batch of 8, also with the other slots' lengths changed, bit "
-          "for bit, f32 and bf16, kq in (1, 21, 64, 70), tables of 512 and 2048 positions")
+          "for bit, f32 and bf16, kq in (1, 21, 64, 70), and f32 queries over bf16 pages, kq "
+          "in (1, 4, 21, 64), tables of 512 and 2048 positions")
+    print(f"  f32 queries over bf16 pages: max_abs_err decode {mixed_err['paged_attention']:.3e}"
+          f", k-query {mixed_err['paged_attention_kquery']:.3e} (tol 1e-4 x the output's "
+          "largest |value|)")
     results["paged_attention"]["max_abs_err"] = pa_err
     results["paged_attention_kquery"]["max_abs_err"] = kq_err
     long_lens = torch.from_numpy(pg_rng.integers(300, 1980, slots).astype(np.int32)).to(dev)
@@ -1281,7 +1338,10 @@ def main() -> None:
            "--fmt", "fused"]
     for extra in (["--keep-ratios", ",".join(map(str, BUDGETS)), "--prefix-cache",
                    "--tier-policy", "pressure"],
-                  ["--adapters", "3", "--max-resident-adapters", "2"]):
+                  ["--adapters", "3", "--max-resident-adapters", "2"],
+                  ["--keep-ratios", "1.0,0.3", "--spec-budget", "0.3", "--engine",
+                   "speculative", "--spec-k", "4"],
+                  ["--keep-ratios", "1.0,0.6", "--kv-dtype", "int8", "--prefix-cache"]):
         t0 = time.perf_counter()
         proc = subprocess.run(cli + extra, capture_output=True, text=True, timeout=600,
                               cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)})
@@ -1293,6 +1353,8 @@ def main() -> None:
         if "--adapters" in extra and (line["adapters"]["swaps"] < 1
                                       or sorted(line["tokens_by_adapter"]) != ["0", "1", "2"]):
             fail(f"the adapter launcher's line is off: {line}")
+        if ("speculative" in extra) != ("acceptance_rate" in line):
+            fail(f"the speculative launcher's line is off: {line}")
         print(f"main path 4d launcher {' '.join(extra)} ({time.perf_counter() - t0:.1f} s): "
               f"{json.dumps(line)}")
 
@@ -1427,6 +1489,117 @@ def main() -> None:
         engine.run()
 
     profiled("4f batched", adapter_run)
+
+    phase("4k")
+    # 4k. elastic self-speculative decoding on the fused bank: tier 0 verifies,
+    # tier 2 (keep 0.3) drafts into bf16 pools (f32 queries over bf16 pages in
+    # the paged kernels), 8 slots, the first 16 of 4a's prompts, 32 new tokens
+    # each: (i) greedy, parallel schedule, k = 4, streams equal to a static
+    # paged run at tier 0; (iii) the same greedy runs with tier 0 drafting
+    # for itself, both schedules, acceptance above 0.5; (ii) sampled
+    # (T = 0.8), sequential schedule, k = 4
+    spec_prompts = prompts[:16]
+    spec_ecfg = dict(max_slots=8, max_len=512, block_size=16)
+
+    def spec_run(label, engine, need):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for p in spec_prompts:
+            engine.submit(p, max_new_tokens=MAX_NEW, tier=0)
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        streams = {r.uid: r.out_tokens for r in done}
+        tokens = sum(map(len, streams.values()))
+        if len(done) != len(spec_prompts) or any(len(t) != MAX_NEW for t in streams.values()):
+            fail(f"{label}: {len(done)} requests, lengths "
+                 f"{sorted({len(t) for t in streams.values()})}; each must emit {MAX_NEW}")
+        if not all(0 <= t < cfg.vocab_size for t_ in streams.values() for t in t_):
+            fail(f"{label}: generated token outside the vocabulary")
+        for name in need:
+            if counts[name] < 1:
+                fail(f"{label} never launched {name}: {counts}")
+        rate = getattr(engine, "acceptance_rate", None)
+        print(f"main path {label}: {len(done)} requests, {tokens} tokens in {secs:.3f} s = "
+              f"{tokens / secs:.2f} tok/s; decode calls {engine.decode_calls}"
+              + ("" if rate is None else f", acceptance rate {rate:.4f} "
+                 f"({engine.accepted_tokens} of {engine.drafted_tokens} drafted)"))
+        print(f"  launch counts: {json.dumps(counts)}")
+        return streams, counts
+
+    static_engine = PagedServingEngine(banks["fused"], EngineConfig(**spec_ecfg))
+    static_streams, _ = spec_run("4k static tier 0", static_engine,
+                                 ("paged_attention", "slr_matmul_stacked"))
+    spec_engine = SpeculativeEngine(banks["fused"], EngineConfig(
+        **spec_ecfg, spec_k=4, spec_target_tier=0, spec_draft_tier=2))
+    if spec_engine._dpools[0].dtype != torch.bfloat16 or not spec_engine._parallel:
+        fail("4k(i): expected bf16 draft pools and the parallel schedule")
+    par_streams, spec_par_counts = spec_run(
+        "4k(i) speculative greedy parallel k=4", spec_engine,
+        ("paged_attention_kquery", "slr_matmul_stacked", "flash_attention"))
+    if par_streams != static_streams:
+        differ = [u for u in static_streams if par_streams.get(u) != static_streams[u]]
+        fail(f"4k(i): greedy speculative streams differ from the static tier-0 run for "
+             f"requests {differ}")
+    print("  4k(i) streams equal the static tier-0 run's, token for token")
+    # the tier-2 draft confirms no guess on these random weights, so the
+    # multi-token ticks (m > 1 length resets, the realigned guesses, the used
+    # draft window) run with tier 0 drafting for itself into bf16 pools.
+    # Sequential accepts nearly every draft. Parallel guesses come from the
+    # previous tick's draft chain past the m tokens it emitted, so after a
+    # tick of m = k the next has no guess left: at k = 4 ticks alternate
+    # between 0 and 3 confirmed guesses, a rate of at most ~0.5; it is held
+    # to fewer decode calls than the static run's instead
+    for mode in ("parallel", "sequential"):
+        label = f"4k(iii) speculative greedy {mode} k=4, identical draft"
+        spec_engine = SpeculativeEngine(banks["fused"], EngineConfig(
+            **spec_ecfg, spec_k=4, spec_target_tier=0, spec_draft_tier=0,
+            spec_draft_mode=mode))
+        same_streams, _ = spec_run(label, spec_engine, ("paged_attention_kquery",
+                                                        "slr_matmul_stacked"))
+        if mode == "sequential" and spec_engine.acceptance_rate <= 0.5:
+            fail(f"{label}: acceptance rate {spec_engine.acceptance_rate:.4f}, want > 0.5")
+        if spec_engine.accepted_tokens < 1 or \
+                spec_engine.decode_calls >= static_engine.decode_calls:
+            fail(f"{label}: {spec_engine.accepted_tokens} guesses confirmed in "
+                 f"{spec_engine.decode_calls} decode calls against the static run's "
+                 f"{static_engine.decode_calls}: no tick emitted more than one token")
+        if same_streams != static_streams:
+            differ = [u for u in static_streams if same_streams.get(u) != static_streams[u]]
+            fail(f"{label}: streams differ from the static tier-0 run for requests {differ}")
+        print(f"  {label}: streams equal the static tier-0 run's, token for token")
+    spec_engine = SpeculativeEngine(banks["fused"], EngineConfig(
+        **spec_ecfg, spec_k=4, spec_target_tier=0, spec_draft_tier=2, greedy=False,
+        temperature=0.8))
+    if spec_engine._parallel:
+        fail("4k(ii): expected the sequential schedule")
+    _, spec_seq_counts = spec_run(
+        "4k(ii) speculative sampled sequential k=4 T=0.8", spec_engine,
+        ("paged_attention", "paged_attention_kquery", "slr_matmul_stacked", "flash_attention"))
+    del spec_engine
+
+    phase("4l")
+    # 4l. 4a's run with int8 pages (prefix cache and pressure tiers on): the
+    # paged kernels give way to the dequantizing gather, page copy copies the
+    # payload and both scale pools; the pools' bytes against 4a's
+    int8_engine = PagedServingEngine(banks["fused"], dataclasses.replace(bank_ecfg,
+                                                                         kv_dtype="int8"))
+    int8_stats, int8_counts = serve("4l fused bank, int8 pages", int8_engine, prompts,
+                                    tuple(range(len(BUDGETS))),
+                                    ("flash_attention", "page_copy", "slr_matmul_stacked"))
+    if int8_counts["paged_attention"] or int8_counts["paged_attention_kquery"]:
+        fail(f"4l: int8 pages must take the gather path: {int8_counts}")
+    if int8_stats["prefix_cache"]["cow_copies"] < 1 or int8_counts["page_copy"] % 4:
+        fail(f"4l: copy-on-write must copy four pools per call: {int8_stats['prefix_cache']}, "
+             f"{int8_counts['page_copy']} page-copy launches")
+    f32_bytes = kv_quant.cache_bytes(PagedServingEngine(banks["fused"], bank_ecfg).cache)
+    i8_bytes = kv_quant.cache_bytes(int8_engine.cache)
+    print(f"  4l KV pool bytes: int8 pages + f32 scales {i8_bytes} against 4a's f32 pages "
+          f"{f32_bytes} ({i8_bytes / f32_bytes:.4f}); page-copy launches "
+          f"{int8_counts['page_copy']} (4 pools per copy-on-write call)")
+    del int8_engine
     # free the serving phases' banks, so 4g's peak memory is training's own
     del engine, adapter_bank, tenants, tenant_models, banks
     torch.cuda.empty_cache()
@@ -1736,6 +1909,73 @@ def main() -> None:
     compare("first chunk", logits["card"][0][mask], logits["cpu"][0][mask])
     compare("first decode tick", logits["card"][1], logits["cpu"][1])
 
+    phase("5d")
+    # 5d. int8 pages, card against CPU. The chunk is quantized once, on the
+    # CPU, and both sides decode the first tick from those pages (the CPU's
+    # greedy tokens): the card's dequantizing gather and decode against the
+    # CPU's, within 1e-3. Each side quantizing its own chunk is held to
+    # INT8_OWN_TOL: K/V rows that differ by float rounding land on either
+    # side of an int8 rounding boundary, one quantum (1/127 of the row's
+    # largest value) apart, and the flips grow layer by layer. The witness
+    # beside it is the CPU against itself with the embedding scaled by
+    # 1 + r * N(0, 1), r = 1e-7, 1e-6, 1e-5: its flips per layer and its
+    # logit gap. Then the sampler's keyed uniforms, bit for bit.
+    def int8_chunk(p_, d_):
+        cache = model_lib.init_paged_cache(cfg, 8, 8 * 8, 16, 8, device=d_, quantized=True)
+        cache = cache._replace(block_table=torch.arange(64, dtype=torch.int32,
+                                                        device=d_).reshape(8, 8))
+        c_logits, cache = model_lib.chunk_prefill_step(
+            p_, torch.from_numpy(chunk).to(d_), torch.from_numpy(counts_np).to(d_), cache, cfg)
+        return c_logits.float().cpu(), cache
+
+    cpu = torch.device("cpu")
+    c_cpu, cache_cpu = int8_chunk(cpu_dm.params, cpu)
+    nxt8 = c_cpu[torch.arange(8), torch.from_numpy(counts_np - 1).long()].argmax(-1)[:, None]
+    nxt8 = nxt8.int()
+    shared = cache_cpu._replace(**{f: getattr(cache_cpu, f).to(dev)
+                                   for f in cache_cpu._fields})       # copied before decoding
+    _, cache_own = int8_chunk(dm.params, dev)
+    emb = cpu_dm.params["embed"]["embedding"]
+    noise = torch.from_numpy(np.random.default_rng(SEED + 5).standard_normal(
+        tuple(emb.shape), dtype=np.float32))
+    runs8 = [("cpu", cpu_dm.params, cpu, cache_cpu), ("card", dm.params, dev, shared),
+             ("card own", dm.params, dev, cache_own)]
+    for rel in (1e-7, 1e-6, 1e-5):
+        p_ = dict(cpu_dm.params, embed=dict(cpu_dm.params["embed"],
+                                            embedding=emb * (1 + rel * noise)))
+        runs8.append((f"cpu perturbed {rel:g}", p_, cpu, int8_chunk(p_, cpu)[1]))
+    i8_logits = {}
+    for name, p_, d_, cache in runs8:
+        d_logits, _ = model_lib.decode_step(p_, nxt8.to(d_), cache, cfg)
+        i8_logits[name] = d_logits.float().cpu()
+    compare("first decode tick over int8 pages (the CPU's pages)", i8_logits["card"],
+            i8_logits["cpu"])
+
+    def flips(cache):   # int8 payload elements unlike the CPU's, per layer
+        return [int((cache.k[i].cpu() != cache_cpu.k[i]).sum()
+                    + (cache.v[i].cpu() != cache_cpu.v[i]).sum()) for i in range(cfg.num_layers)]
+
+    written = int(counts_np.sum()) * cfg.num_kv_heads * cfg.head_dim * 2
+    scale8 = float(i8_logits["cpu"].abs().max())
+    own_err = float((i8_logits["card own"] - i8_logits["cpu"]).abs().max())
+    print(f"parity 5d each side quantizing its own chunk: max_abs_err {own_err:.3e} (tol "
+          f"{INT8_OWN_TOL:g} x {scale8:.3g}); int8 payload flips per layer "
+          f"{flips(cache_own)} of {written} written")
+    for name, _, _, cache in runs8[3:]:
+        err = float((i8_logits[name] - i8_logits["cpu"]).abs().max())
+        print(f"  witness, the CPU against itself with the embedding scaled by 1 + "
+              f"{name.split()[-1]} N(0,1): max_abs_err {err:.3e}; flips per layer {flips(cache)}")
+    if not bool(torch.isfinite(i8_logits["card own"]).all()) or own_err > INT8_OWN_TOL * scale8:
+        fail("5d: int8 decode from the card's own pages is further from the CPU's than "
+             "int8 rounding flips explain")
+    slots_u = torch.tensor([0, 3, 7, 2, 1000], dtype=torch.int64)
+    u_cpu = keyed_uniform((SEED, 17, 2), slots_u, cfg.vocab_size)
+    u_card = keyed_uniform((SEED, 17, 2), slots_u.to(dev), cfg.vocab_size).cpu()
+    if not torch.equal(u_cpu, u_card):
+        fail("5d: the sampler's keyed uniforms differ between the card and the CPU")
+    print(f"parity 5d keyed uniforms (seed {SEED}, step 17, salt 2, 5 slots x "
+          f"{cfg.vocab_size}): equal on the card and the CPU, bit for bit")
+
     phase("5b")
     # 5b. training, card against CPU: K = 5 train steps and one ADMM step from
     # 4g's initial state, the same batches, the same CPU-drawn sketches
@@ -1894,6 +2134,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (fused_counts[name] + bsr_counts[name] + adapter_counts[name]
+                         + spec_par_counts[name] + spec_seq_counts[name] + int8_counts[name]
                          + train_counts[name] + sweep_counts[name] + hybrid_counts[name]),
             "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
             "plain_ms": r_["plain_ms"], "bound_ms": r_["bound"][0],

@@ -10,7 +10,8 @@
 // f32 operands run as error-compensated 3xTF32 m16n8k8 products (each
 // operand hi + lo, split by masking: split_tf32_fast; the lo lo term
 // dropped: about 1e-6 relative), bf16 operands as m16n8k16 products, with
-// f32 accumulation in both. Rows of a quad: lane = 4 g + q holds rows g and
+// f32 accumulation in both; f32 queries over bf16 keys and values
+// (qk_wide, pv_wide) take the f32 route on K and V widened exactly. Rows of a quad: lane = 4 g + q holds rows g and
 // g + 8, columns 2 q and 2 q + 1 of every 8-column tile.
 #pragma once
 
@@ -106,6 +107,72 @@ __device__ __forceinline__ void qk(const __nv_bfloat16* qw, const __nv_bfloat16*
       const __nv_bfloat16* kb = ks + (j * 8 + g) * LD + k16 * 16 + 2 * q;
       const uint32_t b[2] = {ld32(kb), ld32(kb + 8)};
       mma_bf16(s[j], a, b);
+    }
+  }
+}
+
+// A bf16 K or V element widened to f32, as a TF32 operand: exact, since
+// bf16's 8 significant bits fit TF32's 11, so its 3xTF32 correction term is
+// zero and an f32 operand against it takes two products, (hi + lo) b
+__device__ __forceinline__ uint32_t widen_tf32(__nv_bfloat16 v) {
+  return __float_as_uint(__bfloat162float(v));
+}
+
+// s = Q_w K^T with f32 Q over bf16 K (f32 queries over bf16 pages): Q split
+// as in the f32 route, each K element widened; Q's rows have stride LDQ
+// (f32 staging), K's LDK (bf16 staging)
+template <int DP, int BC, int LDQ, int LDK>
+__device__ __forceinline__ void qk_wide(const float* qw, const __nv_bfloat16* ks,
+                                        float (&s)[BC / 8][4]) {
+  constexpr bool split = BC / 8 < 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float c[split ? BC / 8 : 1][4] = {};
+#pragma unroll
+  for (int k8 = 0; k8 < DP / 8; ++k8) {
+    const float* qa = qw + g * LDQ + k8 * 8 + q;
+    uint32_t ah[4], al[4];
+    split_tf32_fast(qa[0], ah[0], al[0]);
+    split_tf32_fast(qa[8 * LDQ], ah[1], al[1]);
+    split_tf32_fast(qa[4], ah[2], al[2]);
+    split_tf32_fast(qa[8 * LDQ + 4], ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < BC / 8; ++j) {
+      const __nv_bfloat16* kb = ks + (j * 8 + g) * LDK + k8 * 8 + q;
+      const uint32_t b[2] = {widen_tf32(kb[0]), widen_tf32(kb[4])};
+      if constexpr (split)
+        mma_tf32(c[j], al, b);
+      else
+        mma_tf32(s[j], al, b);
+      mma_tf32(s[j], ah, b);
+    }
+  }
+  if constexpr (split) {
+#pragma unroll
+    for (int j = 0; j < BC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += c[j][e];
+  }
+}
+
+// o += P V with f32 P over bf16 V: P split as in the f32 route, each V
+// element widened (rows of stride LD, bf16 staging)
+template <int DP, int BC, int LD>
+__device__ __forceinline__ void pv_wide(const float (&p)[BC / 8][4], const __nv_bfloat16* vs,
+                                        float (&o)[DP / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < BC / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    split_tf32_fast(p[kk][0], ah[0], al[0]);
+    split_tf32_fast(p[kk][2], ah[1], al[1]);
+    split_tf32_fast(p[kk][1], ah[2], al[2]);
+    split_tf32_fast(p[kk][3], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < DP / 8; ++nt) {
+      const __nv_bfloat16* vb = vs + (kk * 8 + 2 * q) * LD + nt * 8 + g;
+      const uint32_t b[2] = {widen_tf32(vb[0]), widen_tf32(vb[LD])};
+      mma_tf32(o[nt], al, b);
+      mma_tf32(o[nt], ah, b);
     }
   }
 }

@@ -47,10 +47,21 @@
 // calls; the grid comes from nb on the host (no host sync, capturable in a
 // CUDA graph). Masked scores contribute exactly zero; the output is q.dtype
 // with the denominator floored at 1e-30.
+//
+// Three instances: f32 q over f32 pools, bf16 over bf16, and f32 q over bf16
+// pools (a bf16 page pool under an f32 model, the speculative engine's draft
+// pools). The last stages its K and V chunks in bf16 as the bf16 instance
+// does (so its chunk and segment plan are the bf16 pool's: paged_plan gets
+// the pool's itemsize) and widens each element to f32 exactly as its
+// fragments load (qk_wide, pv_wide in attention_tile.cuh): the f32 route on
+// the widened values, which is the Pallas kernels' astype(f32) per tile. q
+// is never rounded to bf16.
 #include <stdint.h>
 
 #include <climits>
 #include <cmath>
+
+#include <type_traits>
 
 #include <cooperative_groups.h>
 
@@ -70,8 +81,8 @@ constexpr int kKeyWarps = kWarps / kRowWarps;
 constexpr int kRows = 16 * kRowWarps;
 constexpr int kMaxSeg = 8;    // segments per row tile = blocks per cluster (the portable limit)
 
-// keys per chunk: 64, or 32 for f32 at D > 128, where two slots of 64 f32
-// K and V rows would not fit beside the Q tile (paged_plan's chunk)
+// keys per chunk: 64, or 32 for f32 pools at D > 128, where two slots of 64
+// f32 K and V rows would not fit beside the Q tile (paged_plan's chunk)
 template <typename T>
 __host__ __device__ constexpr int chunk_keys(int dp) {
   return sizeof(T) == 4 && dp > 128 ? 32 : 64;
@@ -89,17 +100,19 @@ struct PagedArgs {
 };
 
 // One instance's shared memory: two chunks of key offsets, the Q tile
-// (kRows, LD), then two slots of (K, V) chunks (BC, LD) - or one, for a
-// segment of one chunk, the launch allocating no more; after the walk the
-// same bytes hold the warps' partials (o, m, l) and the block's (m, l).
-template <typename T, int DP>
+// (kRows, LDQ) of T, then two slots of (K, V) chunks (BC, LD) of the pool's
+// TK - or one, for a segment of one chunk, the launch allocating no more;
+// after the walk the same bytes hold the warps' partials (o, m, l) and the
+// block's (m, l).
+template <typename T, typename TK, int DP>
 struct Tile {
-  static constexpr int BC = chunk_keys<T>(DP);   // keys per chunk
+  static constexpr int BC = chunk_keys<TK>(DP);  // keys per chunk
   static constexpr int BCW = BC / kKeyWarps;     // keys of a chunk per warp
-  static constexpr int LD = row_stride<T>(DP);
+  static constexpr int LDQ = row_stride<T>(DP);
+  static constexpr int LD = row_stride<TK>(DP);
   static constexpr int koff_bytes = 2 * BC * (int)sizeof(int64_t);
-  static constexpr int q_bytes = (int)sizeof(T) * LD * kRows;
-  static constexpr int slot_bytes = (int)sizeof(T) * LD * 2 * BC;
+  static constexpr int q_bytes = (int)sizeof(T) * LDQ * kRows;
+  static constexpr int slot_bytes = (int)sizeof(TK) * LD * 2 * BC;
   static constexpr int part_bytes =
       4 * (kKeyWarps * kRows * DP + 2 * kKeyWarps * kRows + 2 * kRows);
   // the bytes of a launch whose walk uses `slots` slots
@@ -112,15 +125,16 @@ struct Tile {
   static_assert(smem(2) <= 232448, "two slots fit a block's shared memory");
 };
 
-// grid (nseg, row tiles x Hkv, B), clusters of (nseg, 1, 1) when nseg > 1
-template <typename T, int DP>
+// grid (nseg, row tiles x Hkv, B), clusters of (nseg, 1, 1) when nseg > 1;
+// q and out of T, the pools of TK
+template <typename T, typename TK, int DP>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedArgs a) {
-  using L = Tile<T, DP>;
-  constexpr int BC = L::BC, BCW = L::BCW, LD = L::LD;
+  using L = Tile<T, TK, DP>;
+  constexpr int BC = L::BC, BCW = L::BCW, LDQ = L::LDQ, LD = L::LD;
   extern __shared__ __align__(16) unsigned char smem[];
   int64_t* koff = reinterpret_cast<int64_t*>(smem);                 // (2, BC)
-  T* qs = reinterpret_cast<T*>(smem + L::koff_bytes);               // (kRows, LD)
-  T* kvs = qs + kRows * LD;                                          // slot c & 1: K, then V
+  T* qs = reinterpret_cast<T*>(smem + L::koff_bytes);               // (kRows, LDQ)
+  TK* kvs = reinterpret_cast<TK*>(smem + L::koff_bytes + L::q_bytes);  // slot c & 1: K, then V
 
   cg::cluster_group cluster = cg::this_cluster();
   const int s = static_cast<int>(cluster.block_rank());   // the block's segment
@@ -137,8 +151,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
   const int seg_end = min(seg0 + a.seg_keys, last_key(n_rows - 1) + 1);
   const int n_chunks = seg_end > seg0 ? (seg_end - seg0 + BC - 1) / BC : 0;
   const T* q = static_cast<const T*>(a.q);
-  const T* kp = static_cast<const T*>(a.kp);
-  const T* vp = static_cast<const T*>(a.vp);
+  const TK* kp = static_cast<const TK*>(a.kp);
+  const TK* vp = static_cast<const TK*>(a.vp);
   const int* tab = a.table + (int64_t)b * a.nb;
   // element offset of tile row i (query r / group, head h group + r % group)
   auto row_off = [&](int i) -> int64_t {
@@ -157,12 +171,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
   // chunk c's K and V rows into slot c & 1: 16-byte copies of the segment's
   // keys, zeros past its end
   auto stage_chunk = [&](int c) {
-    T* ks = kvs + (c & 1) * 2 * BC * LD;
-    T* vs = ks + BC * LD;
+    TK* ks = kvs + (c & 1) * 2 * BC * LD;
+    TK* vs = ks + BC * LD;
     const int64_t* ko = koff + (c & 1) * BC;
     const int n_live = seg_end - seg0 - c * BC;
     if (a.vec) {
-      constexpr int V = 16 / (int)sizeof(T), CPR = DP / V;
+      constexpr int V = 16 / (int)sizeof(TK), CPR = DP / V;
       for (int e = tid; e < BC * CPR; e += kThreads) {
         const int i = e / CPR, col = (e % CPR) * V;
         const int64_t off = ko[i];
@@ -175,8 +189,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
         const int i = e / DP, col = e % DP;
         const int64_t off = ko[i];
         const bool live = i < n_live && col < a.d;
-        ks[i * LD + col] = live ? kp[off + col] : from_f32<T>(0.f);
-        vs[i * LD + col] = live ? vp[off + col] : from_f32<T>(0.f);
+        ks[i * LD + col] = live ? kp[off + col] : from_f32<TK>(0.f);
+        vs[i * LD + col] = live ? vp[off + col] : from_f32<TK>(0.f);
       }
     }
   };
@@ -194,12 +208,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
     for (int e = tid; e < kRows * CPR; e += kThreads) {
       const int i = e / CPR, col = (e % CPR) * V;
       const bool live = i < n_rows && col < a.d;
-      cp_async16(qs + i * LD + col, live ? q + row_off(i) + col : q, live ? 16 : 0);
+      cp_async16(qs + i * LDQ + col, live ? q + row_off(i) + col : q, live ? 16 : 0);
     }
   } else {
     for (int e = tid; e < kRows * DP; e += kThreads) {
       const int i = e / DP, col = e % DP;
-      qs[i * LD + col] = i < n_rows && col < a.d ? q[row_off(i) + col] : from_f32<T>(0.f);
+      qs[i * LDQ + col] = i < n_rows && col < a.d ? q[row_off(i) + col] : from_f32<T>(0.f);
     }
   }
   if (tid < BC) koff[tid] = key_off(0);
@@ -215,9 +229,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
     if (c + 2 < n_chunks && tid < BC) koff[(c & 1) * BC + tid] = key_off(c + 2);
     const int c0 = seg0 + c * BC + wk * BCW;   // the warp's first key of the chunk
     if (!warp_live || c0 > last_n) continue;   // no row of the warp sees these keys
-    const T* ks = kvs + (c & 1) * 2 * BC * LD + wk * BCW * LD;
+    const TK* ks = kvs + (c & 1) * 2 * BC * LD + wk * BCW * LD;
     float sc[BCW / 8][4] = {};
-    qk<DP, BCW, LD>(qs + wrow * LD, ks, sc);
+    if constexpr (std::is_same_v<T, TK>)
+      qk<DP, BCW, LD>(qs + wrow * LDQ, ks, sc);
+    else
+      qk_wide<DP, BCW, LDQ, LD>(qs + wrow * LDQ, ks, sc);
     const bool edge = c0 + BCW - 1 > last_0;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -231,7 +248,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
     online_softmax<DP, BCW>(sc, mx, m, l, o);
-    pv<DP, BCW, LD>(sc, ks + BC * LD, o);
+    if constexpr (std::is_same_v<T, TK>)
+      pv<DP, BCW, LD>(sc, ks + BC * LD, o);
+    else
+      pv_wide<DP, BCW, LD>(sc, ks + BC * LD, o);
   }
 
 #pragma unroll
@@ -323,13 +343,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
   if (a.nseg > 1) cluster.sync();   // no block leaves while a peer reads its part
 }
 
-template <typename T, int DP>
+template <typename T, typename TK, int DP>
 cudaError_t launch_dp(const PagedArgs& a, int b, cudaStream_t stream) {
-  using L = Tile<T, DP>;
+  using L = Tile<T, TK, DP>;
   if (a.seg_keys % L::BC) return cudaErrorInvalidValue;
   const int64_t tiles = ((int64_t)a.kq * (a.hq / a.hkv) + kRows - 1) / kRows;
   if (tiles * a.hkv > 65535 || b > 65535) return cudaErrorInvalidValue;
-  auto kernel = paged_attention_kernel<T, DP>;
+  auto kernel = paged_attention_kernel<T, TK, DP>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::smem(2));
   if (err != cudaSuccess) return err;
@@ -350,16 +370,19 @@ cudaError_t launch_dp(const PagedArgs& a, int b, cudaStream_t stream) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TK>
 cudaError_t launch(PagedArgs a, int b, cudaStream_t stream) {
-  a.vec = (a.d * (int)sizeof(T)) % 16 == 0 &&
+  a.vec = (a.d * (int)sizeof(T)) % 16 == 0 && (a.d * (int)sizeof(TK)) % 16 == 0 &&
           (reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.kp) |
            reinterpret_cast<uintptr_t>(a.vp)) % 16 == 0;
-  if (a.d <= 64) return launch_dp<T, 64>(a, b, stream);
-  if (a.d <= 80) return launch_dp<T, 80>(a, b, stream);
-  if (a.d <= 128) return launch_dp<T, 128>(a, b, stream);
-  return launch_dp<T, 256>(a, b, stream);
+  if (a.d <= 64) return launch_dp<T, TK, 64>(a, b, stream);
+  if (a.d <= 80) return launch_dp<T, TK, 80>(a, b, stream);
+  if (a.d <= 128) return launch_dp<T, TK, 128>(a, b, stream);
+  return launch_dp<T, TK, 256>(a, b, stream);
 }
+
+// the dtype code of f32 q and out over bf16 pools (kernels/paged_attention.py)
+constexpr int kF32OverBF16 = 2;
 
 int run(const void* q, const void* kp, const void* vp, const int* table, const int* lengths,
         void* out, int b, int hq, int hkv, int kq, int d, int n_pages, int bs, int nb,
@@ -374,8 +397,9 @@ int run(const void* q, const void* kp, const void* vp, const int* table, const i
                     static_cast<int>(nseg), 0,
                     static_cast<float>(1.0 / std::sqrt(static_cast<double>(d))) * kLog2e};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch<float>(a, b, s);
-  if (dtype == kBF16) return launch<__nv_bfloat16>(a, b, s);
+  if (dtype == kF32) return launch<float, float>(a, b, s);
+  if (dtype == kBF16) return launch<__nv_bfloat16, __nv_bfloat16>(a, b, s);
+  if (dtype == kF32OverBF16) return launch<float, __nv_bfloat16>(a, b, s);
   return cudaErrorInvalidValue;
 }
 

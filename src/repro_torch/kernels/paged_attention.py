@@ -9,8 +9,12 @@ mask hides whatever they hold. Query i of slot b sits at ``lengths[b] + i``
 
 Both wrappers run the plain version for CPU tensors and the CUDA kernel
 ``csrc/paged_attention.cu`` for CUDA tensors, its key axis cut by
-``paged_plan`` from the table shape, D and dtype: never from B or the
-lengths, so a slot's output is bit for bit the same alone or in any batch.
+``paged_plan`` from the table shape, D and the pools' dtype: never from B or
+the lengths, so a slot's output is bit for bit the same alone or in any batch.
+q and the pools are float32 and float32, bfloat16 and bfloat16, or float32 q
+over bfloat16 pools (a bf16 page pool under an f32 model): the kernel then
+widens each K and V element to f32 exactly, as the Pallas kernels widen each
+tile, and the output is float32.
 Decode splits the key axis into segments summed by a thread-block cluster;
 k-query walks it whole (one segment), its 16-row tiles filling the card.
 """
@@ -24,7 +28,8 @@ from . import ref
 from ._build import check_cuda, dtype_code, launch
 
 __all__ = ["paged_attention", "paged_attention_kquery", "paged_plan", "PagedPlan",
-           "MAX_HEAD_DIM", "MAX_SEGMENTS", "MIN_SEGMENT_CHUNKS"]
+           "dtype_route", "takes_pages", "MAX_HEAD_DIM", "MAX_SEGMENTS",
+           "MIN_SEGMENT_CHUNKS"]
 
 MAX_HEAD_DIM = 256
 MAX_SEGMENTS = 8        # segments of the key axis: blocks per cluster, the portable limit
@@ -44,8 +49,9 @@ class PagedPlan:
 
 def paged_plan(nb: int, bs: int, d: int, itemsize: int,
                max_segments: int = MAX_SEGMENTS) -> PagedPlan:
-    """Segments of a table of ``nb`` pages of ``bs`` positions: chunks of 64
-    keys (32 for f32 at D > 128: ``chunk_keys`` in the source), at least
+    """Segments of a table of ``nb`` pages of ``bs`` positions, ``itemsize``
+    the pools' (the staged K and V rows'): chunks of 64 keys (32 for f32
+    pools at D > 128: ``chunk_keys`` in the source), at least
     ``MIN_SEGMENT_CHUNKS`` per segment and as few more as keep the segments
     within ``max_segments`` (at most the card's cluster limit). Never reads
     B or a slot's length."""
@@ -55,13 +61,38 @@ def paged_plan(nb: int, bs: int, d: int, itemsize: int,
     return PagedPlan(chunk, per_seg * chunk, -(-chunks // per_seg))
 
 
+F32_OVER_BF16 = 2   # the kernel's dtype code of float32 q over bfloat16 pools
+# the (q, pool) dtype pairs the paged kernels read, with the kernel's dtype code
+_PAGE_PAIRS = {(torch.float32, torch.float32): dtype_code(torch.float32),
+               (torch.bfloat16, torch.bfloat16): dtype_code(torch.bfloat16),
+               (torch.float32, torch.bfloat16): F32_OVER_BF16}
+
+
+def takes_pages(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> bool:
+    """Whether the paged kernels read pools of ``kv_dtype`` under queries of
+    ``q_dtype``: float32 over float32, bfloat16 over bfloat16, or float32
+    over bfloat16. int8 pools (quantized, with scale pools) never: they take
+    the dequantizing page gather, as in the JAX package. The one place that
+    decides which pages reach the kernels: the attention layer, the engines'
+    constructors and the launcher ask it."""
+    return (q_dtype, kv_dtype) in _PAGE_PAIRS
+
+
+def dtype_route(name: str, q_dtype: torch.dtype, k_dtype: torch.dtype,
+                v_dtype: torch.dtype) -> int:
+    """The kernel's dtype code for q over k/v pools (``takes_pages``);
+    anything else is refused by name."""
+    if k_dtype == v_dtype and takes_pages(q_dtype, k_dtype):
+        return _PAGE_PAIRS[(q_dtype, k_dtype)]
+    raise TypeError(f"{name}: q of {q_dtype} over k/v pools of {k_dtype}/{v_dtype}; the "
+                    "kernel takes float32 over float32, bfloat16 over bfloat16, or float32 "
+                    "q over bfloat16 pools")
+
+
 def _check(name, q, k_pages, v_pages, block_table, lengths, kq):
     dev = check_cuda(name, q=q, k_pages=k_pages, v_pages=v_pages,
                      block_table=block_table, lengths=lengths)
-    code = dtype_code(q.dtype)
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"{name}: q and the pools must share one dtype, got "
-                        f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    code = dtype_route(name, q.dtype, k_pages.dtype, v_pages.dtype)
     if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError(f"{name}: block_table and lengths must be int32")
     n, hkv, bs, d = k_pages.shape
@@ -90,7 +121,7 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths) -> torch.Tensor:
         raise ValueError(f"paged_attention: q must be (B, Hq, D), got {tuple(q.shape)}")
     dev, code, (b, hq, hkv, d, n, bs, nb) = _check(
         "paged_attention", q, k_pages, v_pages, block_table, lengths, 1)
-    plan = paged_plan(nb, bs, d, q.element_size())
+    plan = paged_plan(nb, bs, d, k_pages.element_size())
     out = torch.empty_like(q)
     launch("paged_attention_launch", dev, q.data_ptr(), k_pages.data_ptr(),
            v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
@@ -113,7 +144,7 @@ def paged_attention_kquery(q, k_pages, v_pages, block_table, lengths) -> torch.T
     kq = q.shape[2]
     dev, code, (b, hq, hkv, d, n, bs, nb) = _check(
         "paged_attention_kquery", q, k_pages, v_pages, block_table, lengths, kq)
-    plan = paged_plan(nb, bs, d, q.element_size(), max_segments=1)
+    plan = paged_plan(nb, bs, d, k_pages.element_size(), max_segments=1)
     out = torch.empty_like(q)
     launch("paged_attention_kquery_launch", dev, q.data_ptr(), k_pages.data_ptr(),
            v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),

@@ -1,6 +1,7 @@
 """Serving launcher: materialize the HPA budget spectrum of one SLR state as
 ONE ModelBank and serve a batch of requests through one engine (port of
-``repro/launch/serve.py``, ``--engine paged`` and ``--engine reference``).
+``repro/launch/serve.py``, ``--engine paged``, ``speculative`` and
+``reference``).
 
 ``--keep-ratios`` names the bank's budget tiers (tier 0 = largest). Requests
 spread round-robin across the tiers (pin them all with ``--tier``); the
@@ -10,6 +11,14 @@ before evicting. ``--ckpt-dir`` serves the parameters and SLR state of the
 latest training checkpoint there (the JAX package's format, written by
 either package's trainer); without one the SLR state is the fresh all-zero
 one, so every SLR site takes the zero corner, as in the JAX launcher.
+
+``--engine speculative`` (or any ``--spec-k`` > 0, which implies it; k is 4
+by default) serves the largest keep as the verifying target and drafts with
+the tier at ``--spec-budget`` (the other ``--keep-ratios`` are not built, and
+a note line says so); ``--spec-adaptive`` adapts k to the acceptance rate,
+which the JSON line reports with ``tokens_per_step``. ``--kv-dtype int8``
+stores quantized KV pages. As in the JAX launcher there is no temperature
+switch: the launcher serves greedy.
 
 ``--adapters N`` serves N tenants instead: HPA views of the state at keeps
 ``linspace(1.0, 0.4, N)``, each adapterized onto the keep-1.0 base, as ONE
@@ -29,14 +38,17 @@ TTFT percentiles come from the requests' timestamps.
       --keep-ratios 1.0,0.6,0.3 --fmt fused --prefix-cache --tier-policy pressure
   python -m repro_torch.launch.serve --arch salaad_llama_60m --fmt fused \\
       --adapters 3 --max-resident-adapters 2
+  python -m repro_torch.launch.serve --arch salaad_llama_60m --fmt fused \\
+      --keep-ratios 1.0,0.3 --engine speculative --spec-k 4 --spec-budget 0.3
   python -m repro_torch.launch.serve --arch zamba2_2p7b --keep-ratios 1.0,0.5 --fmt fused
 
 Tensors live on the card unless ``--device cpu`` is given (with
 ``--reduced``, for a run of the plain versions on the CPU). On the card the
-paged engine runs the CUDA attention kernels (``kernel_impl='pallas'``:
-flash prefill, paged decode and k-query) when ``--kv-dtype`` is the model's
-dtype, since those kernels read KV pages in it; pages in another dtype, the
-reference engine and the CPU keep the config's attention path.
+paged engines run the CUDA attention kernels (``kernel_impl='pallas'``:
+flash prefill, paged decode and k-query) over pages in the model's dtype or
+bf16 pages under an f32 model; int8 pages take the flash prefill and the
+dequantizing page gather; the reference engine and the CPU keep the
+config's attention path.
 """
 from __future__ import annotations
 
@@ -56,22 +68,24 @@ from ..device import resolve_device
 from ..models import model as model_lib
 from ..serving.adapters import AdapterBank, adapterize
 from ..serving.deployed import DeployedModel
+from ..kernels.paged_attention import takes_pages
 from ..serving.elastic import ModelBank, format_capability_table
 from ..serving.engine import (
     BATCHED_FAMILIES,
     EngineConfig,
     PagedServingEngine,
     ReferenceEngine,
+    decode_emitted_tokens,
 )
 from ..serving.slr_params import deployment_report
+from ..serving.speculative import SpeculativeEngine
 from ..train import checkpoint
 
-ENGINES = {"paged": PagedServingEngine, "reference": ReferenceEngine}
+ENGINES = {"paged": PagedServingEngine, "speculative": SpeculativeEngine,
+           "reference": ReferenceEngine}
 
 # switches whose code paths come with later slices of the port
 _LATER = {
-    "spec_k": "--spec-k (speculative decoding is a later slice)",
-    "spec_adaptive": "--spec-adaptive (speculative decoding is a later slice)",
     "mesh": "--mesh (tensor-parallel serving is a later slice)",
     "trace_out": "--trace-out (the request tracer comes with the telemetry slice)",
     "trace_events": "--trace-events (the request tracer comes with the telemetry slice)",
@@ -143,6 +157,10 @@ def serve_batch(engine, vocab: int, requests: int, max_new: int, seed: int,
     if getattr(engine, "tier_controller", None) is not None:
         stats["downshift_ticks"] = engine.downshift_ticks
         stats["tier_switches"] = engine.tier_switches
+    if hasattr(engine, "acceptance_rate"):
+        stats["acceptance_rate"] = round(engine.acceptance_rate, 3)
+        stats["tokens_per_step"] = round(
+            decode_emitted_tokens(done) / max(engine.decode_calls, 1), 2)
     return stats
 
 
@@ -189,15 +207,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slo-ms", type=float, default=None,
                     help="TTFT SLO; reports attainment and sets request deadlines")
     ap.add_argument("--kv-dtype", default="float32", choices=("float32", "bfloat16", "int8"),
-                    help="KV storage dtype (int8 pages are a later slice)")
+                    help="KV page dtype; int8 pages are quantized per (position, head)")
     ap.add_argument("--tier", type=int, default=None,
                     help="pin every request to this bank tier (default: round-robin)")
     ap.add_argument("--tier-policy", default="static", choices=("static", "pressure"),
                     help="pressure: downshift the serving tier under page pressure "
                          "before evicting")
-    ap.add_argument("--spec-k", type=int, default=0)
-    ap.add_argument("--spec-budget", type=float, default=0.4)
-    ap.add_argument("--spec-adaptive", action="store_true")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="draft tokens per tick; > 0 implies --engine speculative "
+                         "(which defaults to 4)")
+    ap.add_argument("--spec-budget", type=float, default=0.4,
+                    help="HPA keep of the speculative engine's draft tier")
+    ap.add_argument("--spec-adaptive", action="store_true",
+                    help="adapt the draft window k to the observed acceptance rate")
     ap.add_argument("--trace-out", default=None)
     ap.add_argument("--trace-events", default=None)
     ap.add_argument("--metrics-port", type=int, default=None)
@@ -217,20 +239,21 @@ def build_parser() -> argparse.ArgumentParser:
 def _reject_later_slices(ap: argparse.ArgumentParser, args):
     asked = [msg for name, msg in _LATER.items() if getattr(args, name) != ap.get_default(name)]
     if args.engine not in ENGINES:
-        asked.append(f"--engine {args.engine} (the port serves through the paged and "
-                     "reference engines; the other engines are later slices)")
-    if args.kv_dtype == "int8":
-        asked.append("--kv-dtype int8 (quantized pages are a later slice)")
+        asked.append(f"--engine {args.engine} (the port serves through the paged, "
+                     "speculative and reference engines; the other engines are later "
+                     "slices)")
     if asked:
         raise ValueError(f"not ported yet: {'; '.join(asked)}")
 
 
 def attention_impl(cfg, device, kv_dtype: str, engine=PagedServingEngine) -> str:
     """The attention path the launcher serves ``cfg`` with: the CUDA kernels
-    on the card when the paged engine's pages hold the model's dtype, else
-    the config's."""
-    if engine is PagedServingEngine and device.type == "cuda" \
-            and getattr(torch, kv_dtype) == cfg.param_dtype:
+    on the card under the paged engines when their kernels take the pages
+    (the model's dtype, bf16 under f32, or int8 pages, which take the flash
+    prefill and the dequantizing gather), else the config's."""
+    if not (issubclass(engine, PagedServingEngine) and device.type == "cuda"):
+        return cfg.kernel_impl
+    if kv_dtype == "int8" or takes_pages(cfg.param_dtype, getattr(torch, kv_dtype)):
         return "pallas"
     return cfg.kernel_impl
 
@@ -244,6 +267,11 @@ def main(argv=None):
         cfg = cfg.reduced()
     device = resolve_device(args.device)
     engine_cls = ENGINES[args.engine]
+    spec_k = args.spec_k
+    if engine_cls is SpeculativeEngine and spec_k == 0:
+        spec_k = 4
+    if spec_k > 0 and engine_cls is PagedServingEngine:
+        engine_cls = SpeculativeEngine            # --spec-k implies speculation
     if engine_cls is not ReferenceEngine and cfg.family not in BATCHED_FAMILIES:
         # the capability line a constructor-time error would carry; features
         # the reference engine lacks then fail loudly in its constructor
@@ -267,6 +295,7 @@ def main(argv=None):
         num_blocks=args.num_blocks, kv_dtype=args.kv_dtype,
         prefill_chunk=args.prefill_chunk, prefix_cache=args.prefix_cache,
         prefix_min_hit_pages=args.prefix_min_hit, tier_policy=args.tier_policy,
+        spec_k=spec_k, spec_adaptive=args.spec_adaptive,
         adapters=args.adapters > 0, max_resident_adapters=args.max_resident_adapters,
     )
 
@@ -294,9 +323,23 @@ def main(argv=None):
         print(json.dumps({"budget": None, "fmt": "dense-init", **stats}))
         return
 
+    keeps = sorted({float(k) for k in args.keep_ratios.split(",")}, reverse=True)
+    if engine_cls is SpeculativeEngine:
+        # ONE target tier verifies, the --spec-budget tier drafts
+        target_keep = keeps[0]
+        draft_keep = min(args.spec_budget, target_keep)
+        dropped = [k for k in keeps[1:] if k != draft_keep]
+        if dropped:
+            print(json.dumps({
+                "note": "speculative mode serves ONE target tier: "
+                        f"keep={target_keep} verifies, keep={draft_keep} (--spec-budget) "
+                        f"drafts; --keep-ratios {dropped} not materialized",
+            }))
+        keeps = [target_keep] + ([draft_keep] if draft_keep < target_keep else [])
+        ecfg.spec_draft_tier = -1                 # the cheapest tier drafts
+
     # ONE HPA truncation + deployment per budget: the bank serves these views
     # and the same pass yields the per-tier accounting
-    keeps = sorted({float(k) for k in args.keep_ratios.split(",")}, reverse=True)
     models, tier_rows = [], []
     for keep in keeps:
         slr_c, rep = hpa_keep_ratio(slr, blocks, keep, args.kappa)
@@ -312,7 +355,10 @@ def main(argv=None):
         row.update(tier=tier.index, name=tier.name, served_bytes=tier.param_bytes)
 
     engine = engine_cls(bank, ecfg)
-    tiers = (args.tier,) if args.tier is not None else tuple(range(len(bank)))
+    tiers: tuple = (args.tier,)
+    if args.tier is None:
+        # the speculative engine pins every slot to its target tier
+        tiers = (None,) if engine_cls is SpeculativeEngine else tuple(range(len(bank)))
     stats = serve_batch(engine, cfg.vocab_size, args.requests, args.max_new, args.seed,
                         args.slo_ms, tiers=tiers)
     print(json.dumps({

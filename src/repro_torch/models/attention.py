@@ -9,8 +9,14 @@ Paths, one set of weights:
     PyTorch (``models/flash_vjp.py``), the JAX trainer's path;
   * no cache, ``kernel_impl='dense'``: plain causal masked softmax;
   * paged cache, ``kernel_impl='pallas'``: the CUDA paged kernels
-    (``kernels/ops.py``), single-query for decode and k-query for chunks;
-  * paged cache otherwise: gather the slot's pages, then masked einsum;
+    (``kernels/ops.py``), single-query for decode and k-query for chunks
+    and verify windows, over the pages they take
+    (``kernels/paged_attention.py::takes_pages``: the model's dtype, or bf16
+    pages under an f32 model; the engines refuse any other float pages under
+    ``'pallas'`` when they are built);
+  * paged cache otherwise, and int8 pages under any ``kernel_impl`` (as in
+    the JAX package, whose Pallas path needs ``k_scale is None``): gather the
+    slot's pages (dequantized), then masked einsum;
   * contiguous cache (``KVCache``, one scalar length for the batch): the t
     new positions insert at the length; t == 1 attends by masked einsum,
     t > 1 (prefill into a cache) through ``models/flash_vjp.py`` with the
@@ -28,7 +34,9 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import ops
+from ..kernels.paged_attention import takes_pages
 from ..kernels.ref import NEG_INF, _gather_pages, attention_ref
+from ..serving.kv_quant import quantize_kv
 from .flash_vjp import flash_attention_vjp
 from .layers import apply_rope, apply_weight
 
@@ -49,13 +57,17 @@ class PagedLayerCache(NamedTuple):
 
     Token position j of slot b lives in page ``block_table[b, j // bs]`` at
     offset ``j % bs``. Entries ``>= num_pages`` are unmapped: writes to them
-    drop, gathers clamp (the length mask hides what they read).
+    drop, gathers clamp (the length mask hides what they read). With
+    ``k_scale``/``v_scale`` the payload pools are int8, dequantized per
+    (position, head): the ``serving/kv_quant.py`` layout.
     """
 
     k: torch.Tensor            # (num_pages, Hkv, block_size, D) page pool
     v: torch.Tensor
     block_table: torch.Tensor  # (B, pages_per_slot) int32
     length: torch.Tensor       # (B,) int32 valid tokens per slot
+    k_scale: torch.Tensor | None = None   # (num_pages, Hkv, block_size, 1) f32
+    v_scale: torch.Tensor | None = None
 
 
 def paged_insert(cache: PagedLayerCache, kh: torch.Tensor, vh: torch.Tensor) -> PagedLayerCache:
@@ -63,7 +75,8 @@ def paged_insert(cache: PagedLayerCache, kh: torch.Tensor, vh: torch.Tensor) -> 
     slot, in place. Writes to unmapped pages and to positions past the
     table's capacity (``>= pages_per_slot * bs``) are dropped, as JAX's
     ``mode='drop'`` scatter drops them; ``index_put_`` would not, so the
-    dropped rows are masked out explicitly."""
+    dropped rows are masked out explicitly. Int8 pools take each (position,
+    head) row quantized, its scale into the scale pools."""
     n, _, bs, _ = cache.k.shape
     nb = cache.block_table.shape[1]
     t = kh.shape[2]
@@ -72,15 +85,30 @@ def paged_insert(cache: PagedLayerCache, kh: torch.Tensor, vh: torch.Tensor) -> 
     page = torch.gather(cache.block_table.long(), 1, blk)
     keep = (pos < nb * bs) & (page < n)
     page, off = page[keep], (pos % bs)[keep]
-    cache.k[page, :, off, :] = kh.transpose(1, 2)[keep].to(cache.k.dtype)
-    cache.v[page, :, off, :] = vh.transpose(1, 2)[keep].to(cache.v.dtype)
+    k_tok, v_tok = kh.transpose(1, 2)[keep], vh.transpose(1, 2)[keep]   # (kept, Hkv, D)
+    if cache.k_scale is not None:
+        for tok, pool, scales in ((k_tok, cache.k, cache.k_scale),
+                                  (v_tok, cache.v, cache.v_scale)):
+            q, sc = quantize_kv(tok)
+            pool[page, :, off, :] = q
+            scales[page, :, off, :] = sc
+    else:
+        cache.k[page, :, off, :] = k_tok.to(cache.k.dtype)
+        cache.v[page, :, off, :] = v_tok.to(cache.v.dtype)
     return cache._replace(length=cache.length + t)
 
 
 def paged_gather(cache: PagedLayerCache) -> tuple[torch.Tensor, torch.Tensor]:
     """Each slot's logical KV sequence, (B, Hkv, pages_per_slot * bs, D):
-    position j here holds what position j of a contiguous cache would."""
-    return _gather_pages(cache.k, cache.block_table), _gather_pages(cache.v, cache.block_table)
+    position j here holds what position j of a contiguous cache would; int8
+    pages come back dequantized in f32."""
+    def gather(pages, scales):
+        g = _gather_pages(pages, cache.block_table)
+        if scales is not None:
+            g = g.float() * _gather_pages(scales, cache.block_table)
+        return g
+
+    return gather(cache.k, cache.k_scale), gather(cache.v, cache.v_scale)
 
 
 def attention_block(
@@ -144,7 +172,7 @@ def attention_block(
                                     head_dim).to(x.dtype)
     else:
         new_cache = paged_insert(cache, kh, vh)
-        if kernel_impl == "pallas":
+        if kernel_impl == "pallas" and takes_pages(qh.dtype, cache.k.dtype):
             if t == 1:
                 out = ops.paged_attention(
                     qh[:, :, 0].contiguous(), new_cache.k, new_cache.v,

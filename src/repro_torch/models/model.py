@@ -129,7 +129,11 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None)
 
 
 def init_paged_cache(cfg, max_slots: int, num_pages: int, block_size: int,
-                     pages_per_slot: int, dtype=torch.float32, device=None):
+                     pages_per_slot: int, dtype=torch.float32, device=None,
+                     quantized: bool = False):
+    """Block-paged serving cache; ``quantized`` gives int8 pages with f32
+    scale pools."""
     _require_paged(cfg, "paged KV cache")
     return transformer.init_paged_cache(cfg, max_slots, num_pages, block_size,
-                                        pages_per_slot, dtype, resolve_device(device))
+                                        pages_per_slot, dtype, resolve_device(device),
+                                        quantized=quantized)

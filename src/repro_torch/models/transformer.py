@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels import ops
 from .attention import KVCache, PagedLayerCache, attention_block
 from .layers import apply_weight, embed, rmsnorm, swiglu
+from ..serving.kv_quant import quantize_kv
 
 __all__ = ["LMCache", "PagedKVCache", "init_lm", "layer_view", "forward", "init_cache",
            "cache_from_prefill", "init_paged_cache", "scatter_prefill_pages",
@@ -50,12 +51,16 @@ class PagedKVCache(NamedTuple):
     """Block-paged serving cache: a fixed pool of pages per layer plus a
     per-slot block table shared by all layers. Position j of slot b lives in
     page ``block_table[b, j // block_size]``, offset ``j % block_size``;
-    entries ``>= num_pages`` are unmapped."""
+    entries ``>= num_pages`` are unmapped. Int8 pools carry per-(position,
+    head) scale pools in ``k_scale``/``v_scale`` (``serving/kv_quant.py``);
+    None means float pages."""
 
     k: torch.Tensor            # (L, num_pages, Hkv, block_size, D)
     v: torch.Tensor
     block_table: torch.Tensor  # (max_slots, pages_per_slot) int32
     length: torch.Tensor       # (max_slots,) int32
+    k_scale: torch.Tensor | None = None   # (L, num_pages, Hkv, block_size, 1) f32
+    v_scale: torch.Tensor | None = None
 
     @property
     def block_size(self) -> int:
@@ -153,8 +158,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
         if isinstance(cache, LMCache):
             layer_cache = KVCache(cache.k[l], cache.v[l], cache.length)
         elif cache is not None:
+            quant = cache.k_scale is not None
             layer_cache = PagedLayerCache(cache.k[l], cache.v[l], cache.block_table,
-                                          cache.length)
+                                          cache.length,
+                                          cache.k_scale[l] if quant else None,
+                                          cache.v_scale[l] if quant else None)
         if remat:
             x, kv = checkpoint(_layer_apply, lp, x, cfg, positions, None,
                                use_reentrant=False)
@@ -188,15 +196,24 @@ def cache_from_prefill(kvs, max_len: int, dtype) -> LMCache:
 
 
 def init_paged_cache(cfg, max_slots: int, num_pages: int, block_size: int,
-                     pages_per_slot: int, dtype, device) -> PagedKVCache:
-    """Fixed page pool per layer; the whole block table starts unmapped."""
+                     pages_per_slot: int, dtype, device, quantized: bool = False) -> PagedKVCache:
+    """Fixed page pool per layer; the whole block table starts unmapped.
+    ``quantized`` makes int8 payload pools with f32 scale pools (``dtype`` is
+    then the activations', not the pages')."""
     pool = (cfg.num_layers, num_pages, cfg.num_kv_heads, block_size, cfg.head_dim)
+    payload = torch.int8 if quantized else dtype
+
+    def scales():
+        return torch.zeros(pool[:-1] + (1,), dtype=torch.float32, device=device) \
+            if quantized else None
+
     return PagedKVCache(
-        k=torch.zeros(pool, dtype=dtype, device=device),
-        v=torch.zeros(pool, dtype=dtype, device=device),
+        k=torch.zeros(pool, dtype=payload, device=device),
+        v=torch.zeros(pool, dtype=payload, device=device),
         block_table=torch.full((max_slots, pages_per_slot), num_pages, dtype=torch.int32,
                                device=device),
         length=torch.zeros((max_slots,), dtype=torch.int32, device=device),
+        k_scale=scales(), v_scale=scales(),
     )
 
 
@@ -205,7 +222,7 @@ def scatter_prefill_pages(cache: PagedKVCache, kvs, page_map: torch.Tensor) -> P
 
     ``kvs`` are the stacked prefill heads (L, B, Hkv, T, D) with T a multiple
     of the block size; ``page_map`` (B, T // bs) names each block's page, and
-    entries ``>= num_pages`` drop.
+    entries ``>= num_pages`` drop. Int8 pools take each row quantized.
     """
     kh, vh = kvs
     num_l, b, h, t, d = kh.shape
@@ -214,17 +231,23 @@ def scatter_prefill_pages(cache: PagedKVCache, kvs, page_map: torch.Tensor) -> P
         raise ValueError(f"prefill length {t} is not a multiple of block size {bs}")
     pages = page_map.reshape(-1).long()
     keep = pages < cache.num_pages
-    for pool, heads in ((cache.k, kh), (cache.v, vh)):
+    for pool, scales, heads in ((cache.k, cache.k_scale, kh), (cache.v, cache.v_scale, vh)):
         chunks = heads.reshape(num_l, b, h, t // bs, bs, d).permute(0, 1, 3, 2, 4, 5)
-        chunks = chunks.reshape(num_l, -1, h, bs, d)
-        pool[:, pages[keep]] = chunks[:, keep].to(pool.dtype)
+        chunks = chunks.reshape(num_l, -1, h, bs, d)[:, keep]
+        if scales is not None:
+            chunks, sc = quantize_kv(chunks)
+            scales[:, pages[keep]] = sc
+        pool[:, pages[keep]] = chunks.to(pool.dtype)
     return cache
 
 
 def copy_cache_pages(cache: PagedKVCache, src: torch.Tensor, dst: torch.Tensor) -> PagedKVCache:
-    """Copy whole pages ``src[i] -> dst[i]`` of every layer in both pools,
-    in place, through the page-copy kernel: the device half of prefix-cache
-    copy-on-write (the engine remaps its block table to ``dst`` host-side)."""
-    ops.page_copy(cache.k, src, dst)
-    ops.page_copy(cache.v, src, dst)
+    """Copy whole pages ``src[i] -> dst[i]`` of every layer in every pool the
+    cache carries (k, v and, for int8 pages, both scale pools: a page copied
+    without its scales would dequantize garbage), in place, through the
+    page-copy kernel: the device half of prefix-cache copy-on-write (the
+    engine remaps its block table to ``dst`` host-side)."""
+    for pool in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if pool is not None:
+            ops.page_copy(pool, src, dst)
     return cache

@@ -1,7 +1,7 @@
 """Paged serving engine: continuous batching over a block-paged KV cache,
 serving a :class:`~repro_torch.serving.elastic.ModelBank` of budget tiers
 (port of ``PagedServingEngine`` and the parts of its base class in
-``repro/serving/engine.py`` that the greedy dense path runs).
+``repro/serving/engine.py`` that the dense path runs).
 
 KV lives in a fixed pool of ``num_blocks`` pages of ``block_size`` tokens
 (``models.transformer.PagedKVCache``); a host-side :class:`BlockAllocator`
@@ -21,11 +21,21 @@ every tier of the bank serves over the one cache. Each tick:
      first and evicting a victim back to the queue when the pool runs dry (it
      resumes by re-prefilling, or by reattaching the pages it published);
   5. runs one ``decode_step`` per active tier, each masked to that tier's
-     slots, and records each active slot's greedy token.
+     slots, and records each active slot's next token.
 
 Without ``prefill_chunk`` an admission prefills the whole prompt in one
 no-cache forward (the flash attention kernel under ``kernel_impl='pallas'``)
 and scatters whole pages.
+
+Tokens are greedy, or with ``greedy=False`` sampled at ``temperature`` by
+Gumbel-max on the device (``_sample``): the noise is a pure function of
+``(seed, engine step, salt, slot id, vocab index)`` (``keyed_uniform``, a
+counter-based integer hash), so a slot's stream does not depend on the batch
+or its row order, and decode (salt 0), prefill and chunk ends (salt 1) and
+the speculative engine's draft steps (``2 + i``) and verify (``2 + k``) never
+share noise. ``kv_dtype='int8'`` stores quantized pages with per-(position,
+head) scales (``serving/kv_quant.py``), dequantized in the page gather, under
+f32 activations. ``serving/speculative.py`` subclasses this engine.
 
 Multi-tenant adapters (``serving/adapters.py``): an engine built on an
 :class:`~repro_torch.serving.adapters.AdapterBank` with
@@ -46,11 +56,11 @@ dense one. Features it cannot give raise :class:`EngineCapabilityError` at
 construction, with its ``capabilities()`` in the message.
 
 Not ported yet, each rejected with a ``ValueError`` that names it:
-speculative decoding, tensor-parallel meshes, int8 pages, sampling with a
-temperature, and the telemetry registry and tracer. The counters the JAX
-engine keeps in its registry (prefix lookups, hits, hit tokens, copy-on-write
-copies, reattached pages, tier switches, downshift ticks, adapter swaps,
-resident adapters, tokens by adapter) are plain integers here.
+tensor-parallel meshes, and the telemetry registry and tracer. The counters
+the JAX engine keeps in its registry (prefix lookups, hits, hit tokens,
+copy-on-write copies, reattached pages, tier switches, downshift ticks,
+adapter swaps, resident adapters, tokens by adapter) are plain integers
+here.
 """
 from __future__ import annotations
 
@@ -61,6 +71,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..kernels.paged_attention import takes_pages
 from ..models import model as model_lib
 from ..models import transformer as transformer_lib
 from .adapters import AdapterBank, AdapterError
@@ -69,7 +80,8 @@ from .elastic import ModelBank, TierController, TierControllerConfig
 from .prefix_cache import PrefixCache
 
 __all__ = ["Request", "RequestRejected", "EngineCapabilityError", "EngineConfig",
-           "BlockAllocator", "PagedServingEngine", "ReferenceEngine", "BATCHED_FAMILIES"]
+           "BlockAllocator", "PagedServingEngine", "ReferenceEngine", "BATCHED_FAMILIES",
+           "keyed_uniform", "unit_interval", "gumbel_argmax", "decode_emitted_tokens"]
 
 BATCHED_FAMILIES = ("dense",)   # ported cache families with per-slot lengths
 
@@ -143,9 +155,17 @@ class EngineConfig:
     tier_target_free: float = 0.25     # pressure setpoint: free-page fraction
     tier_gain: float = 4.0             # controller integral gain (tiers per unit error)
     tier_ema: float = 0.5              # smoothing of the free-fraction signal
-    # features of later slices: kept so a request for one fails loudly
     greedy: bool = True
-    spec_k: int = 0
+    temperature: float = 1.0           # used when greedy=False (on-device sampling)
+    seed: int = 0                      # keys the sampler's noise
+    # speculative engine only (serving/speculative.py):
+    spec_k: int = 0                    # draft tokens per tick; 0 = speculation off
+    spec_adaptive: bool = False        # adapt k from the observed acceptance rate
+    spec_draft_mode: str = "auto"      # auto | parallel | sequential
+    spec_draft_kv_dtype: str = "bfloat16"  # the draft's own page pools
+    spec_target_tier: int = 0          # bank tier that verifies
+    spec_draft_tier: int = -1          # bank tier that drafts (-1 = cheapest)
+    # features of later slices: kept so a request for one fails loudly
     mesh: str | None = None
     adapters: bool = False             # serve an AdapterBank (serving/adapters.py)
     max_resident_adapters: int | None = None  # device adapter-pool rows; None = all
@@ -160,11 +180,9 @@ class EngineConfig:
         if self.num_blocks is not None and self.num_blocks < 1:
             raise ValueError(f"num_blocks={self.num_blocks} must be positive (or None "
                              "for a max_slots * max_len worth of pages)")
-        if self.kv_dtype == "int8":
-            raise ValueError("kv_dtype='int8' (quantized pages) is not ported yet")
-        if self.kv_dtype not in _KV_DTYPES:
+        if self.kv_dtype not in _KV_DTYPES and self.kv_dtype != "int8":
             raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}; expected one of "
-                             f"{sorted(_KV_DTYPES)}")
+                             f"{sorted(_KV_DTYPES) + ['int8']}")
         if self.evict_policy not in _EVICT_POLICIES:
             raise ValueError(f"unknown evict_policy {self.evict_policy!r}; "
                              f"expected one of {_EVICT_POLICIES}")
@@ -188,6 +206,14 @@ class EngineConfig:
             raise ValueError(f"tier_gain={self.tier_gain} must be positive")
         if not 0.0 <= self.tier_ema < 1.0:
             raise ValueError(f"tier_ema={self.tier_ema} outside [0, 1)")
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k={self.spec_k} must be >= 0")
+        if self.spec_draft_mode not in ("auto", "parallel", "sequential"):
+            raise ValueError(f"unknown spec_draft_mode {self.spec_draft_mode!r}; expected "
+                             "auto | parallel | sequential")
+        if self.spec_draft_kv_dtype not in _KV_DTYPES and self.spec_draft_kv_dtype != "int8":
+            raise ValueError(f"unknown spec_draft_kv_dtype {self.spec_draft_kv_dtype!r}; "
+                             f"expected one of {sorted(_KV_DTYPES) + ['int8']}")
         if self.max_resident_adapters is not None:
             if not isinstance(self.max_resident_adapters, int) \
                     or self.max_resident_adapters < 1:
@@ -197,8 +223,6 @@ class EngineConfig:
                 raise ValueError("max_resident_adapters sizes the AdapterBank device pool "
                                  "and needs adapters=True")
         later = {
-            "greedy=False (sampling with a temperature)": not self.greedy,
-            "spec_k (speculative decoding)": self.spec_k != 0,
             "mesh (tensor-parallel serving)": self.mesh is not None,
             "telemetry (metrics registry)": self.telemetry,
             "trace (request tracer)": self.trace,
@@ -206,6 +230,88 @@ class EngineConfig:
         asked = [name for name, on in later.items() if on]
         if asked:
             raise ValueError(f"not ported yet: {', '.join(asked)}")
+
+
+def decode_emitted_tokens(done: list[Request]) -> int:
+    """Tokens these requests emitted from decode steps: every (re-)admission
+    that completes its prefill emits one token from the prefill or chunk
+    program (``Request.prefill_emitted``), the rest come from decode calls
+    (the launcher's ``tokens_per_step``)."""
+    return sum(len(r.out_tokens) - r.prefill_emitted for r in done)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for x in [0, 2**32) held in int64, without
+    overflowing int64: c is applied in two 16-bit halves."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer (xor-shift, multiply; the "lowbias32"
+    constants) on int64 tensors holding values in [0, 2**32): the shifts are
+    logical because the values are non-negative."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keyed_uniform(key: tuple[int, ...], rows: torch.Tensor, n: int) -> torch.Tensor:
+    """Uniforms in (0, 1), float32, shape ``(len(rows), n)``: entry (i, j) is
+    a pure function of ``key`` (host integers, e.g. seed, step, salt), the
+    row id ``rows[i]`` (a slot id) and the column j (a vocab index or a
+    draft position). A counter-based hash in int64 tensor ops on ``rows``'s
+    device - no generator state, no host sync - mapped by ``unit_interval``,
+    so the bits are the same on the CPU and the card and do not depend on
+    the batch or its order."""
+    h = 0x9E3779B9
+    for part in key:
+        h = _mix32(h ^ (int(part) & _M32))     # host integers: no tensor, no sync
+    r = _mix32((rows.long() & _M32) ^ h)
+    cols = _mix32(torch.arange(n, device=rows.device, dtype=torch.int64) + 0x632BE5AB)
+    u = _mix32(_mix32(r[:, None] ^ cols[None, :]) ^ (r[:, None] >> 7))
+    return unit_interval(u)
+
+
+def unit_interval(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit hashes (int64 holding [0, 2**32)) -> float32 uniforms in (0, 1):
+    the top 23 bits, centred, ``((b >> 9) + 0.5) / 2**23``. Every step is
+    exact in float32 (24 significant bits), so the largest value is
+    ``1 - 2**-24`` and the smallest ``2**-24``: ``-log(-log(u))`` is finite
+    for every hash. (24 bits would round the top hash's ``+ 0.5`` up to
+    1.0, an infinite Gumbel draw.)"""
+    return ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
+def gumbel_argmax(logits: torch.Tensor, temperature: float, key: tuple[int, ...],
+                  rows: torch.Tensor) -> torch.Tensor:
+    """One draw per row from ``softmax(logits / temperature)``: Gumbel-max
+    with the row's keyed noise. logits (R, V) -> (R,) int64."""
+    u = keyed_uniform(key, rows, logits.shape[-1])
+    g = -torch.log(-torch.log(u))
+    return torch.argmax(logits.float() / temperature + g, dim=-1)
+
+
+def page_pools(cfg, kv_dtype: str, field: str) -> tuple[torch.dtype, bool]:
+    """``(dtype, quantized)`` of the page pools for ``kv_dtype``: int8 pages
+    hold f32 activations' KV, quantized (JAX: dtype float32, quantized).
+    Under ``kernel_impl='pallas'`` float pages the paged kernels do not take
+    (``takes_pages``) are refused by name; int8 pages take the dequantizing
+    gather, as in the JAX package."""
+    quantized = kv_dtype == "int8"
+    dtype = torch.float32 if quantized else _KV_DTYPES[kv_dtype]
+    if cfg.kernel_impl == "pallas" and not quantized and not takes_pages(cfg.param_dtype,
+                                                                          dtype):
+        raise TypeError(f"kernel_impl='pallas' with {field}={kv_dtype!r}: the paged kernels "
+                        f"take pages of the model's dtype ({cfg.param_dtype}), or bfloat16 "
+                        "pages under a float32 model")
+    return dtype, quantized
 
 
 def _validate_request(prompt: list[int], max_new_tokens: int, max_len: int):
@@ -328,8 +434,11 @@ class BlockAllocator:
 
 
 class PagedServingEngine:
-    """Continuously batched greedy engine over a block-paged KV cache, serving
-    every tier of a :class:`ModelBank` on the device its weights live on."""
+    """Continuously batched engine over a block-paged KV cache, serving every
+    tier of a :class:`ModelBank` on the device its weights live on."""
+
+    _speculative = False
+    _write_window = 1      # KV positions one decode tick writes per slot
 
     def __init__(self, model: ModelBank | DeployedModel, ecfg: EngineConfig | None = None):
         bank, ecfg = _resolve_engine_args(type(self).__name__, model, ecfg)
@@ -337,10 +446,17 @@ class PagedServingEngine:
         if cfg.family not in BATCHED_FAMILIES:
             raise ValueError(f"batched engine needs a KV-cache family, got {cfg.family!r}; "
                              "use ReferenceEngine for ssm/hybrid/encdec")
-        kv_dtype = _KV_DTYPES[ecfg.kv_dtype]
-        if cfg.kernel_impl == "pallas" and kv_dtype != cfg.param_dtype:
-            raise ValueError(f"kernel_impl='pallas' needs kv_dtype equal to the "
-                             f"model dtype {cfg.param_dtype}, got {ecfg.kv_dtype!r}")
+        if ecfg.spec_k and not self._speculative:
+            raise EngineCapabilityError(
+                f"{type(self).__name__} does not speculate (spec_k={ecfg.spec_k} "
+                "requested); speculative decoding needs SpeculativeEngine "
+                "(serving/speculative.py). Engine capabilities: "
+                f"{json.dumps(self.capabilities(), sort_keys=True)}")
+        if ecfg.adapters and self._speculative:
+            raise EngineCapabilityError("SpeculativeEngine does not serve AdapterBanks (draft "
+                                        "and verify would each need a pool); use "
+                                        "PagedServingEngine")
+        kv_dtype, quantized = page_pools(cfg, ecfg.kv_dtype, "kv_dtype")
         self.cfg, self.ecfg, self.bank = cfg, ecfg, bank
         self._adapters: AdapterBank | None = bank if ecfg.adapters else None
         if self._adapters is not None:
@@ -358,7 +474,7 @@ class PagedServingEngine:
             else min(ecfg.prefill_chunk, self._max_len)
         self.cache = model_lib.init_paged_cache(cfg, ecfg.max_slots, self.num_blocks, bs,
                                                 self._nb_slot, dtype=kv_dtype,
-                                                device=self.device)
+                                                device=self.device, quantized=quantized)
         self._table = np.full((ecfg.max_slots, self._nb_slot), self.num_blocks, np.int32)
         self._table_dirty = False
         self._pages: dict[int, list[int]] = {}
@@ -416,7 +532,7 @@ class PagedServingEngine:
             "families": ["dense"],
             "kv": "paged",
             "features": {
-                "kv_dtype": ["float32", "bfloat16"],
+                "kv_dtype": ["float32", "bfloat16", "int8"],
                 "continuous_batching": True,
                 "deadlines_edf": True,
                 "chunked_prefill": True,
@@ -448,13 +564,17 @@ class PagedServingEngine:
         if need > self.num_blocks:
             raise RequestRejected(f"request needs {need} KV pages but the whole pool "
                                   f"holds {self.num_blocks}")
-        tier = _resolve_request_tier(self.bank, self._default_tier, tier)
+        tier = self._resolve_tier(tier)
         adapter = self._resolve_adapter(adapter)
         self._uid += 1
         self._queue.append(Request(
             self._uid, list(prompt), max_new_tokens, deadline=deadline, tier=tier,
             submitted_at=_now() if submitted_at is None else submitted_at, adapter=adapter))
         return self._uid
+
+    def _resolve_tier(self, tier: int | None) -> int:
+        """The validated bank tier of a request (None = the default tier)."""
+        return _resolve_request_tier(self.bank, self._default_tier, tier)
 
     def _resolve_adapter(self, adapter: int | None) -> int | None:
         """Validated adapter id (None = the bank's default). An adapter
@@ -591,6 +711,19 @@ class PagedServingEngine:
             self._len_reset.clear()
         return self.cache
 
+    def _sample(self, logits: torch.Tensor, salt: int, slots=None) -> torch.Tensor:
+        """Greedy or temperature sampling on the device; logits (R, vocab).
+        ``slots`` are the rows' slot ids (default: the row index, as decode
+        and chunk rows are slot-indexed). ``salt`` separates the streams that
+        can sample in one tick (decode 0; prefill and chunk ends 1; the
+        speculative engine's draft steps 2 + i and verify 2 + k)."""
+        if self.ecfg.greedy or self.ecfg.temperature <= 0:
+            return logits.argmax(-1)
+        if slots is None:
+            slots = torch.arange(logits.shape[0], device=logits.device)
+        return gumbel_argmax(logits, self.ecfg.temperature,
+                             (self.ecfg.seed, self._steps, salt), slots)
+
     def _decode(self, key, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
         cache = self._device_cache()
         logits, new = model_lib.decode_step(self._call_params(key, self._slot_pool),
@@ -600,23 +733,31 @@ class PagedServingEngine:
         length = torch.where(self._to_dev(active), new.length, cache.length)
         self.cache = new._replace(length=length)
         self.decode_calls += 1
-        return logits[:, -1].argmax(-1).cpu().numpy()
+        return self._sample(logits[:, -1], salt=0).cpu().numpy()
 
-    def _chunk_call(self, key, tokens, counts, starts) -> np.ndarray:
-        """One chunk over all slots: rows with counts > 0 reset their length
+    def _chunk_target(self, params, tokens, counts, starts):
+        """The device body of a chunk over all slots (the speculative engine
+        runs it for its target too): rows with counts > 0 reset their length
         to the host-tracked progress (a fresh slot may inherit a stale device
         length) and insert there; rows with counts == 0 keep their length and
-        write junk past it that is never attended."""
+        write junk past it that is never attended. Returns the next token of
+        each row (meaningful where a prompt ends; salt 1, the one-shot
+        prefill's key) and the pre-chunk lengths."""
         cache = self._device_cache()
         counts_d = self._to_dev(counts)
         n0 = torch.where(counts_d > 0, self._to_dev(starts), cache.length)
         logits, self.cache = model_lib.chunk_prefill_step(
-            self._call_params(key, self._slot_pool), self._to_dev(tokens), counts_d,
-            cache._replace(length=n0), self.cfg)
+            params, self._to_dev(tokens), counts_d, cache._replace(length=n0), self.cfg)
         self.chunk_calls += 1
         last = torch.from_numpy(np.maximum(counts - 1, 0).astype(np.int64)).to(self.device)
         rows = torch.arange(len(counts), device=self.device)
-        return logits[rows, last].argmax(-1).cpu().numpy()
+        return self._sample(logits[rows, last], salt=1), n0
+
+    def _chunk_call(self, key, tokens, counts, starts) -> np.ndarray:
+        """One chunk over all slots (``_chunk_target``)."""
+        tok, _ = self._chunk_target(self._call_params(key, self._slot_pool), tokens, counts,
+                                    starts)
+        return tok.cpu().numpy()
 
     def _prefill_call(self, key, tokens, lengths, slot_ids, page_map, rows) -> np.ndarray:
         """One-shot prefill of admitted prompts: no-cache forward, whole
@@ -632,19 +773,25 @@ class PagedServingEngine:
             self._to_dev(lengths[keep])
         self.prefill_calls += 1
         rows = torch.arange(len(lengths), device=self.device)
-        last = self._to_dev((lengths - 1).astype(np.int64))
-        return logits[rows, last].argmax(-1).cpu().numpy()
+        last = logits[rows, self._to_dev((lengths - 1).astype(np.int64))]
+        return self._sample(last, salt=1,
+                            slots=self._to_dev(slot_ids.astype(np.int64))).cpu().numpy()
 
     def _cow_copy(self, pairs: list[tuple[int, int]]):
-        """One page-copy call for this tick's copy-on-write pairs (the block
-        table is already remapped host-side), padded to a power of two with
-        (0, 0) identity pairs as in the JAX engine."""
+        """One page-copy call per pool for this tick's copy-on-write pairs
+        (the block table is already remapped host-side), padded to a power of
+        two with (0, 0) identity pairs as in the JAX engine."""
         n = 1
         while n < len(pairs):
             n *= 2
         pad = pairs + [(0, 0)] * (n - len(pairs))
         src = self._to_dev(np.array([p for p, _ in pad], np.int32))
         dst = self._to_dev(np.array([q for _, q in pad], np.int32))
+        self._apply_cow(src, dst)
+
+    def _apply_cow(self, src: torch.Tensor, dst: torch.Tensor):
+        """The device copies of copy-on-write (the speculative engine also
+        copies its draft pools here: they ride the same page ids)."""
         transformer_lib.copy_cache_pages(self.cache, src, dst)
 
     # ------------------------------------------------------------- steps ---
@@ -881,14 +1028,15 @@ class PagedServingEngine:
                     self._record(slot, req, int(firsts[slot]), free, done)
 
     def _pre_decode(self, free: list[int]):
-        """Grow each decode-phase slot's pages to cover this tick's KV write
-        (the latest token lands at len(prompt) + len(out) - 1); evict when the
-        pool is dry."""
+        """Grow each decode-phase slot's pages to cover this tick's KV writes
+        (the latest token lands at len(prompt) + len(out) - 1; the speculative
+        engine widens the window, ``_write_window``, to its k positions);
+        evict when the pool is dry."""
         for slot in list(self._active):
             req = self._active.get(slot)
             if req is None or slot in self._progress:
                 continue
-            write_pos = len(req.prompt) + len(req.out_tokens) - 1
+            write_pos = len(req.prompt) + len(req.out_tokens) - 1 + (self._write_window - 1)
             need = min(write_pos // self._bs + 1, self._nb_slot)
             while slot in self._active and not self._grow(slot, need):
                 victim = self._choose_victim()
@@ -1033,7 +1181,9 @@ class ReferenceEngine:
     per slot per token. Prompts are fed through the same decode step token by
     token, the last prompt token by the first tick. Each slot decodes with
     its request's bank tier. It serves every ported family (the hybrid's
-    SSM state has no per-slot lengths, so the paged engine cannot)."""
+    SSM state has no per-slot lengths, so the paged engine cannot). Its
+    tokens are always greedy: like the JAX package's, it ignores
+    ``greedy=False`` and ``temperature``."""
 
     CACHE_BATCH_AXIS = 1     # the batch axis of every tensor of LMCache and HybridCache
 
@@ -1044,6 +1194,8 @@ class ReferenceEngine:
         missing = []
         if ecfg.kv_dtype != "float32":
             missing.append(f"kv_dtype={ecfg.kv_dtype!r}")
+        if ecfg.spec_k:
+            missing.append(f"speculative decoding (spec_k={ecfg.spec_k})")
         if ecfg.prefill_chunk is not None:
             missing.append(f"chunked prefill (prefill_chunk={ecfg.prefill_chunk})")
         if ecfg.tier_policy == "pressure":

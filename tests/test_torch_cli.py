@@ -64,13 +64,44 @@ def test_cli_matches_jax(flags, monkeypatch, capsys):
         assert sum(got["tokens_by_adapter"].values()) == got["tokens"]
 
 
-@pytest.mark.parametrize("flag", [["--engine", "batched"], ["--engine", "speculative"],
-                                  ["--spec-k", "2"], ["--mesh", "model=2"],
-                                  ["--kv-dtype", "int8"], ["--trace-out", "t.json"],
-                                  ["--metrics-port", "0"]])
+@pytest.mark.parametrize("flag", [["--engine", "batched"], ["--mesh", "model=2"],
+                                  ["--trace-out", "t.json"], ["--metrics-port", "0"]])
 def test_later_slice_switches_raise(flag):
     with pytest.raises(ValueError, match="not ported yet"):
         serve.main(["--arch", "salaad_llama_60m", "--reduced", "--device", "cpu", *flag])
+
+
+PORTED_SWITCHES = {
+    "engine_speculative": ["--engine", "speculative", "--keep-ratios", "1.0,0.6,0.3",
+                           "--spec-budget", "0.3"],
+    "spec_k_adaptive": ["--spec-k", "2", "--keep-ratios", "1.0,0.5", "--spec-budget", "0.5",
+                        "--spec-adaptive", "--prefill-chunk", "16"],
+    "kv_int8": ["--kv-dtype", "int8", "--keep-ratios", "1.0,0.6", "--prefix-cache"],
+}
+
+
+@pytest.mark.parametrize("flags", list(PORTED_SWITCHES), ids=list(PORTED_SWITCHES))
+def test_speculative_and_int8_switches_match_jax(flags, monkeypatch, capsys):
+    """``--engine speculative``, ``--spec-k`` (which implies it) and
+    ``--kv-dtype int8`` serve at the reduced size and print the JAX
+    launcher's lines: the note on the keep-ratios a speculative run does not
+    build, then the same keys (less ``jit_retraces``) and the same counts,
+    greedy sample and ``acceptance_rate``."""
+    argv = ["--arch", "salaad_llama_60m", "--reduced", "--fmt", "fused", "--requests", "4",
+            "--max-new", "6", *PORTED_SWITCHES[flags]]
+    got = run_lines(serve.main, argv + ["--device", "cpu"], monkeypatch, capsys)
+    want = run_lines(jax_serve.main, argv, monkeypatch, capsys)
+    assert len(got) == len(want) == (2 if flags == "engine_speculative" else 1)
+    assert got[:-1] == want[:-1]
+    got, want = got[-1], want[-1]
+    assert set(got) == set(want) - {"jit_retraces"}
+    for key in set(got) - TIMED:
+        assert got[key] == want[key], key
+    assert got["requests"] == 4 and got["tokens"] == 24
+    if flags == "kv_int8":
+        assert "acceptance_rate" not in got
+    else:
+        assert 0.0 <= got["acceptance_rate"] <= 1.0 and got["tokens_per_step"] >= 1.0
 
 
 def run_lines(main, argv, monkeypatch, capsys) -> list[dict]:
@@ -150,15 +181,26 @@ def test_serve_jax_checkpoint_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 def test_attention_impl_on_card_needs_model_dtype_pages():
-    """On the card the launcher takes the CUDA attention kernels only for KV
-    pages in the model's dtype; other pages, and the CPU, keep the config's
-    attention path."""
+    """On the card the paged engines take the CUDA attention kernels for KV
+    pages the paged kernels read (the model's dtype, bf16 under the f32
+    model) and for int8 pages (flash prefill, the dequantizing gather); f32
+    pages under a bf16 model, the reference engine and the CPU keep the
+    config's attention path."""
+    import dataclasses
+
+    from repro_torch.serving.engine import ReferenceEngine
+    from repro_torch.serving.speculative import SpeculativeEngine
+
     cfg = get_arch("salaad_llama_60m")
     card, cpu = torch.device("cuda"), torch.device("cpu")
     assert cfg.param_dtype == torch.float32 and cfg.kernel_impl != "pallas"
-    assert serve.attention_impl(cfg, card, "float32") == "pallas"
-    assert serve.attention_impl(cfg, card, "bfloat16") == cfg.kernel_impl
+    for kv in ("float32", "bfloat16", "int8"):
+        assert serve.attention_impl(cfg, card, kv) == "pallas"
+        assert serve.attention_impl(cfg, card, kv, SpeculativeEngine) == "pallas"
+        assert serve.attention_impl(cfg, card, kv, ReferenceEngine) == cfg.kernel_impl
     assert serve.attention_impl(cfg, cpu, "float32") == cfg.kernel_impl
+    bf16 = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    assert serve.attention_impl(bf16, card, "float32") == cfg.kernel_impl
 
 
 def test_train_launcher_later_slice_switch_raises():

@@ -388,6 +388,84 @@ def test_paged_attention_rows_ignore_batch(cuda, dtype, kq, d, hq, hkv, nb):
         cuda)).reshape(y.shape), dtype)
 
 
+@pytest.mark.parametrize("b,hq,hkv,d,bs,nb", PAGED_DECODE)
+def test_paged_attention_f32_over_bf16_matches_plain(cuda, b, hq, hkv, d, bs, nb):
+    """f32 queries over bf16 pages (a bf16 pool under an f32 model): the
+    kernel widens each K and V element exactly and returns f32, within the
+    f32 tolerance of the plain version on the same bf16 pools."""
+    rng = np.random.default_rng(b * d + 1)
+    n = b * nb + 2
+    kp, vp, table, lengths = make_pool(rng, b, hq, hkv, d, bs, nb, n, cuda, torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d), dtype=np.float32)).to(cuda)
+    got = ops.paged_attention(q, kp, vp, table, lengths)
+    assert got.dtype == torch.float32
+    assert_close(got, ref.paged_attention_ref(q, kp, vp, table, lengths), torch.float32)
+
+
+@pytest.mark.parametrize("b,hq,hkv,kq,d,bs,nb", PAGED_KQUERY)
+def test_paged_attention_kquery_f32_over_bf16_matches_plain(cuda, b, hq, hkv, kq, d, bs, nb):
+    rng = np.random.default_rng(kq + 1)
+    n = b * nb + 1
+    kp, vp, table, lengths = make_pool(rng, b, hq, hkv, d, bs, nb, n, cuda, torch.bfloat16)
+    lengths = torch.clamp(lengths, max=nb * bs - kq)
+    q = torch.from_numpy(rng.standard_normal((b, hq, kq, d), dtype=np.float32)).to(cuda)
+    got = ops.paged_attention_kquery(q, kp, vp, table, lengths)
+    assert got.dtype == torch.float32
+    assert_close(got, ref.paged_attention_kquery_ref(q, kp, vp, table, lengths), torch.float32)
+
+
+@pytest.mark.parametrize("kq,d,hq,hkv,nb", [(1, 64, 8, 8, 32), (1, 128, 16, 4, 160),
+                                             (4, 64, 8, 8, 32), (21, 64, 8, 8, 32),
+                                             (64, 64, 8, 8, 32), (70, 80, 8, 4, 160)])
+def test_paged_attention_f32_over_bf16_rows_ignore_batch(cuda, kq, d, hq, hkv, nb):
+    """The f32-over-bf16 instance keeps the row-invariance rule: two calls,
+    each slot alone and with the other slots' lengths changed agree bit for
+    bit (its plan is the bf16 pool's)."""
+    rng = np.random.default_rng(kq * d + nb + 1)
+    b, bs = 8, 16
+    n = b * nb
+    kp, vp = (torch.from_numpy(rng.standard_normal((n, hkv, bs, d), dtype=np.float32)).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    table = torch.from_numpy(rng.permutation(n).reshape(b, nb).astype(np.int32)).to(cuda)
+    top = nb * bs - kq
+    lens = rng.integers(0, top + 1, b).astype(np.int32)
+    lens[:3] = (0, bs - 1, top)
+    q = torch.from_numpy(rng.standard_normal((b, hq, kq, d), dtype=np.float32)).to(cuda)
+
+    def call(q_, table_, lens_):
+        lens_ = torch.from_numpy(np.ascontiguousarray(lens_)).to(cuda)
+        if kq == 1:
+            return ops.paged_attention(q_[:, :, 0].contiguous(), kp, vp, table_, lens_)
+        return ops.paged_attention_kquery(q_.contiguous(), kp, vp, table_, lens_)
+
+    y = call(q, table, lens)
+    assert torch.equal(call(q, table, lens), y)
+    other = rng.integers(0, top + 1, b).astype(np.int32)
+    for i in range(b):
+        assert torch.equal(call(q[i:i + 1], table[i:i + 1].contiguous(), lens[i:i + 1]),
+                           y[i:i + 1]), f"slot {i} alone"
+        moved = other.copy()
+        moved[i] = lens[i]
+        assert torch.equal(call(q, table, moved)[i], y[i]), f"slot {i}, other lengths"
+    assert_close(y, ref.paged_attention_kquery_ref(q, kp, vp, table, torch.from_numpy(lens).to(
+        cuda)).reshape(y.shape), torch.float32)
+
+
+def test_paged_attention_refuses_other_dtype_pairs(cuda):
+    """Only f32/f32, bf16/bf16 and f32 q over bf16 pools reach the kernel."""
+    kp = torch.zeros((4, 2, 8, 64), device=cuda)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    lens = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    q = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16 pools"):
+        ops.paged_attention(q.bfloat16(), kp, kp, table, lens)         # bf16 q over f32
+    with pytest.raises(TypeError, match="bfloat16 pools"):
+        ops.paged_attention(q, kp.bfloat16(), kp, table, lens)         # k and v differ
+    with pytest.raises(TypeError, match="bfloat16 pools"):
+        ops.paged_attention_kquery(q[:, :, None], kp.to(torch.int8), kp.to(torch.int8),
+                                   table, lens)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs,t,n,m,occ", [
     (8, 1, 40, 36, 0.5), (16, 8, 64, 48, 0.7), (32, 33, 512, 1376, 0.4),
@@ -646,6 +724,89 @@ def test_engine_streams_on_card_match_cpu(cuda):
                 assert not any(counts.values())
     assert streams["cuda", "roomy"] == streams["cpu", "roomy"]
     assert streams["cuda", "tight"] == streams["cpu", "tight"]
+
+
+def _reduced_bank(keeps):
+    cfg = dataclasses.replace(get_arch("salaad_llama_60m").reduced(), kernel_impl="pallas")
+    params = model_lib.init_params(cfg, seed=0, device="cpu")
+    scfg = SalaadConfig(rho_constant=5.0, exact_svd=True)
+    state, blocks = init_slr_state(params, scfg)
+    for step in range(3):
+        state, _ = admm_update(params, state, blocks, scfg, step)
+    return {dev: ModelBank.build(cfg, *tree_map(lambda t: t.to(dev), (params, state)), blocks,
+                                 keeps, kappa=0.7, fmt="fused")
+            for dev in ("cpu", "cuda")}
+
+
+def test_speculative_streams_on_card_match_cpu(cuda):
+    """The speculative engine on a two-tier fused bank (keep 1.0 verifies,
+    keep 0.3 drafts into bf16 pools, or tier 0 drafts for itself): greedy
+    under both schedules with the prefix cache and chunked prefill, card
+    streams equal the CPU's and the paged engine's at tier 0; the identical
+    draft confirms guesses, so multi-token ticks (the length reset past m > 1
+    and the realigned guesses) run; the paged decode kernel (f32 queries
+    over the bf16 draft pages) and the k-query kernel launch."""
+    from repro_torch.serving.speculative import SpeculativeEngine
+
+    banks = _reduced_bank((1.0, 0.3))
+    prompts = [[5, 7, 11], [3, 1], list(range(2, 40)), [8, 8, 2], [1, 2, 3, 4, 5, 6],
+               list(range(2, 18))]
+    kw = dict(max_slots=3, max_len=64, block_size=8, prefill_chunk=16, prefix_cache=True)
+    modes = [(mode, draft) for mode in ("parallel", "sequential") for draft in (-1, 0)]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        for mode, draft in modes:
+            ops.reset_launch_counts()
+            eng = SpeculativeEngine(banks[dev], EngineConfig(
+                **kw, spec_k=4, spec_draft_mode=mode, spec_draft_tier=draft))
+            for p in prompts:
+                eng.submit(p, max_new_tokens=8)
+            got[dev, mode, draft] = {r.uid: r.out_tokens for r in eng.run()}
+            counts = ops.launch_counts()
+            if draft == 0:
+                assert eng.accepted_tokens > 0, (dev, mode)
+            if dev == "cuda":
+                assert counts["paged_attention_kquery"] > 0 and counts["slr_matmul_stacked"] > 0
+                assert (counts["paged_attention"] > 0) == (mode == "sequential")
+        eng = PagedServingEngine(banks[dev], EngineConfig(**kw))
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8, tier=0)
+        got[dev, "paged"] = {r.uid: r.out_tokens for r in eng.run()}
+    for run in modes + ["paged"]:
+        key = run if isinstance(run, tuple) else (run,)
+        assert got[("cuda",) + key] == got[("cpu",) + key], run
+        assert got[("cuda",) + key] == got["cuda", "paged"], run
+
+
+def test_int8_engine_streams_on_card_match_cpu(cuda):
+    """Int8 pages on the card (flash prefill, the dequantizing gather, page
+    copy of payload and scale pools under the prefix cache): streams equal
+    the CPU's; the paged kernels stay idle."""
+    banks = _reduced_bank((1.0, 0.6))
+    prompts = [[5, 7, 11], list(range(2, 18)), [3, 1], list(range(2, 18)), [8, 8, 2]]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        ops.reset_launch_counts()
+        eng = PagedServingEngine(banks[dev], EngineConfig(max_slots=2, max_len=48, block_size=8,
+                                                          kv_dtype="int8", prefix_cache=True))
+        for i, p in enumerate(prompts):
+            eng.submit(p, max_new_tokens=6, tier=i % 2)
+        got[dev] = {r.uid: r.out_tokens for r in eng.run()}
+        counts = ops.launch_counts()
+        if dev == "cuda":
+            assert eng.cow_copies >= 1 and counts["page_copy"] % 4 == 0
+            assert counts["page_copy"] > 0 and counts["flash_attention"] > 0
+            assert counts["paged_attention"] == counts["paged_attention_kquery"] == 0
+    assert got["cuda"] == got["cpu"]
+
+
+def test_keyed_uniforms_equal_on_card_and_cpu(cuda):
+    from repro_torch.serving.engine import keyed_uniform
+
+    slots = torch.tensor([0, 5, 2, 9999], dtype=torch.int64)
+    for key in ((0, 1, 0), (7, 123456, 6), (2**31 + 5, 3, 1)):
+        assert torch.equal(keyed_uniform(key, slots, 1000),
+                           keyed_uniform(key, slots.to(cuda), 1000).cpu())
 
 
 COUNTERS = ("evictions", "tier_switches", "downshift_ticks", "prefix_hits",
@@ -938,12 +1099,13 @@ def test_train_steps_on_card_match_cpu(cuda):
         assert float(((blk.p @ blk.vt).cpu() - lw).abs().max()) <= 1e-3 * float(lw.abs().max())
 
 
-@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
 def test_serve_launcher_on_card_serves_checkpoint(cuda, kv_dtype, tmp_path, capsys):
     """The serve launcher on the card serves a checkpoint written by the train
-    launcher: pages in the model's dtype (f32) go through the CUDA paged
-    kernels, bf16 pages through the gather path, and both finish every
-    request with SLR parameters in every tier."""
+    launcher: f32 pages and bf16 pages (f32 queries over bf16 pages) go
+    through the CUDA paged kernels, int8 pages through the dequantizing
+    gather, and each finishes every request with SLR parameters in every
+    tier."""
     import json
 
     from repro_torch.launch import serve, train
@@ -963,4 +1125,4 @@ def test_serve_launcher_on_card_serves_checkpoint(cuda, kv_dtype, tmp_path, caps
     assert all(t["slr_params"] > 0 for t in line["tiers"])
     assert counts["slr_matmul_stacked"] >= 1
     paged = counts["paged_attention"] + counts["paged_attention_kquery"]
-    assert (paged >= 1) if kv_dtype == "float32" else (paged == 0)
+    assert (paged >= 1) if kv_dtype != "int8" else (paged == 0)

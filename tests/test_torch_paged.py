@@ -11,11 +11,13 @@ holds, and the wrappers launch one plan whatever the batch and lengths
 (through meta tensors, which reach the launch without a card).
 """
 import inspect
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.serving.engine import page_pools
 
 TABLES = [(1, 1), (6, 4), (5, 8), (9, 8), (8, 4), (32, 16), (20, 16), (12, 32), (600, 4),
           (80, 32), (160, 16), (128, 16), (2048, 16), (1, 256), (3, 100)]
@@ -86,3 +88,77 @@ def test_wrappers_launch_one_plan_for_any_batch(monkeypatch, dtype, kq, hq, hkv,
                          max_segments=pa.MAX_SEGMENTS if kq == 1 else 1)
     assert tail[-2] == plan.seg_keys
     assert [args[6] for _, args in launched] == [1, 3, 8]
+
+
+@pytest.mark.parametrize("kq,d", [(1, 64), (4, 64), (21, 256), (1, 256)])
+def test_f32_over_bf16_takes_the_mixed_instance(monkeypatch, kq, d):
+    """f32 queries over bf16 pools launch dtype code 2 (``F32_OVER_BF16``)
+    with the bf16 pool's plan (64-key chunks, also at D > 128 where an f32
+    pool takes 32) and an f32 output."""
+    launched = []
+    monkeypatch.setattr(pa, "check_cuda", lambda name, **tensors: torch.device("meta"))
+    monkeypatch.setattr(pa, "launch", lambda name, dev, *args: launched.append(args))
+    for wrapper in (pa.paged_attention, pa.paged_attention_kquery):
+        monkeypatch.setattr(wrapper, "launches", wrapper.launches)
+    nb, bs, hkv = 20, 16, 2
+    pool = torch.empty((nb * 3, hkv, bs, d), dtype=torch.bfloat16, device="meta")
+    table = torch.empty((3, nb), dtype=torch.int32, device="meta")
+    lengths = torch.empty((3,), dtype=torch.int32, device="meta")
+    shape = (3, 4, d) if kq == 1 else (3, 4, kq, d)
+    q = torch.empty(shape, dtype=torch.float32, device="meta")
+    fn = pa.paged_attention if kq == 1 else pa.paged_attention_kquery
+    out = fn(q, pool, pool, table, lengths)
+    assert out.dtype == torch.float32 and tuple(out.shape) == shape
+    (args,) = launched
+    assert args[-1] == pa.F32_OVER_BF16 == 2
+    plan = pa.paged_plan(nb, bs, d, 2, max_segments=pa.MAX_SEGMENTS if kq == 1 else 1)
+    assert args[-2] == plan.seg_keys and plan.chunk == 64
+
+
+def test_dtype_route_names_the_pairs():
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert pa.dtype_route("x", f32, f32, f32) == 0
+    assert pa.dtype_route("x", bf16, bf16, bf16) == 1
+    assert pa.dtype_route("x", f32, bf16, bf16) == pa.F32_OVER_BF16
+    for pair in ((bf16, f32, f32), (f32, bf16, f32), (f32, torch.int8, torch.int8),
+                 (torch.float16, torch.float16, torch.float16)):
+        with pytest.raises(TypeError, match="float32 q over bfloat16 pools"):
+            pa.dtype_route("x", *pair)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,taken", [
+    (torch.float32, torch.float32, True), (torch.bfloat16, torch.bfloat16, True),
+    (torch.float32, torch.bfloat16, True), (torch.bfloat16, torch.float32, False),
+    (torch.float32, torch.int8, False), (torch.bfloat16, torch.int8, False),
+])
+def test_takes_pages_decides_kernel_or_gather(q_dtype, kv_dtype, taken):
+    """The one predicate of which pages reach the paged kernels: int8 pages
+    never (the dequantizing gather), and the engines refuse float pages it
+    does not take under kernel_impl='pallas', naming the field."""
+    assert pa.takes_pages(q_dtype, kv_dtype) is taken
+    if kv_dtype == torch.int8:
+        return
+    cfg = SimpleNamespace(kernel_impl="pallas", param_dtype=q_dtype)
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[kv_dtype]
+    if taken:
+        assert page_pools(cfg, name, "kv_dtype") == (kv_dtype, False)
+    else:
+        with pytest.raises(TypeError, match=f"kv_dtype='{name}'"):
+            page_pools(cfg, name, "kv_dtype")
+
+
+@pytest.mark.parametrize("kq", [1, 5])
+def test_plain_version_widens_bf16_pools(kq):
+    """The plain versions take f32 queries over bf16 pools as they are:
+    bit for bit the same as over the pools widened to f32 beforehand."""
+    from repro_torch.kernels import ref
+
+    g = torch.Generator().manual_seed(kq)
+    kp, vp = (torch.randn((12, 2, 4, 16), generator=g).bfloat16() for _ in range(2))
+    table = torch.tensor([[0, 1, 2, 12], [5, 6, 7, 8], [3, 4, 9, 10]], dtype=torch.int32)
+    lengths = torch.tensor([9, 16 - kq, 0], dtype=torch.int32)
+    q = torch.randn((3, 4, kq, 16), generator=g)
+    got = ref.paged_attention_kquery_ref(q, kp, vp, table, lengths)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref.paged_attention_kquery_ref(q, kp.float(), vp.float(), table,
+                                                           lengths))

@@ -314,16 +314,23 @@ def test_oneshot_prefill_streams_match_jax(trained):
 
 def test_pallas_needs_chunked_prefill(trained):
     """Under kernel_impl='pallas' one-shot prefill now runs the flash kernel,
-    so chunked prefill is no longer needed; the paged kernels still need the
-    KV pages in the model's dtype."""
+    so chunked prefill is no longer needed; the paged kernels take pages in
+    the model's dtype or bf16 pages under the f32 model (f32 queries over
+    bf16 pages), and refuse f32 pages under a bf16 model by name."""
     tcfg = dataclasses.replace(trained.tcfg, kernel_impl="pallas")
     dm = DeployedModel.build(tcfg, trained.tparams, trained.tstate, trained.tblocks,
                              fmt="factored")
     eng = PagedServingEngine(dm, EngineConfig(max_slots=2, max_len=64, block_size=8))
     eng.submit([3, 1, 4], max_new_tokens=2)
     assert len(eng.run()) == 1 and eng.prefill_calls == 1 and eng.chunk_calls == 0
-    with pytest.raises(ValueError, match="kv_dtype"):
-        PagedServingEngine(dm, EngineConfig(kv_dtype="bfloat16"))
+    bf16 = PagedServingEngine(dm, EngineConfig(max_slots=2, max_len=64, block_size=8,
+                                               kv_dtype="bfloat16"))
+    assert bf16.cache.k.dtype == torch.bfloat16
+    bf16.submit([3, 1, 4], max_new_tokens=2)
+    assert len(bf16.run()) == 1
+    with pytest.raises(TypeError, match="kv_dtype='float32'"):
+        PagedServingEngine(DeployedModel(dataclasses.replace(tcfg, param_dtype=torch.bfloat16),
+                                         trained.tparams, fmt="dense"), EngineConfig())
 
 
 @pytest.mark.parametrize("field,value,name", [
@@ -332,9 +339,28 @@ def test_pallas_needs_chunked_prefill(trained):
     ("telemetry", True, "telemetry"), ("trace", True, "tracer"),
     ("kv_dtype", "int8", "int8"),
 ])
-def test_later_slice_features_raise(field, value, name):
+def test_later_slice_features_raise(trained, field, value, name):
+    """The features of later slices raise at ``EngineConfig``, naming
+    themselves. Sampling, speculation and int8 pages are ported: the config
+    takes them, and each raises, naming itself, in an engine that cannot
+    give it (a parallel draft schedule cannot sample, the paged engine does
+    not speculate, the reference engine keeps an f32 cache)."""
+    from repro_torch.serving.speculative import SpeculativeEngine
+
+    if field in ("mesh", "telemetry", "trace"):
+        with pytest.raises(ValueError, match=name):
+            EngineConfig(**{field: value})
+        return
+    EngineConfig(**{field: value})
+    dm = DeployedModel(trained.tcfg, trained.tparams, fmt="dense")
     with pytest.raises(ValueError, match=name):
-        EngineConfig(**{field: value})
+        if field == "greedy":
+            SpeculativeEngine(dm, EngineConfig(greedy=False, spec_k=2,
+                                               spec_draft_mode="parallel"))
+        elif field == "spec_k":
+            PagedServingEngine(dm, EngineConfig(spec_k=value))
+        else:
+            ReferenceEngine(dm, EngineConfig(kv_dtype=value))
 
 
 @pytest.mark.parametrize("kw", [dict(max_slots=0), dict(block_size=8, prefill_chunk=12),
