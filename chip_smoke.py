@@ -71,14 +71,19 @@ error:
       tier policy on a 128-page pool; flash attention, page copy, paged
       decode, paged k-query and the fused SLR kernel must each launch, and
       the run must show prefix hits, copy-on-write copies and downshifts;
+      then the same run with ``telemetry=False`` and again with it on,
+      whose streams must equal the first run's bit for bit (the three tok/s
+      printed: the first run also pays first-use costs);
    b. the bsr bank serves 8 requests; the block-CSC and low-rank kernels must
       launch;
    c. the single fused model of the first slice serves 16 requests with
       chunked prefill of 64;
-   d. ``python -m repro_torch.launch.serve`` runs as a bank, with
-      ``--adapters 3 --max-resident-adapters 2``, with ``--engine
-      speculative --spec-k 4`` and with ``--kv-dtype int8``, and prints its
-      lines;
+   d. the serve launcher's entry point (``repro_torch.launch.serve.main``,
+      in this process) runs as a bank, with ``--adapters 3
+      --max-resident-adapters 2``, with ``--engine speculative --spec-k 4``,
+      with ``--kv-dtype int8`` and with ``--engine batched --trace-out
+      --trace-events --metrics-port 0 --metrics-out`` (the files must pass
+      the port's validators), and prints its lines;
    e. run (a) and (b) again under torch.profiler: device busy time, idle
       share and each kernel's share of device time;
    f. the adapter bank serves 24 greedy requests round-robin over its four
@@ -119,8 +124,21 @@ error:
    l. (a)'s run with ``kv_dtype='int8'``: the paged kernels stay idle (the
       dequantizing gather), page copy copies payload and scale pools; the
       pools' bytes against (a)'s;
+   m. (run after l) the slot-padded ``ServingEngine`` on the fused bank: 8
+      slots, max_len 512, an f32 contiguous cache, (a)'s 24 prompts
+      round-robin over the tiers, 32 new tokens each, greedy, static
+      policy, telemetry and tracing on: flash attention and the fused SLR
+      kernel must launch and the paged kernels must not; the registry must
+      count 24 x 32 emitted tokens, 24 TTFTs and 24 x 31 ITLs; a second
+      drive of the warm engine must leave ``jit_retraces`` at 0; the Chrome
+      trace and one scrape of ``start_metrics_server(port=0)`` must pass
+      their validators; tok/s, TTFT and ITL percentiles, the program-time
+      histogram per (program, tier), peak memory, and the count of streams
+      equal to a static ``PagedServingEngine`` run of the same bank;
 5. parity: the first one-shot prefill's, the first chunk's and the first
-   decode tick's logits on the card against the same model on the CPU; then
+   decode tick's logits on the card against the same model on the CPU, and
+   one prefill and two decode steps over the per-slot contiguous cache (a
+   row at max_len, whose writes drop, and one at max_len - 1); then
    (5b) five train steps and one ADMM step from one full-width state on the
    card and on the CPU, the same batches and CPU-drawn sketches; (5c) one
    fused tier of the hybrid at full width and one group (6 layers, f32) on
@@ -143,10 +161,12 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import tempfile
 import sys
 import time
+import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -279,7 +299,9 @@ def main() -> None:
     from repro_torch.serving.elastic import ModelBank
     from repro_torch.serving import kv_quant
     from repro_torch.serving.engine import EngineConfig, PagedServingEngine, ReferenceEngine
-    from repro_torch.serving.engine import keyed_uniform
+    from repro_torch.serving.engine import ServingEngine, keyed_uniform
+    from repro_torch.serving.telemetry import start_metrics_server, validate_prometheus_text
+    from repro_torch.serving.trace import validate_chrome_trace
     from repro_torch.serving.speculative import SpeculativeEngine
     from repro_torch.serving.slr_params import deployment_report
     from repro_torch.core.admm import block_sketches
@@ -1279,12 +1301,19 @@ def main() -> None:
 
     phase("4a")
     # ---- 4. main path -------------------------------------------------------------
-    def serve(label: str, engine, prompts, tiers, need: tuple[str, ...]) -> tuple[dict, dict]:
+    def serve(label: str, engine, prompts, tiers,
+              need: tuple[str, ...]) -> tuple[dict, dict, dict]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        stats = serve_batch(engine, cfg.vocab_size, len(prompts), MAX_NEW, SEED,
-                            tiers=tiers, prompts=prompts)
+        finished = []                # the run's requests, for their streams
+        run = engine.run
+        engine.run = lambda: finished.extend(run()) or finished
+        try:
+            stats = serve_batch(engine, cfg.vocab_size, len(prompts), MAX_NEW, SEED,
+                                tiers=tiers, prompts=prompts)
+        finally:
+            del engine.run
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**20
@@ -1301,29 +1330,44 @@ def main() -> None:
               f"{stats['tokens']} tokens generated = {stats['tok_per_s']} tok/s; median "
               f"TTFT {stats['ttft_p50_ms']} ms; peak memory {peak:.1f} MiB; ticks "
               f"{engine._steps}, prefill calls {engine.prefill_calls}, chunk calls "
-              f"{engine.chunk_calls}, decode calls {engine.decode_calls}")
+              f"{getattr(engine, 'chunk_calls', 0)}, decode calls {engine.decode_calls}")
         print(f"  stats: {json.dumps(stats)}")
         print(f"  launch counts: {json.dumps(counts)}")
-        return stats, counts
+        return stats, counts, {r.uid: r.out_tokens for r in finished}
 
     bank_ecfg = EngineConfig(max_slots=8, max_len=512, block_size=16, num_blocks=BANK_PAGES,
                              prefix_cache=True, tier_policy="pressure")
     prompts = bank_prompts(np.random.default_rng(SEED), cfg.vocab_size, bank_ecfg.block_size)
     engine = PagedServingEngine(banks["fused"], bank_ecfg)
-    fused_stats, fused_counts = serve(
-        "4a fused bank", engine, prompts, tuple(range(len(BUDGETS))),
-        ("flash_attention", "page_copy", "paged_attention", "paged_attention_kquery",
-         "slr_matmul_stacked"))
+    fused_need = ("flash_attention", "page_copy", "paged_attention", "paged_attention_kquery",
+                  "slr_matmul_stacked")
+    fused_stats, fused_counts, fused_streams = serve(
+        "4a fused bank", engine, prompts, tuple(range(len(BUDGETS))), fused_need)
     pc = fused_stats["prefix_cache"]
     if pc["hits"] < 1 or pc["cow_copies"] < 1 or fused_stats["downshift_ticks"] < 1:
         fail(f"the fused bank run needs prefix hits, copy-on-write copies and downshifts: "
              f"{pc}, downshift_ticks {fused_stats['downshift_ticks']}")
+    # the same run with the registry's hooks off, then on again (the first
+    # run also pays the process's first-use costs): not one token may move
+    rates = [fused_stats["tok_per_s"]]
+    for label, telemetry in (("off", False), ("on again", True)):
+        again_stats, _, again_streams = serve(
+            f"4a fused bank, telemetry {label}",
+            PagedServingEngine(banks["fused"], dataclasses.replace(bank_ecfg,
+                                                                   telemetry=telemetry)),
+            prompts, tuple(range(len(BUDGETS))), fused_need)
+        if again_streams != fused_streams:
+            differ = [u for u in fused_streams if again_streams.get(u) != fused_streams[u]]
+            fail(f"4a: telemetry {label} changed the streams of requests {differ}")
+        rates.append(again_stats["tok_per_s"])
+    print(f"  4a telemetry on {rates[0]} tok/s, off {rates[1]} tok/s, on again {rates[2]} "
+          f"tok/s (off / on again {rates[1] / rates[2]:.4f}); streams equal bit for bit")
 
     bsr_prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
                    for n in rng.integers(20, 301, N_BSR)]
     engine = PagedServingEngine(banks["bsr"], EngineConfig(max_slots=8, max_len=512,
                                                            block_size=16))
-    _, bsr_counts = serve("4b bsr bank", engine, bsr_prompts, tuple(range(len(BUDGETS))),
+    _, bsr_counts, _ = serve("4b bsr bank", engine, bsr_prompts, tuple(range(len(BUDGETS))),
                           ("bsr_matmul", "lowrank_matmul", "flash_attention",
                            "paged_attention"))
 
@@ -1334,22 +1378,37 @@ def main() -> None:
     serve("4c fused model, chunked prefill", engine, chunk_prompts, (None,),
           ("slr_matmul_stacked", "paged_attention", "paged_attention_kquery"))
 
-    cli = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "salaad_llama_60m",
-           "--fmt", "fused"]
+    cli = ["--arch", "salaad_llama_60m", "--fmt", "fused"]
+    obs_dir = tempfile.mkdtemp()          # the observability run's files
+    obs = {name: os.path.join(obs_dir, name) for name in ("t.json", "e.jsonl", "m.txt")}
     for extra in (["--keep-ratios", ",".join(map(str, BUDGETS)), "--prefix-cache",
                    "--tier-policy", "pressure"],
                   ["--adapters", "3", "--max-resident-adapters", "2"],
                   ["--keep-ratios", "1.0,0.3", "--spec-budget", "0.3", "--engine",
                    "speculative", "--spec-k", "4"],
-                  ["--keep-ratios", "1.0,0.6", "--kv-dtype", "int8", "--prefix-cache"]):
+                  ["--keep-ratios", "1.0,0.6", "--kv-dtype", "int8", "--prefix-cache"],
+                  ["--keep-ratios", ",".join(map(str, BUDGETS)), "--engine", "batched",
+                   "--trace-out", obs["t.json"], "--trace-events", obs["e.jsonl"],
+                   "--metrics-port", "0", "--metrics-out", obs["m.txt"]]):
         t0 = time.perf_counter()
-        proc = subprocess.run(cli + extra, capture_output=True, text=True, timeout=600,
-                              cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)})
-        if proc.returncode:
-            fail(f"the serve launcher failed:\n{proc.stderr[-3000:]}")
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        if line["requests"] != 4 or line["tokens"] != 32 or "jit_retraces" in line:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            serve_main(cli + extra)
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        if line["requests"] != 4 or line["tokens"] != 32 or "jit_retraces" not in line:
             fail(f"the serve launcher's line is off: {line}")
+        if "--trace-out" in extra:
+            try:
+                with open(obs["t.json"]) as f:
+                    trace_rep = validate_chrome_trace(json.load(f))
+                with open(obs["m.txt"]) as f:
+                    prom_rep = validate_prometheus_text(f.read())
+                with open(obs["e.jsonl"]) as f:
+                    n_events = sum(1 for ln in f if json.loads(ln)["kind"])
+            except (OSError, ValueError, KeyError) as e:
+                fail(f"4d: the batched launcher's trace, event log or scrape is off: {e!r}")
+            print(f"  4d batched files: trace {json.dumps(trace_rep)}, {n_events} events "
+                  f"logged, scrape {json.dumps(prom_rep)}")
         if "--adapters" in extra and (line["adapters"]["swaps"] < 1
                                       or sorted(line["tokens_by_adapter"]) != ["0", "1", "2"]):
             fail(f"the adapter launcher's line is off: {line}")
@@ -1357,6 +1416,7 @@ def main() -> None:
             fail(f"the speculative launcher's line is off: {line}")
         print(f"main path 4d launcher {' '.join(extra)} ({time.perf_counter() - t0:.1f} s): "
               f"{json.dumps(line)}")
+    shutil.rmtree(obs_dir, ignore_errors=True)
 
     # 4e. where the time goes: runs under torch.profiler (here 4a and 4b; 4f's
     # batched run below)
@@ -1586,7 +1646,7 @@ def main() -> None:
     # payload and both scale pools; the pools' bytes against 4a's
     int8_engine = PagedServingEngine(banks["fused"], dataclasses.replace(bank_ecfg,
                                                                          kv_dtype="int8"))
-    int8_stats, int8_counts = serve("4l fused bank, int8 pages", int8_engine, prompts,
+    int8_stats, int8_counts, _ = serve("4l fused bank, int8 pages", int8_engine, prompts,
                                     tuple(range(len(BUDGETS))),
                                     ("flash_attention", "page_copy", "slr_matmul_stacked"))
     if int8_counts["paged_attention"] or int8_counts["paged_attention_kquery"]:
@@ -1600,6 +1660,69 @@ def main() -> None:
           f"{f32_bytes} ({i8_bytes / f32_bytes:.4f}); page-copy launches "
           f"{int8_counts['page_copy']} (4 pools per copy-on-write call)")
     del int8_engine
+
+    phase("4m")
+    # 4m. the slot-padded ServingEngine on the fused bank: a contiguous f32
+    # cache of 8 slots x 512 positions, one-shot flash prefill per tier
+    # group, per-slot decode by masked einsum (no paged kernel), telemetry
+    # and tracing on; the registry's counts, a warm second drive with no
+    # retrace, the trace and a scrape against their validators
+    tiers3 = tuple(range(len(BUDGETS)))
+    m_engine = ServingEngine(banks["fused"], EngineConfig(max_slots=8, max_len=512,
+                                                          trace=True))
+    m_stats, batched_counts, m_streams = serve("4m fused bank, batched engine", m_engine,
+                                               prompts, tiers3,
+                                               ("flash_attention", "slr_matmul_stacked"))
+    if batched_counts["paged_attention"] or batched_counts["paged_attention_kquery"]:
+        fail(f"4m: the batched engine launched a paged kernel: {batched_counts}")
+    tel = m_engine.metrics
+    emitted = tel.counter_value(tel.tokens, "emitted")
+    n_ttft, n_itl = tel.ttft.count(tel.engine), tel.itl.count(tel.engine)
+    if (emitted, n_ttft, n_itl) != (N_BANK * MAX_NEW, N_BANK, N_BANK * (MAX_NEW - 1)):
+        fail(f"4m: the registry counts {emitted} emitted tokens, {n_ttft} TTFTs and {n_itl} "
+             f"ITLs; want {N_BANK * MAX_NEW}, {N_BANK}, {N_BANK * (MAX_NEW - 1)}")
+    print(f"  4m registry: {m_stats['tok_per_s']} tok/s; TTFT p50 "
+          f"{tel.ttft.percentile(50, tel.engine) * 1e3:.3f} ms, p99 "
+          f"{tel.ttft.percentile(99, tel.engine) * 1e3:.3f} ms; ITL p50 "
+          f"{tel.itl.percentile(50, tel.engine) * 1e3:.3f} ms, p99 "
+          f"{tel.itl.percentile(99, tel.engine) * 1e3:.3f} ms; KV cache "
+          f"{sum(tel.kv_pool_device_bytes.snapshot().values()) / 2**20:.1f} MiB")
+    for label, row in tel.program.snapshot().items():
+        print(f"  4m program {label}: {row['count']} calls, {row['sum'] * 1e3:.3f} ms in all, "
+              f"p50 {row['p50'] * 1e3:.3f} ms, p99 {row['p99'] * 1e3:.3f} ms")
+    with tempfile.TemporaryDirectory() as trace_dir:
+        trace_path = os.path.join(trace_dir, "trace.json")
+        m_engine.tracer.save_chrome(trace_path)
+        with open(trace_path) as f:
+            trace_rep = validate_chrome_trace(json.load(f))
+    server = start_metrics_server(tel.registry, port=0)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.server_address[1]}/metrics", timeout=30) as resp:
+            prom_rep = validate_prometheus_text(resp.read().decode())
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(f"  4m trace {json.dumps(trace_rep)}; scrape {json.dumps(prom_rep)}")
+    m_again, _, m_streams2 = serve("4m fused bank, batched engine, second drive", m_engine,
+                                   prompts, tiers3, ("flash_attention", "slr_matmul_stacked"))
+    snap = m_engine.stats_snapshot()
+    compiles = int(tel.jit_compiles.total())
+    if snap["jit_retraces"] != 0 or m_again["jit_retraces"] != 0:
+        fail(f"4m: the warm engine rebuilt launch plans: jit_retraces {snap['jit_retraces']}, "
+             f"{json.dumps(snap['metrics']['serve_jit_retraces_total'])}")
+    print(f"  4m second drive: {m_again['tok_per_s']} tok/s, jit_retraces 0, launch-plan "
+          f"builds {compiles} (all in first calls); streams equal to the first drive's: "
+          f"{sum(m_streams2[u + N_BANK] == t for u, t in m_streams.items())} of {N_BANK}")
+    del m_engine
+    p_engine = PagedServingEngine(banks["fused"], EngineConfig(max_slots=8, max_len=512,
+                                                               block_size=16))
+    _, _, p_streams = serve("4m fused bank, paged engine (static, no prefix cache)",
+                            p_engine, prompts, tiers3, ("paged_attention",))
+    del p_engine
+    same = sum(p_streams[u] == t for u, t in m_streams.items())
+    print(f"  4m streams equal to the paged engine's: {same} of {N_BANK} (decode sums in "
+          "another order: a near-tie may fork them; phase 5 gates the logits)")
     # free the serving phases' banks, so 4g's peak memory is training's own
     del engine, adapter_bank, tenants, tenant_models, banks
     torch.cuda.empty_cache()
@@ -1836,7 +1959,8 @@ def main() -> None:
     # 4j. the launcher: the hybrid falls back to the reference engine after the
     # note line; --engine reference serves the Llama (all-zero SLR states)
     bank_keys = {"fmt", "bank", "tier_policy", "requests", "tokens", "tok_per_s", "sample",
-                 "steps", "tokens_by_tier", "ttft_p50_ms", "ttft_p99_ms", "tiers"}
+                 "steps", "jit_retraces", "tokens_by_tier", "ttft_p50_ms", "ttft_p99_ms",
+                 "tiers"}
     for args_j in (["--arch", HYBRID, "--keep-ratios", "1.0,0.5"],
                    ["--arch", "salaad_llama_60m", "--engine", "reference",
                     "--keep-ratios", "1.0,0.6"]):
@@ -1908,6 +2032,42 @@ def main() -> None:
     mask = torch.arange(64)[None, :] < torch.from_numpy(counts_np)[:, None]
     compare("first chunk", logits["card"][0][mask], logits["cpu"][0][mask])
     compare("first decode tick", logits["card"][1], logits["cpu"][1])
+
+    # the batched engine's cache: one prefill into a per-slot contiguous
+    # cache of 512 positions (row 0 at max_len: both decode writes drop; row
+    # 1 at max_len - 1: the second drops), then two decode steps, both sides
+    # decoding the CPU's greedy tokens
+    slot_lens = np.array([512, 511, 77, 200])
+    slot_toks = np.random.default_rng(SEED + 5).integers(0, cfg.vocab_size, (4, 512)).astype(
+        np.int32)
+    slot_logits = {}
+    for name, model, d_ in (("card", dm, dev), ("cpu", cpu_dm, torch.device("cpu"))):
+        p_logits, pcache = model_lib.prefill(model.params,
+                                             {"tokens": torch.from_numpy(slot_toks).to(d_)},
+                                             cfg, max_len=512, cache_dtype=torch.float32)
+        slot_cache = model_lib.init_cache(cfg, 4, 512, dtype=torch.float32, device=d_,
+                                          per_slot=True)
+        slot_cache.k.copy_(pcache.k)
+        slot_cache.v.copy_(pcache.v)
+        slot_cache.length.copy_(torch.from_numpy(slot_lens).int())
+        slot_logits[name] = [p_logits.float().cpu(), slot_cache]
+    rows4 = torch.arange(4)
+    tok = slot_logits["cpu"][0][rows4, torch.from_numpy(slot_lens - 1)].argmax(-1)[:, None]
+    for step_i in range(2):
+        for name, model, d_ in (("card", dm, dev), ("cpu", cpu_dm, torch.device("cpu"))):
+            d_logits, slot_logits[name][1] = model_lib.decode_step(
+                model.params, tok.to(d_), slot_logits[name][1], cfg)
+            slot_logits[name].append(d_logits.float().cpu())
+        tok = slot_logits["cpu"][-1][:, -1].argmax(-1)[:, None]
+    pmask = torch.arange(512)[None, :] < torch.from_numpy(slot_lens)[:, None]
+    compare("per-slot prefill", slot_logits["card"][0][pmask], slot_logits["cpu"][0][pmask])
+    for step_i in range(2):
+        compare(f"per-slot decode step {step_i + 1}", slot_logits["card"][2 + step_i],
+                slot_logits["cpu"][2 + step_i])
+    got_len = slot_logits["card"][1].length.cpu().tolist()
+    if got_len != (slot_lens + 2).tolist():
+        fail(f"per-slot decode lengths {got_len}, want {(slot_lens + 2).tolist()}")
+    del slot_logits
 
     phase("5d")
     # 5d. int8 pages, card against CPU. The chunk is quantized once, on the
@@ -2135,7 +2295,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (fused_counts[name] + bsr_counts[name] + adapter_counts[name]
                          + spec_par_counts[name] + spec_seq_counts[name] + int8_counts[name]
-                         + train_counts[name] + sweep_counts[name] + hybrid_counts[name]),
+                         + batched_counts[name] + train_counts[name] + sweep_counts[name]
+                         + hybrid_counts[name]),
             "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
             "plain_ms": r_["plain_ms"], "bound_ms": r_["bound"][0],
             "bound_by": r_["bound"][1], "library_ms": r_["library_ms"],

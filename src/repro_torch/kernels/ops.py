@@ -5,18 +5,21 @@ Models and the serving engine call these. Each kernel wrapper counts its
 launches in an integer attribute (``launches``) that it increments where it
 launches the CUDA kernel and nowhere else; ``launch_counts`` and
 ``reset_launch_counts`` read and clear them, so a run can show that the main
-path went through the kernels.
+path went through the kernels. ``plan_builds`` counts the wrappers' launch
+plans built so far: the serving telemetry's retrace detector reads it around
+each program call.
 """
 from __future__ import annotations
 
 import torch
 
-from .bsr_matmul import BsrMatrix, bsr_matmul as _bsr_matmul_kernel
+from .bsr_matmul import BsrMatrix, bsr_plan
+from .bsr_matmul import bsr_matmul as _bsr_matmul_kernel
 from .flash_attention import flash_attention
-from .lowrank_matmul import lowrank_matmul
+from .lowrank_matmul import lowrank_matmul, lowrank_plan
 from .page_copy import page_copy
 from .paged_attention import paged_attention, paged_attention_kquery
-from .slr_matmul import BsrStack
+from .slr_matmul import BsrStack, fused_plan, unstacked_plan
 from .slr_matmul import slr_matmul as _slr_matmul_kernel
 from .slr_matmul import slr_matmul_multi as _slr_matmul_multi_kernel
 from .slr_matmul import slr_matmul_stacked as _slr_matmul_stacked_kernel
@@ -36,6 +39,7 @@ __all__ = [
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
+    "plan_builds",
 ]
 
 # kernel name -> wrapper holding its launch count
@@ -60,6 +64,16 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+# the host-side launch-plan builders, each memoized on its shape arguments
+PLAN_CACHES = (fused_plan, unstacked_plan, bsr_plan, lowrank_plan)
+
+
+def plan_builds() -> int:
+    """Launch plans built so far (misses of the plan caches): the host work
+    a wrapper redoes for a new shape. 0 on the CPU, where no plan is built."""
+    return sum(f.cache_info().misses for f in PLAN_CACHES)
 
 
 def bsr_matmul(x: torch.Tensor, bsr: BsrMatrix) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """Serving launcher: materialize the HPA budget spectrum of one SLR state as
 ONE ModelBank and serve a batch of requests through one engine (port of
-``repro/launch/serve.py``, ``--engine paged``, ``speculative`` and
-``reference``).
+``repro/launch/serve.py``: ``--engine paged``, ``batched``, ``speculative``
+and ``reference``).
 
 ``--keep-ratios`` names the bank's budget tiers (tier 0 = largest). Requests
 spread round-robin across the tiers (pin them all with ``--tier``); the
 engine runs one decode per active tier over the shared paged KV, and
 ``--tier-policy pressure`` downshifts the serving tier under page pressure
-before evicting. ``--ckpt-dir`` serves the parameters and SLR state of the
+before evicting. ``--engine batched`` serves through the slot-padded
+``ServingEngine`` (a contiguous cache of ``--max-len`` positions per slot;
+the paged-only switches raise in its constructor). ``--ckpt-dir`` serves the parameters and SLR state of the
 latest training checkpoint there (the JAX package's format, written by
 either package's trainer); without one the SLR state is the fresh all-zero
 one, so every SLR site takes the zero corner, as in the JAX launcher.
@@ -30,9 +32,14 @@ through ``ReferenceEngine`` whatever ``--engine`` says, after a
 ``{"note": ..., "capabilities": ...}`` line, as the JAX launcher does;
 ``--engine reference`` picks that engine for any family.
 
-It prints one JSON line with the JAX launcher's keys, less ``jit_retraces``
-(PyTorch runs eagerly: there is no tracing compiler to count retraces of).
-TTFT percentiles come from the requests' timestamps.
+It prints one JSON line with the JAX launcher's keys. ``jit_retraces``
+counts the kernels' launch-plan builds on a (program, tier) that had already
+run (``serving/telemetry.py``; 0 on the CPU, where no plan is built). TTFT
+percentiles come from the engine's registry (from the requests' timestamps
+when telemetry is off). ``--trace-out`` writes a Chrome trace of the run and
+``--trace-events`` its JSONL event log; ``--metrics-port`` serves the
+registry's Prometheus text on 127.0.0.1 during the run, and
+``--metrics-out`` writes one scrape (over HTTP when the port is set).
 
   python -m repro_torch.launch.serve --arch salaad_llama_60m \\
       --keep-ratios 1.0,0.6,0.3 --fmt fused --prefix-cache --tier-policy pressure
@@ -40,6 +47,8 @@ TTFT percentiles come from the requests' timestamps.
       --adapters 3 --max-resident-adapters 2
   python -m repro_torch.launch.serve --arch salaad_llama_60m --fmt fused \\
       --keep-ratios 1.0,0.3 --engine speculative --spec-k 4 --spec-budget 0.3
+  python -m repro_torch.launch.serve --arch salaad_llama_60m --engine batched \\
+      --keep-ratios 1.0,0.6,0.3 --fmt fused --trace-out t.json --metrics-out m.txt
   python -m repro_torch.launch.serve --arch zamba2_2p7b --keep-ratios 1.0,0.5 --fmt fused
 
 Tensors live on the card unless ``--device cpu`` is given (with
@@ -47,8 +56,9 @@ Tensors live on the card unless ``--device cpu`` is given (with
 paged engines run the CUDA attention kernels (``kernel_impl='pallas'``:
 flash prefill, paged decode and k-query) over pages in the model's dtype or
 bf16 pages under an f32 model; int8 pages take the flash prefill and the
-dequantizing page gather; the reference engine and the CPU keep the
-config's attention path.
+dequantizing page gather; the batched engine takes the flash prefill (its
+decode is a masked einsum, as in the JAX package); the reference engine and
+the CPU keep the config's attention path.
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ import argparse
 import dataclasses
 import json
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -75,22 +86,20 @@ from ..serving.engine import (
     EngineConfig,
     PagedServingEngine,
     ReferenceEngine,
+    ServingEngine,
     decode_emitted_tokens,
 )
 from ..serving.slr_params import deployment_report
 from ..serving.speculative import SpeculativeEngine
+from ..serving.telemetry import start_metrics_server
 from ..train import checkpoint
 
-ENGINES = {"paged": PagedServingEngine, "speculative": SpeculativeEngine,
-           "reference": ReferenceEngine}
+ENGINES = {"paged": PagedServingEngine, "batched": ServingEngine,
+           "reference": ReferenceEngine, "speculative": SpeculativeEngine}
 
 # switches whose code paths come with later slices of the port
 _LATER = {
     "mesh": "--mesh (tensor-parallel serving is a later slice)",
-    "trace_out": "--trace-out (the request tracer comes with the telemetry slice)",
-    "trace_events": "--trace-events (the request tracer comes with the telemetry slice)",
-    "metrics_port": "--metrics-port (the metrics registry comes with the telemetry slice)",
-    "metrics_out": "--metrics-out (the metrics registry comes with the telemetry slice)",
 }
 
 
@@ -118,12 +127,14 @@ def serve_batch(engine, vocab: int, requests: int, max_new: int, seed: int,
     done = engine.run()
     dt = time.monotonic() - t0
     total_tokens = sum(len(r.out_tokens) for r in done)
+    snap = engine.stats_snapshot()
     stats = {
         "requests": len(done),
         "tokens": total_tokens,
         "tok_per_s": round(total_tokens / max(dt, 1e-9), 2),
         "sample": done[0].out_tokens if done else [],
-        "steps": engine.stats_snapshot()["steps"],
+        "steps": snap["steps"],
+        "jit_retraces": snap["jit_retraces"],
     }
     by_tier: dict[int, int] = {}
     for r in done:
@@ -136,8 +147,14 @@ def serve_batch(engine, vocab: int, requests: int, max_new: int, seed: int,
             by_adapter[r.adapter] = by_adapter.get(r.adapter, 0) + len(r.out_tokens)
     if by_adapter:
         stats["tokens_by_adapter"] = {str(k): v for k, v in sorted(by_adapter.items())}
+    # TTFT on the submitted_at basis; the percentiles are the registry's
+    # histogram's when telemetry is on
     ttft = [r.first_token_at - r.submitted_at for r in done if r.first_token_at]
-    if ttft:
+    tel = engine.metrics
+    if tel.ttft.count(tel.engine):
+        stats["ttft_p50_ms"] = round(tel.ttft.percentile(50, tel.engine) * 1e3, 1)
+        stats["ttft_p99_ms"] = round(tel.ttft.percentile(99, tel.engine) * 1e3, 1)
+    elif ttft:
         stats["ttft_p50_ms"] = round(float(np.percentile(ttft, 50)) * 1e3, 1)
         stats["ttft_p99_ms"] = round(float(np.percentile(ttft, 99)) * 1e3, 1)
     if slo_ms is not None and ttft:
@@ -164,6 +181,46 @@ def serve_batch(engine, vocab: int, requests: int, max_new: int, seed: int,
     return stats
 
 
+def serve_with_observability(engine, args, vocab: int, tiers=(None,),
+                             adapters=(None,)) -> dict:
+    """``serve_batch`` with the requested exports attached: a request tracer
+    under ``--trace-out``/``--trace-events``, a live Prometheus endpoint
+    under ``--metrics-port`` (``--metrics-out`` then scrapes it over HTTP, so
+    the file is what the endpoint served)."""
+    tracer = engine.start_trace() if args.trace_out or args.trace_events else None
+    server = None
+    if args.metrics_port is not None:
+        server = start_metrics_server(engine.metrics.registry, port=args.metrics_port)
+    try:
+        stats = serve_batch(engine, vocab, args.requests, args.max_new, args.seed,
+                            args.slo_ms, tiers=tiers, adapters=adapters)
+        if server is not None:
+            port = server.server_address[1]
+            stats["metrics_port"] = port
+            if args.metrics_out:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics") as resp:
+                    text = resp.read().decode()
+                with open(args.metrics_out, "w") as f:
+                    f.write(text)
+                stats["metrics_out"] = args.metrics_out
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+    if server is None and args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(engine.metrics.registry.prometheus_text())
+        stats["metrics_out"] = args.metrics_out
+    if tracer is not None:
+        if args.trace_out:
+            tracer.save_chrome(args.trace_out)
+            stats["trace_out"] = args.trace_out
+        if args.trace_events:
+            tracer.save_jsonl(args.trace_events)
+            stats["trace_events"] = args.trace_events
+    return stats
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         formatter_class=argparse.RawDescriptionHelpFormatter,
@@ -185,8 +242,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="deployment format: 'fused' runs one kernel per linear site "
                          "with layer-stacked tables, 'bsr' the low-rank and block-CSC "
                          "kernels per layer")
-    ap.add_argument("--engine", default="paged",
-                    choices=("paged", "batched", "reference", "speculative"))
+    ap.add_argument("--engine", default="paged", choices=tuple(ENGINES))
     ap.add_argument("--kappa", type=float, default=0.7)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=8)
@@ -220,10 +276,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="HPA keep of the speculative engine's draft tier")
     ap.add_argument("--spec-adaptive", action="store_true",
                     help="adapt the draft window k to the observed acceptance rate")
-    ap.add_argument("--trace-out", default=None)
-    ap.add_argument("--trace-events", default=None)
-    ap.add_argument("--metrics-port", type=int, default=None)
-    ap.add_argument("--metrics-out", default=None)
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON of the run here (one track per "
+                         "slot, one per program; open in Perfetto)")
+    ap.add_argument("--trace-events", default=None,
+                    help="write the structured JSONL event log here (the same events as "
+                         "--trace-out, one dict per line)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve the Prometheus text exposition on 127.0.0.1:PORT/metrics "
+                         "during the run (0 = ephemeral; the bound port rides in the line)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write one Prometheus scrape to this file after the run (over "
+                         "HTTP when --metrics-port is set)")
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--adapters", type=int, default=0,
                     help="multi-tenant mode: register N SLR adapters (HPA views at spread "
@@ -238,10 +302,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _reject_later_slices(ap: argparse.ArgumentParser, args):
     asked = [msg for name, msg in _LATER.items() if getattr(args, name) != ap.get_default(name)]
-    if args.engine not in ENGINES:
-        asked.append(f"--engine {args.engine} (the port serves through the paged, "
-                     "speculative and reference engines; the other engines are later "
-                     "slices)")
     if asked:
         raise ValueError(f"not ported yet: {'; '.join(asked)}")
 
@@ -250,9 +310,13 @@ def attention_impl(cfg, device, kv_dtype: str, engine=PagedServingEngine) -> str
     """The attention path the launcher serves ``cfg`` with: the CUDA kernels
     on the card under the paged engines when their kernels take the pages
     (the model's dtype, bf16 under f32, or int8 pages, which take the flash
-    prefill and the dequantizing gather), else the config's."""
-    if not (issubclass(engine, PagedServingEngine) and device.type == "cuda"):
+    prefill and the dequantizing gather), the flash prefill under the
+    slot-padded engine (its decode is a masked einsum whatever the path),
+    else the config's."""
+    if not (issubclass(engine, ServingEngine) and device.type == "cuda"):
         return cfg.kernel_impl
+    if not issubclass(engine, PagedServingEngine):
+        return "pallas"
     if kv_dtype == "int8" or takes_pages(cfg.param_dtype, getattr(torch, kv_dtype)):
         return "pallas"
     return cfg.kernel_impl
@@ -311,15 +375,14 @@ def main(argv=None):
                                                                 fmt=args.fmt)))
         bank = AdapterBank(base, tenants, names=[f"tenant{i}" for i in range(args.adapters)])
         engine = engine_cls(bank, ecfg)
-        stats = serve_batch(engine, cfg.vocab_size, args.requests, args.max_new, args.seed,
-                            args.slo_ms, adapters=tuple(range(args.adapters)))
+        stats = serve_with_observability(engine, args, cfg.vocab_size,
+                                         adapters=tuple(range(args.adapters)))
         print(json.dumps({"fmt": args.fmt, "adapters": bank.adapter_report(), **stats}))
         return
 
     if args.keep_ratios is None:
         engine = engine_cls(ModelBank.single(cfg, params), ecfg)
-        stats = serve_batch(engine, cfg.vocab_size, args.requests, args.max_new,
-                            args.seed, args.slo_ms)
+        stats = serve_with_observability(engine, args, cfg.vocab_size)
         print(json.dumps({"budget": None, "fmt": "dense-init", **stats}))
         return
 
@@ -359,8 +422,7 @@ def main(argv=None):
     if args.tier is None:
         # the speculative engine pins every slot to its target tier
         tiers = (None,) if engine_cls is SpeculativeEngine else tuple(range(len(bank)))
-    stats = serve_batch(engine, cfg.vocab_size, args.requests, args.max_new, args.seed,
-                        args.slo_ms, tiers=tiers)
+    stats = serve_with_observability(engine, args, cfg.vocab_size, tiers=tiers)
     print(json.dumps({
         "fmt": args.fmt,
         "bank": bank.report(),

@@ -17,10 +17,18 @@ Paths, one set of weights:
   * paged cache otherwise, and int8 pages under any ``kernel_impl`` (as in
     the JAX package, whose Pallas path needs ``k_scale is None``): gather the
     slot's pages (dequantized), then masked einsum;
-  * contiguous cache (``KVCache``, one scalar length for the batch): the t
-    new positions insert at the length; t == 1 attends by masked einsum,
-    t > 1 (prefill into a cache) through ``models/flash_vjp.py`` with the
-    causal offset at the length, as the JAX package's path does.
+  * contiguous cache (``KVCache``) with one host length for the batch (the
+    reference engine's and the hybrid's): the t new positions insert at the
+    length; t == 1 attends by masked einsum, t > 1 (prefill into a cache)
+    through ``models/flash_vjp.py`` with the causal offset at the length, as
+    the JAX package's path does;
+  * contiguous cache with per-slot ``(B,)`` lengths (the slot-padded
+    ``ServingEngine``'s): row b's t positions insert at ``length[b]``
+    (``contiguous_insert``: positions past the buffer drop, as JAX's
+    ``mode='drop'`` scatter drops them) and query i of row b attends keys
+    ``<= length[b] + i`` by masked einsum (the JAX package takes its
+    blockwise path for t > 1; the engines never insert more than one token
+    per row into this cache).
 
 Both inserts update the caches IN PLACE: the JAX package donated the cache
 buffers to its jitted programs, so no caller held the old ones; here the
@@ -40,16 +48,45 @@ from ..serving.kv_quant import quantize_kv
 from .flash_vjp import flash_attention_vjp
 from .layers import apply_rope, apply_weight
 
-__all__ = ["KVCache", "PagedLayerCache", "paged_insert", "paged_gather", "attention_block"]
+__all__ = ["KVCache", "PagedLayerCache", "contiguous_insert", "paged_insert", "paged_gather",
+           "attention_block"]
 
 
 class KVCache(NamedTuple):
     """One layer's contiguous KV cache: positions 0 .. length - 1 of every
-    row are valid. ``length`` is a host integer (the caller keeps it)."""
+    row are valid. ``length`` is a host integer (the caller keeps it), or a
+    (B,) int32 tensor of per-slot lengths on the cache's device."""
 
     k: torch.Tensor   # (B, Hkv, S, D)
     v: torch.Tensor
-    length: int
+    length: int | torch.Tensor
+
+
+def contiguous_insert(cache: KVCache, kh: torch.Tensor, vh: torch.Tensor) -> KVCache:
+    """Write t tokens (B, Hkv, t, D) at positions length[b] .. length[b] +
+    t - 1 of each row of a per-slot cache, in place; positions ``>= S`` are
+    dropped, as JAX's ``mode='drop'`` scatter drops them. No host sync: a
+    dropped position is aimed at the row's last position S - 1 with the
+    value S - 1 ends up holding (its own write where one lands there, else
+    what it held), so every write to one position carries one value and the
+    scatter's order cannot matter. Returns the cache at ``length + t``."""
+    s = cache.k.shape[2]
+    t = kh.shape[2]
+    n0 = cache.length.long()
+    pos = n0[:, None] + torch.arange(t, device=kh.device)[None, :]     # (B, t)
+    keep = pos < s
+    idx = torch.where(keep, pos, torch.full_like(pos, s - 1))
+    at_last = s - 1 - n0                                               # (B,): i landing at S - 1
+    lands = ((at_last >= 0) & (at_last < t))[:, None, None]
+    for pool, new in ((cache.k, kh), (cache.v, vh)):
+        new = new.to(pool.dtype)
+        b, h, _, d = new.shape
+        mine = torch.gather(new, 2, at_last.clamp(0, t - 1)[:, None, None, None]
+                            .expand(b, h, 1, d))[:, :, 0]
+        last = torch.where(lands, mine, pool[:, :, s - 1])            # (B, Hkv, D)
+        val = torch.where(keep[:, None, :, None], new, last[:, :, None, :])
+        pool.scatter_(2, idx[:, None, :, None].expand(b, h, t, d), val)
+    return cache._replace(length=cache.length + t)
 
 
 class PagedLayerCache(NamedTuple):
@@ -133,7 +170,7 @@ def attention_block(
     one-shot prefill can fill pages without re-projecting. With a paged cache
     the t new positions are inserted first and query i of slot b attends keys
     ``<= length[b] + i``; returns ``(out, updated layer cache)``. A
-    contiguous cache does the same at its one length.
+    contiguous cache does the same at its one length or at each row's.
     """
     b, t, _ = x.shape
     q = apply_weight(x, params["q"]).reshape(b, t, n_heads, head_dim)
@@ -158,6 +195,11 @@ def attention_block(
         else:
             out = flash_attention_vjp(qh, kh, vh, True, q_block, kv_block)
         new_cache = (kh, vh)
+    elif isinstance(cache, KVCache) and isinstance(cache.length, torch.Tensor):
+        new_cache = contiguous_insert(cache, kh, vh)
+        q_idx = cache.length.long()[:, None] + torch.arange(t, device=x.device)[None, :]
+        out = _masked_attention(qh, new_cache.k, new_cache.v, q_idx, n_heads, n_kv,
+                                head_dim).to(x.dtype)
     elif isinstance(cache, KVCache):
         n0 = int(cache.length)
         cache.k[:, :, n0:n0 + t] = kh.to(cache.k.dtype)

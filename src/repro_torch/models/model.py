@@ -6,7 +6,7 @@
     prefill(params, batch, cfg, max_len)            -> (logits, contiguous cache)
     decode_step(params, tokens, cache, cfg)         -> (logits, cache)
     chunk_prefill_step(params, tokens, counts, cache, cfg) -> (logits, cache)
-    init_cache(cfg, batch, max_len)                 -> LMCache or HybridCache
+    init_cache(cfg, batch, max_len, per_slot=False) -> LMCache or HybridCache
     init_paged_cache(cfg, ...)                      -> PagedKVCache
     cross_entropy(logits, labels, mask)             -> mean next-token NLL
     loss_fn(params, batch, cfg)                     -> (loss, metrics)
@@ -101,7 +101,8 @@ def prefill(params, batch: dict, cfg, max_len: int, cache_dtype=torch.bfloat16):
 @torch.no_grad()
 def decode_step(params, tokens: torch.Tensor, cache, cfg):
     """One autoregressive step; tokens (B, 1) sit at each slot's length (the
-    paged cache's per-slot lengths, or a contiguous cache's one length)."""
+    paged cache's per-slot lengths, a contiguous cache's one length, or its
+    per-slot (B,) lengths: there a row at the buffer's end drops its write)."""
     offset = cache.length if isinstance(cache.length, int) else cache.length.long()
     return _forward(params, {"tokens": tokens}, cfg, cache=cache, position_offset=offset)
 
@@ -120,10 +121,17 @@ def chunk_prefill_step(params, tokens: torch.Tensor, counts: torch.Tensor, cache
     return logits, new_cache._replace(length=n0 + counts)
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+               per_slot: bool = False):
     """The family's contiguous decode cache, on the card unless ``device``
-    says otherwise."""
+    says otherwise. ``per_slot`` gives the dense cache (batch,) lengths, one
+    per serving slot (the slot-padded engine's); the hybrid's SSM state has
+    none, as in the JAX package."""
     _require_ported(cfg)
+    if per_slot:
+        _require_paged(cfg, "a per-slot cache")
+        return transformer.init_cache(cfg, batch, max_len, dtype, resolve_device(device),
+                                      per_slot=True)
     init = transformer.init_cache if cfg.family == "dense" else hybrid.init_hybrid_cache
     return init(cfg, batch, max_len, dtype, resolve_device(device))
 

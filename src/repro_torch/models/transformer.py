@@ -39,12 +39,14 @@ __all__ = ["LMCache", "PagedKVCache", "init_lm", "layer_view", "forward", "init_
 
 
 class LMCache(NamedTuple):
-    """Contiguous decode cache (the reference engine's): positions
-    0 .. length - 1 of every row are valid; axis 1 of k and v is the batch."""
+    """Contiguous decode cache: positions 0 .. length - 1 of every row are
+    valid; axis 1 of k and v is the batch. ``length`` is a host integer (the
+    reference engine's) or a (B,) int32 tensor of per-slot lengths (the
+    slot-padded ``ServingEngine``'s)."""
 
     k: torch.Tensor   # (L, B, Hkv, S, D)
     v: torch.Tensor
-    length: int       # valid prefix (a host integer)
+    length: int | torch.Tensor
 
 
 class PagedKVCache(NamedTuple):
@@ -139,7 +141,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
       (L, B, Hkv, T, D), when ``collect_kv`` (one-shot prefill), else None;
     * paged cache: tokens insert at each slot's length; the pools update in
       place and the returned cache carries ``length + T``;
-    * contiguous cache: the same at its one length, in place.
+    * contiguous cache: the same at its one length or at each row's, in
+      place (per-slot writes past the buffer drop).
     """
     x = embed(params["embed"], tokens)
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -180,10 +183,14 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     return logits, None
 
 
-def init_cache(cfg, batch: int, max_len: int, dtype, device) -> LMCache:
+def init_cache(cfg, batch: int, max_len: int, dtype, device,
+               per_slot: bool = False) -> LMCache:
+    """Zeroed contiguous cache at length 0: one host length, or with
+    ``per_slot`` a (batch,) int32 tensor of lengths."""
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    length = torch.zeros((batch,), dtype=torch.int32, device=device) if per_slot else 0
     return LMCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device), length=0)
+                   v=torch.zeros(shape, dtype=dtype, device=device), length=length)
 
 
 def cache_from_prefill(kvs, max_len: int, dtype) -> LMCache:

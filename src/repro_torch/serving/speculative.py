@@ -42,8 +42,9 @@ salt ``2 + i``, the verify ``2 + k``.
 
 ``spec_adaptive`` adapts k with :class:`SpecController`, an integral
 controller on the per-slot acceptance EMA, clamped to ``[1 or 2, spec_k]``.
-The counters (``drafted_tokens``, ``accepted_tokens``, ``spec_ticks``) are
-plain integers: the port has no telemetry registry yet.
+``drafted_tokens`` and ``accepted_tokens`` are views over the registry's
+``serve_spec_tokens_total``; each tick is the ``spec_decode[k={k}]``
+program, timed with its host fetch, and reports ``on_spec_tick``.
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels import ops
 from ..models import model as model_lib
 from ..models import transformer as transformer_lib
 from .engine import (
@@ -214,8 +216,6 @@ class SpeculativeEngine(PagedServingEngine):
             k_min=2 if self._parallel and ecfg.spec_k >= 2 else 1,
         ) if ecfg.spec_adaptive else None
         self.spec_ticks = 0
-        self.drafted_tokens = 0      # draft proposals offered to the verifier
-        self.accepted_tokens = 0     # proposals the verifier accepted
         self._accept_ema = np.full((ecfg.max_slots,), np.nan)
         # parallel schedule: each slot's guess window for the next tick (zeros:
         # no guess)
@@ -253,6 +253,16 @@ class SpeculativeEngine(PagedServingEngine):
 
     def _effective_tier(self, req: Request) -> int:
         return self._target_tier
+
+    @property
+    def drafted_tokens(self) -> int:
+        """Draft proposals offered to the verifier, lifetime."""
+        return int(self.metrics.counter_value(self.metrics.spec_tokens, "drafted"))
+
+    @property
+    def accepted_tokens(self) -> int:
+        """Draft proposals the verifier accepted, lifetime."""
+        return int(self.metrics.counter_value(self.metrics.spec_tokens, "accepted"))
 
     @property
     def acceptance_rate(self) -> float:
@@ -376,20 +386,25 @@ class SpeculativeEngine(PagedServingEngine):
             if self._parallel:
                 tokens[slot, 1:] = self._guess[slot, : k - 1]
         active_d = self._to_dev(active)
-        if self._parallel:
-            out, guesses, emitted, accepted = self._spec_parallel(self._to_dev(tokens), active_d)
-            guess_np = guesses.cpu().numpy()
-            drafted = max(k - 1, 1)      # k - 1 verifiable guesses per window
-        else:
-            out, emitted, accepted = self._spec_seq(self._to_dev(tokens), active_d, k)
-            guess_np = None
-            drafted = k
-        self.decode_calls += 1
-        out_np = out.cpu().numpy()
-        emitted_np = emitted.cpu().numpy()
-        accepted_np = accepted.cpu().numpy()
+        with self.metrics.measure_program(f"spec_decode[k={k}]", self._target_tier,
+                                          traces=ops.plan_builds):
+            if self._parallel:
+                out, guesses, emitted, accepted = self._spec_parallel(self._to_dev(tokens),
+                                                                      active_d)
+                guess_np = guesses.cpu().numpy()
+                drafted = max(k - 1, 1)      # k - 1 verifiable guesses per window
+            else:
+                out, emitted, accepted = self._spec_seq(self._to_dev(tokens), active_d, k)
+                guess_np = None
+                drafted = k
+            self.decode_calls += 1
+            out_np = out.cpu().numpy()
+            emitted_np = emitted.cpu().numpy()
+            accepted_np = accepted.cpu().numpy()
 
         ema_sum, n_active = 0.0, 0
+        tick_drafted = tick_accepted = 0
+        tr = self.tracer
         for slot, req in list(self._active.items()):
             if slot in self._progress:   # drafted nothing this tick
                 continue
@@ -400,8 +415,11 @@ class SpeculativeEngine(PagedServingEngine):
             self._accept_ema[slot] = rate if np.isnan(prev) \
                 else _SLOT_EMA * prev + (1.0 - _SLOT_EMA) * rate
             ema_sum += self._accept_ema[slot]
-            self.drafted_tokens += drafted
-            self.accepted_tokens += int(accepted_np[slot])
+            tick_drafted += drafted
+            tick_accepted += int(accepted_np[slot])
+            if tr is not None:
+                tr.instant(slot, "spec_accept", uid=req.uid, drafted=drafted,
+                           accepted=int(accepted_np[slot]), emitted=m)
             if guess_np is not None:
                 # d_chain[i] predicts position n+i+1; the next window starts
                 # at n+m, so its guesses are d_chain[m:], zeros past the end
@@ -413,6 +431,8 @@ class SpeculativeEngine(PagedServingEngine):
                     break                # max_new or eos mid-burst
                 self._record(slot, req, int(out_np[slot, j]), free, done)
         self.spec_ticks += 1
+        if n_active:
+            self.metrics.on_spec_tick(tick_drafted, tick_accepted, ema_sum / n_active, self._k)
         if self.controller is not None and n_active:
             # the window integrates the per-slot acceptance EMAs' mean
             self._k = self.controller.update(ema_sum / n_active)

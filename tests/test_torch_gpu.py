@@ -27,7 +27,13 @@ from repro_torch.serving.adapters import AdapterBank, adapterize
 from repro_torch.serving.deployed import DeployedModel
 from repro_torch.serving.elastic import ModelBank
 from repro_torch.core.selection import SelectionConfig
-from repro_torch.serving.engine import EngineConfig, PagedServingEngine, ReferenceEngine
+from repro_torch.models.attention import KVCache, contiguous_insert
+from repro_torch.serving.engine import (
+    EngineConfig,
+    PagedServingEngine,
+    ReferenceEngine,
+    ServingEngine,
+)
 from repro_torch.tree import tree_map
 
 pytestmark = pytest.mark.gpu
@@ -724,6 +730,57 @@ def test_engine_streams_on_card_match_cpu(cuda):
                 assert not any(counts.values())
     assert streams["cuda", "roomy"] == streams["cpu", "roomy"]
     assert streams["cuda", "tight"] == streams["cpu", "tight"]
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_contiguous_insert_drops_on_card(cuda, t):
+    """The per-slot contiguous insert on the card: rows at 0, S - 2, S - 1
+    and S (all their writes past the buffer) take the CPU's result bit for
+    bit, with no device-side assert for the dropped positions and no host
+    sync (sync debug mode raises on one)."""
+    rng = np.random.default_rng(t)
+    k = torch.from_numpy(rng.standard_normal((4, 2, 8, 16), dtype=np.float32))
+    v = torch.from_numpy(rng.standard_normal((4, 2, 8, 16), dtype=np.float32))
+    new = torch.from_numpy(rng.standard_normal((4, 2, t, 16), dtype=np.float32))
+    lens = torch.tensor([0, 6, 7, 8], dtype=torch.int32)
+    want = contiguous_insert(KVCache(k.clone(), v.clone(), lens), new, -new)
+    gk, gv, glen = k.to(cuda), v.to(cuda), lens.to(cuda)
+    gnew = new.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = contiguous_insert(KVCache(gk, gv, glen), gnew, -gnew)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got.k.cpu(), want.k) and torch.equal(got.v.cpu(), want.v)
+    assert got.length.cpu().tolist() == want.length.tolist() == [x + t for x in (0, 6, 7, 8)]
+    assert torch.equal(got.k.cpu()[3], k[3])
+
+
+def test_batched_engine_streams_on_card_match_cpu(cuda):
+    """The slot-padded ServingEngine on a three-tier reduced fused bank
+    (flash prefill, the fused SLR kernel at every linear site, per-slot
+    decode by masked einsum): prefill groups padded below max_slots, slots
+    reused; the card's greedy streams equal the CPU's, and the paged
+    kernels never run."""
+    banks = _reduced_bank((1.0, 0.6, 0.3))
+    prompts = [[5, 7, 11], [3, 1], list(range(2, 40)), [8, 8, 2], [1, 2, 3, 4, 5, 6],
+               [9, 9], list(range(60, 75))]
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        ops.reset_launch_counts()
+        eng = ServingEngine(banks[dev], EngineConfig(max_slots=3, max_len=64))
+        for i, pr in enumerate(prompts):
+            eng.submit(pr, max_new_tokens=8, tier=i % 3)
+        streams[dev] = {r.uid: r.out_tokens for r in eng.run()}
+        counts = ops.launch_counts()
+        if dev == "cuda":
+            assert counts["flash_attention"] > 0 and counts["slr_matmul_stacked"] > 0
+            assert counts["paged_attention"] == counts["paged_attention_kquery"] == 0
+            assert eng.stats_snapshot()["jit_retraces"] == 0
+        else:
+            assert not any(counts.values())
+    assert streams["cuda"] == streams["cpu"]
 
 
 def _reduced_bank(keeps):

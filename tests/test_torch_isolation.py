@@ -32,7 +32,8 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.train.checkpoint", "repro_torch.train.fault",
             "repro_torch.train.trainer", "repro_torch.launch.train",
             "repro_torch.models.ssm", "repro_torch.models.hybrid",
-            "repro_torch.configs.zamba2_2p7b"} <= set(mods)
+            "repro_torch.configs.zamba2_2p7b", "repro_torch.serving.telemetry",
+            "repro_torch.serving.trace"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"

@@ -341,18 +341,32 @@ def test_pallas_needs_chunked_prefill(trained):
 ])
 def test_later_slice_features_raise(trained, field, value, name):
     """The features of later slices raise at ``EngineConfig``, naming
-    themselves. Sampling, speculation and int8 pages are ported: the config
-    takes them, and each raises, naming itself, in an engine that cannot
-    give it (a parallel draft schedule cannot sample, the paged engine does
-    not speculate, the reference engine keeps an f32 cache)."""
+    themselves: the mesh. Sampling, speculation and int8 pages are ported:
+    the config takes them, and each raises, naming itself, in an engine that
+    cannot give it (a parallel draft schedule cannot sample, the paged engine
+    does not speculate, the reference engine keeps an f32 cache). The
+    telemetry registry and the tracer are ported: every engine builds its
+    registry (a no-op one with ``telemetry=False``) and, with ``trace=True``,
+    its tracer."""
     from repro_torch.serving.speculative import SpeculativeEngine
+    from repro_torch.serving.telemetry import EngineTelemetry, NullTelemetry
+    from repro_torch.serving.trace import RequestTracer
 
-    if field in ("mesh", "telemetry", "trace"):
+    if field == "mesh":
         with pytest.raises(ValueError, match=name):
             EngineConfig(**{field: value})
         return
-    EngineConfig(**{field: value})
     dm = DeployedModel(trained.tcfg, trained.tparams, fmt="dense")
+    if field in ("telemetry", "trace"):
+        for cls in (PagedServingEngine, ReferenceEngine):
+            on = cls(dm, EngineConfig(**{field: value}))
+            off = cls(dm, EngineConfig(telemetry=False))
+            assert type(on.metrics) is EngineTelemetry and on.metrics.enabled
+            assert type(off.metrics) is NullTelemetry and off.tracer is None
+            if field == "trace":
+                assert isinstance(on.tracer, RequestTracer) and on.metrics.tracer is on.tracer
+        return
+    EngineConfig(**{field: value})
     with pytest.raises(ValueError, match=name):
         if field == "greedy":
             SpeculativeEngine(dm, EngineConfig(greedy=False, spec_k=2,
