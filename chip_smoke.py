@@ -84,8 +84,8 @@ error:
       with ``--kv-dtype int8`` and with ``--engine batched --trace-out
       --trace-events --metrics-port 0 --metrics-out`` (the files must pass
       the port's validators), and prints its lines;
-   e. run (a) and (b) again under torch.profiler: device busy time, idle
-      share and each kernel's share of device time;
+   e. (the profiled runs of a, b, f, g and i live in
+      ``tools/profile_paths.py``: a profiler's teardown costs minutes);
    f. the adapter bank serves 24 greedy requests round-robin over its four
       tenants (the prompts of (a), one-shot prefill, the prefix cache, 8
       slots) in ``batched`` mode: the per-slot SLR kernel must launch, and
@@ -95,8 +95,7 @@ error:
    g. SALAAD training at full width: ``Trainer.fit`` of salaad_llama_60m
       (f32, seq 256, batch 8, lr 1e-3, K = 5, 20 steps = 4 ADMM steps on
       the randomized SVD); soft_threshold must launch 8 times per ADMM step,
-      every loss and statistic must be finite and the loss must fall; then
-      one train step and one ADMM step under torch.profiler;
+      every loss and statistic must be finite and the loss must fall;
    h. 4g's state saved with ``train/checkpoint.py`` and served by
       ``python -m repro_torch.launch.serve --ckpt-dir`` (in process, so the
       launch counts are read): ``slr_params > 0`` and the stacked SLR and
@@ -109,7 +108,7 @@ error:
       8-40 tokens, 16 new tokens, tiers round-robin) on ``ReferenceEngine``
       (4 slots, max_len 128): the unstacked SLR kernel must launch for every
       tier, 63 times per decode call when every shared-block site has both
-      parts live; then one short request under torch.profiler;
+      parts live;
    j. ``python -m repro_torch.launch.serve --arch zamba2_2p7b`` (the
       fallback note, then the reference engine) and ``--engine reference``
       on salaad_llama_60m;
@@ -135,6 +134,36 @@ error:
       their validators; tok/s, TTFT and ITL percentiles, the program-time
       histogram per (program, tier), peak memory, and the count of streams
       equal to a static ``PagedServingEngine`` run of the same bank;
+   n. the MoE at full width: qwen3_moe_30b_a3b (d_model 2048, 32 heads of 64
+      over 4 KV heads, 128 experts top-8 of d_ff 768, vocab 151936, bf16) at
+      4 of its 48 layers, from a numpy seed; one randomized-SVD sweep on the
+      card (as in i), HPA keeps 1.0 / 0.5 in the ``fused`` format (the
+      experts and routers dense-materialized) as one ModelBank;
+      ``PagedServingEngine`` with 8 slots, the prefix cache and chunks of
+      128 serves 16 greedy requests (a shared 32-token system prompt plus
+      16-224 tokens, 32 new tokens, tiers round-robin): tok/s, median TTFT,
+      peak memory, launches per program call and the (token, expert) pairs
+      the capacity dropped, of the served tokens and with the padded rows;
+      a second identical run must give the same streams bit for bit; then
+      prefill(31) + one decode step on tier 0 in f32 at dropless capacity
+      must match the no-cache forward within ``LOGIT_TOL``; paged decode at
+      the MoE's group of 8 timed on the device alone; then paged decode
+      (the timed and ragged lengths), the k-query kernel at the chunk of
+      128 and every fused site (bf16 activations over the tier's f32
+      tables, T = 8 and 1024) held against their plain versions;
+   o. gemma_7b at full width (geglu, 16 heads of 256, vocab 256000) at 2 of
+      its 28 layers: the same build, 8 requests of 16 new tokens on the same
+      engine; paged decode at D = 256 timed on the device alone; the same
+      kernel checks as in n at Gemma's shapes;
+   p. at full width and depth on ``ReferenceEngine`` (2 requests of
+      16-token prompts, 8 new tokens each, keeps 1.0 / 0.5): mamba2_370m in
+      ``fused`` (no linear site: every block dense-materialized) and
+      whisper_small in ``bsr`` (its decoder's sites on the low-rank and
+      block-CSC kernels, cross-attention over the reference engine's zero
+      cross heads on the flash kernel); then whisper's encoder over 1500
+      frames (flash, non-causal), a prefill and two decode steps, and the
+      flash kernel held against its plain version at the encoder's
+      1500 x 1500 and the cross-attention's 16 x 1500 and 1 x 1500;
 5. parity: the first one-shot prefill's, the first chunk's and the first
    decode tick's logits on the card against the same model on the CPU, and
    one prefill and two decode steps over the per-slot contiguous cache (a
@@ -147,7 +176,16 @@ error:
    the no-cache forward (JAX's ``test_decode_consistency``); (5d) the first
    decode tick over int8 pages (a chunk quantized once, on the CPU), card
    against CPU, logits within 1e-3, with each side quantizing its own chunk
-   printed beside it, and the sampler's keyed uniforms equal bit for bit.
+   printed beside it, and the sampler's keyed uniforms equal bit for bit;
+   (5e) each of the nine architectures of 4n-4p's families at ``.reduced()``
+   (f32), one exact-SVD sweep on the CPU, a keep-0.5 tier in the family's
+   first serving format (bsr for whisper, fused for the others), on the
+   card with ``kernel_impl='pallas'`` and on the CPU: prefill + two decode
+   steps within ``LOGIT_TOL``, greedy streams token-identical (the paged
+   engine with chunks for the KV families, ReferenceEngine for ssm and
+   encdec); and qwen3_moe_30b_a3b at full width, one layer, f32: the first
+   decode tick within ``LOGIT_TOL``, the tokens whose top-8 expert set
+   differs printed.
 
 Output: the card's name and power limit, build time, per-phase lines, then
 one ``{"kernels": [...]}`` line and, last, the device line the harness reads.
@@ -294,6 +332,7 @@ def main() -> None:
     from repro_torch.launch.serve import serve_batch
     from repro_torch.core.hpa import hpa_keep_ratio
     from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
     from repro_torch.serving.adapters import AdapterBank, adapterize
     from repro_torch.serving.deployed import DeployedModel
     from repro_torch.serving.elastic import ModelBank
@@ -1418,53 +1457,6 @@ def main() -> None:
               f"{json.dumps(line)}")
     shutil.rmtree(obs_dir, ignore_errors=True)
 
-    # 4e. where the time goes: runs under torch.profiler (here 4a and 4b; 4f's
-    # batched run below)
-
-    def profiled(label: str, run) -> None:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_prof = time.perf_counter() - t0
-        device_events = [e for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in device_events) / 1e3
-        if busy_ms <= 0:
-            print(f"profile {label}: the profiler recorded no device time (not measured)")
-            return
-        print(f"profile {label}: wall {wall_prof * 1e3:.1f} ms under the profiler, device "
-              f"busy {busy_ms:.1f} ms, idle share {1 - busy_ms / (wall_prof * 1e3):.3f}")
-        for e in sorted(device_events, key=lambda e: -e.self_device_time_total)[:10]:
-            print(f"  device {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  "
-                  f"{e.key[:90]}")
-        # each CUDA kernel of the port (namespace salaad, all its template
-        # instances) and its share of device time
-        shares: dict[str, list] = {}
-        for e in device_events:
-            found = re.search(r"salaad::(?:\(anonymous namespace\)::)?(\w+)", e.key)
-            if found:
-                row = shares.setdefault(found.group(1), [0.0, 0])
-                row[0] += e.self_device_time_total / 1e3
-                row[1] += e.count
-        for base, (ms_, calls) in sorted(shares.items(), key=lambda kv: -kv[1][0]):
-            print(f"  share {base}: {ms_:.1f} ms of {busy_ms:.1f} device ms = "
-                  f"{ms_ / busy_ms:.3f} ({calls} launches)")
-        # the low-rank kernel's two products, one call of lowrank_matmul
-        pair = [shares[b] for b in ("lowrank_xp_kernel", "lowrank_tv_kernel") if b in shares]
-        if pair:
-            ms_ = sum(ms for ms, _ in pair)
-            print(f"  share lowrank_matmul (both kernels): {ms_:.1f} ms of {busy_ms:.1f} device ms "
-                  f"= {ms_ / busy_ms:.3f}")
-
-    engine = PagedServingEngine(banks["fused"], bank_ecfg)
-    profiled("4a", lambda: serve_batch(engine, cfg.vocab_size, len(prompts), MAX_NEW, SEED,
-                                       tiers=tuple(range(len(BUDGETS))), prompts=prompts))
-    engine = PagedServingEngine(banks["bsr"], EngineConfig(max_slots=8, max_len=512,
-                                                           block_size=16))
-    profiled("4b", lambda: serve_batch(engine, cfg.vocab_size, len(bsr_prompts), MAX_NEW, SEED,
-                                       tiers=tuple(range(len(BUDGETS))), prompts=bsr_prompts))
-
     phase("4f")
     # 4f. multi-tenant adapters: the adapter bank in batched mode (one decode
     # call per tick over slots of different tenants), then the same bank's
@@ -1540,15 +1532,6 @@ def main() -> None:
         fail(f"grouped mode runs the stacked kernel per adapter: {g_counts}")
     print("  grouped-mode streams equal the batched-mode streams")
     del grouped_bank
-    engine = PagedServingEngine(adapter_bank, EngineConfig(
-        **ad_ecfg, adapters=True, max_resident_adapters=ADAPTER_ROWS))
-
-    def adapter_run():
-        for i, p in enumerate(prompts):
-            engine.submit(p, max_new_tokens=MAX_NEW, adapter=i % n_ten)
-        engine.run()
-
-    profiled("4f batched", adapter_run)
 
     phase("4k")
     # 4k. elastic self-speculative decoding on the fused bank: tier 0 verifies,
@@ -1801,8 +1784,6 @@ def main() -> None:
         fail("4g: a loss or an ADMM statistic is not finite")
     if not np.mean(losses[-5:]) < np.mean(losses[:5]):
         fail(f"4g: the loss did not fall: {losses}")
-    profiled("4g one train step", lambda: trainer._train_step(t_state, data.batch(TRAIN_STEPS)))
-    profiled("4g one ADMM step", lambda: trainer._admm_step(t_state))
 
     phase("4h")
     # 4h. train -> checkpoint -> serve: 4g's state served by the launcher
@@ -1947,12 +1928,7 @@ def main() -> None:
           f"({7 * groups} per call with every site live); peak memory {zpeak:.2f} GiB")
     print(f"  stats: {json.dumps({k: v for k, v in zstats.items() if k != 'sample'})}")
     print(f"  launch counts: {json.dumps(hybrid_counts)}")
-    # a short steady window: one request of 8 prompt tokens (23 decode calls;
-    # the profiler's event processing grows with the ~3000 ops of each call)
-    zeng2 = ReferenceEngine(zbank, EngineConfig(max_slots=4, max_len=128))
-    profiled("4i (1 request)", lambda: serve_batch(
-        zeng2, zcfg.vocab_size, 1, HYBRID_MAX_NEW, SEED, prompts=[zprompts[0][:8]]))
-    del zeng, zeng2, zbank, zmodels, zparams
+    del zeng, zbank, zmodels, zparams
     torch.cuda.empty_cache()
 
     phase("4j")
@@ -1985,6 +1961,300 @@ def main() -> None:
             fail(f"4j: --engine reference printed more than its line: {lines}")
         print(f"main path 4j launcher {' '.join(args_j)} ({time.perf_counter() - t0:.1f} s): "
               f"{json.dumps(line)}")
+
+    # ---- 4n-4p. the other families at full width ---------------------------------
+    def decode_bound(b, hq_, hkv_, d_, keys):
+        """Paged decode in bf16: q and out once, each visible K/V row once,
+        the lengths and the table entries; 4 D flops per (query head, key)."""
+        return bound_ms(2 * 2 * b * hq_ * d_ + 2 * 2 * b * hkv_ * keys * d_
+                        + 4 * (b + b * -(-keys // 16)), 4 * b * hq_ * keys * d_,
+                        PEAK_BF16_FLOPS)
+
+    def sweep_bank(fcfg, fparams, keeps, fmt, label):
+        """One randomized-SVD sweep on the card, leaf by leaf (each leaf's old
+        state freed once its new one exists; the sketches one admm_update
+        call at step 0 draws), its products and the tiers' dense L + S in
+        TF32; then HPA tiers ``keeps`` in ``fmt`` as one ModelBank. Returns
+        (bank, soft_threshold launches of the sweep)."""
+        fscfg = SalaadConfig(selection=SelectionConfig(min_dim=16))
+        fstate, fblocks = init_slr_state(fparams, fscfg)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i, info in enumerate(fblocks):
+            r_i = fstate[info.name].p.shape[-1]
+            new, _ = admm_update(fparams, {info.name: fstate[info.name]}, [info], fscfg, 0,
+                                 sketches={info.name: block_sketches(0, i, info, r_i, 1, dev)})
+            fstate[info.name] = new[info.name]
+            del new
+        torch.cuda.synchronize()
+        t_sw = time.perf_counter() - t0
+        n_soft = ops.launch_counts()["soft_threshold"]
+        # deployment reads L and S only: free the dual and the penalty target
+        # (two f32 copies of every selected weight, 22 GB for 4n's experts)
+        none = torch.empty(0, device=dev)
+        fstate = {k: dataclasses.replace(v, y=none, z=none) for k, v in fstate.items()}
+        torch.cuda.empty_cache()
+        models = []
+        for keep in keeps:
+            models.append(DeployedModel.build(fcfg, fparams, hpa_keep_ratio(
+                fstate, fblocks, keep, 0.7)[0], fblocks, fmt=fmt))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        del fstate
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        bank = ModelBank(fcfg, models, keeps=keeps)
+        print(f"  {label} sweep over {len(fblocks)} leaves "
+              f"({sum(b.num_blocks for b in fblocks)} blocks) in {t_sw:.1f} s, soft_threshold "
+              f"launches {n_soft}; {fmt} tiers {list(keeps)} built, served bytes "
+              f"{json.dumps([t_.param_bytes for t_ in bank])}")
+        print(f"  selected: {json.dumps({b.name: list(b.stack_dims) for b in fblocks})}")
+        return bank, n_soft
+
+    def family_prompts(vocab, n, lo, hi, system_len, seed):
+        frng = np.random.default_rng(seed)
+        system = frng.integers(0, vocab, system_len).tolist()
+        return [system + frng.integers(0, vocab, int(n_)).tolist()
+                for n_ in frng.integers(lo, hi + 1, n)]
+
+    def family_run(label, engine, fprompts, tiers, max_new, vocab, need):
+        """One greedy run through ``serve_batch`` with the launch counts and
+        the engine's MoE drop counter set to 0 just before and read just
+        after."""
+        finished = []
+        run = engine.run
+        engine.run = lambda: finished.extend(run()) or finished
+        engine.moe_drops = moe_lib.DropCounter(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        try:
+            st = serve_batch(engine, vocab, len(fprompts), max_new, SEED, tiers=tiers,
+                             prompts=fprompts)
+        finally:
+            del engine.run
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        drops = engine.moe_drops.read()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if st["requests"] != len(fprompts) or st["tokens"] != len(fprompts) * max_new:
+            fail(f"{label}: finished {st['requests']} of {len(fprompts)} requests: {st}")
+        streams = {r.uid: list(r.out_tokens) for r in finished}
+        if not all(0 <= t_ < vocab for v in streams.values() for t_ in v):
+            fail(f"{label}: generated token outside the vocabulary")
+        for name in need:
+            if counts[name] < 1:
+                fail(f"{label} never launched {name}: {counts}")
+        calls = (getattr(engine, "prefill_calls", 0) + getattr(engine, "chunk_calls", 0)
+                 + engine.decode_calls)
+        per_call = {k: round(v / calls, 2) for k, v in counts.items() if v}
+        moe_line = (f"(token, expert) pairs the capacity dropped: {drops['real_dropped']} of "
+                    f"the {drops['real_routed']} of served tokens, {drops['dropped']} of "
+                    f"{drops['routed']} routed with the padded rows; " if drops["routed"] else "")
+        print(f"main path {label}: {len(fprompts)} requests, prompts "
+              f"{min(map(len, fprompts))}-{max(map(len, fprompts))} tokens, {st['tokens']} "
+              f"tokens generated = {st['tok_per_s']} tok/s; median TTFT {st['ttft_p50_ms']} "
+              f"ms; peak memory {peak:.2f} GiB; {moe_line}{calls} program calls ({card})")
+        print(f"  launch counts: {json.dumps(counts)}; per call: {json.dumps(per_call)}")
+        return streams, counts
+
+    fam_rng = np.random.default_rng(SEED + 6)
+
+    def fam_rand(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(fam_rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+    def family_kernel_checks(label, fcfg, tier, pool, table, lens, q):
+        """The kernels of a family's paged path against their plain versions
+        at its shapes: paged decode on the timed pool, table and lengths and
+        on ragged lengths; the k-query kernel at the engine's chunk of 128;
+        every fused site of ``tier`` with activations of the model's dtype
+        over the tier's own tables, at a decode tick (T = 8) and a chunk
+        tick (T = 8 slots x 128)."""
+        ragged = torch.from_numpy(fam_rng.integers(0, table.shape[1] * pool.shape[2], len(lens))
+                                  .astype(np.int32)).to(dev)
+        ragged[0] = pool.shape[2] * 3 - 1                    # a page edge
+        for what, lens_ in (("", lens), (" ragged lengths", ragged)):
+            check(f"{label} paged_attention Hq={q.shape[1]} Hkv={pool.shape[1]} "
+                  f"D={q.shape[2]}{what}", ops.paged_attention(q, pool, pool, table, lens_),
+                  ref.paged_attention_ref(q, pool, pool, table, lens_), q.dtype)
+        kq_ = 128
+        qk_ = fam_rand(len(lens), q.shape[1], kq_, q.shape[2])
+        lens_kq = torch.clamp(ragged, max=table.shape[1] * pool.shape[2] - kq_)
+        check(f"{label} paged_attention_kquery kq={kq_} Hq={q.shape[1]} Hkv={pool.shape[1]} "
+              f"D={q.shape[2]}", ops.paged_attention_kquery(qk_, pool, pool, table, lens_kq),
+              ref.paged_attention_kquery_ref(qk_, pool, pool, table, lens_kq), q.dtype)
+        lay_ = fcfg.num_layers - 1
+        fsites = {k: v for k, v in tier.params["layers"].items() if getattr(v, "fuse", False)}
+        if not fsites:
+            fail(f"{label}: the fused tier has no fused site")
+        for name, lin in sorted(fsites.items()):
+            for t_dim in (8, 8 * kq_):
+                x = fam_rand(t_dim, lin.shape[0], dtype=fcfg.param_dtype)
+                check(f"{label} slr_matmul_stacked {name} {lin.shape[0]}->{lin.shape[1]} "
+                      f"T={t_dim} [{str(x.dtype)[6:]} x over {str(lin.p.dtype)[6:]} tables]",
+                      ops.slr_matmul_stacked(x, lin.p, lin.vt, lin.s_stack, lay_),
+                      ref.slr_matmul_stacked_ref(x, lin.p, lin.vt, lin.s_stack, lay_), x.dtype)
+
+    phase("4n")
+    # 4n. the MoE at full width: qwen3_moe_30b_a3b, 4 of 48 layers, bf16
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mcfg = dataclasses.replace(get_arch("qwen3_moe_30b_a3b"), num_layers=4,
+                               kernel_impl="pallas")
+    print(f"reduced: num_layers {get_arch('qwen3_moe_30b_a3b').num_layers}\u2192"
+          f"{mcfg.num_layers}")
+    t0 = time.perf_counter()
+    mparams = model_lib.init_params(mcfg, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"main path 4n build: {mcfg.name} d_model {mcfg.d_model}, {mcfg.num_heads} heads of "
+          f"{mcfg.head_dim} over {mcfg.num_kv_heads} KV heads, {mcfg.num_experts} experts "
+          f"top-{mcfg.top_k} (d_ff {mcfg.d_ff}), vocab {mcfg.vocab_size}, "
+          f"{str(mcfg.param_dtype)[6:]}; init {time.perf_counter() - t0:.1f} s")
+    mbank, moe_soft = sweep_bank(mcfg, mparams, (1.0, 0.5), "fused", "4n")
+    moe_prompts = family_prompts(mcfg.vocab_size, 16, 16, 224, 32, SEED + 3)
+    moe_ecfg = EngineConfig(max_slots=8, max_len=512, block_size=16, prefix_cache=True,
+                            prefill_chunk=128, kv_dtype="bfloat16")   # the model's pages
+    moe_need = ("slr_matmul_stacked", "paged_attention", "paged_attention_kquery")
+    moe_streams, moe_counts = family_run(
+        "4n qwen3-moe fused bank", PagedServingEngine(mbank, moe_ecfg), moe_prompts, (0, 1),
+        MAX_NEW, mcfg.vocab_size, moe_need)
+    again, _ = family_run("4n qwen3-moe fused bank, second run",
+                          PagedServingEngine(mbank, moe_ecfg), moe_prompts, (0, 1), MAX_NEW,
+                          mcfg.vocab_size, moe_need)
+    if again != moe_streams:
+        fail(f"4n: a second identical run changed the streams of requests "
+             f"{[u for u in moe_streams if again.get(u) != moe_streams[u]]}")
+    print("  4n second run: streams equal bit for bit")
+    # decode consistency at dropless capacity, f32 (tier 0's tables are f32;
+    # its dense leaves copied to f32), TF32 off
+    dcfg = dataclasses.replace(mcfg, capacity_factor=float(mcfg.num_experts) / mcfg.top_k,
+                               param_dtype=torch.float32)
+    p32 = tree_map(lambda t_: t_.float() if t_.is_floating_point() else t_,
+                   next(iter(mbank)).params)
+    toks = torch.tensor([x[:32] for x in moe_prompts[:2]], device=dev)
+    full, _ = model_lib._forward(p32, {"tokens": toks}, dcfg)
+    _, pcache = model_lib.prefill(p32, {"tokens": toks[:, :31]}, dcfg, max_len=64,
+                                  cache_dtype=torch.float32)
+    step, _ = model_lib.decode_step(p32, toks[:, 31:], pcache, dcfg)
+    d_err = float((step[:, 0] - full[:, -1]).abs().max())
+    d_scale = float(full[:, -1].abs().max())
+    print(f"  4n prefill(31) + decode vs the no-cache forward (f32, dropless capacity "
+          f"{dcfg.capacity_factor:g}): max_abs_err {d_err:.3e} (tol {LOGIT_TOL:g} x "
+          f"{d_scale:.3g})")
+    if not math.isfinite(d_err) or d_err > LOGIT_TOL * d_scale:
+        fail("4n: prefill + decode disagrees with the no-cache forward on the card")
+    del p32, full, pcache, step
+    # paged decode at the MoE's group of 8 (32 q heads over 4 KV heads, D = 64)
+    pool = torch.randn((512, mcfg.num_kv_heads, 16, mcfg.head_dim), device=dev,
+                       dtype=torch.bfloat16)
+    table = torch.arange(512, device=dev, dtype=torch.int32).reshape(8, 64)
+    lens_g = torch.full((8,), 511, device=dev, dtype=torch.int32)
+    q8 = torch.randn((8, mcfg.num_heads, mcfg.head_dim), device=dev, dtype=torch.bfloat16)
+    g8_ms = graph_ms(torch, lambda: ops.paged_attention(q8, pool, pool, table, lens_g))
+    g8_bound = decode_bound(8, mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim, 512)
+    print(f"  time paged decode group 8 (B 8, 32 q heads over 4 KV heads, D 64, bf16, 512 "
+          f"keys a slot): {g8_ms:.4f} ms device alone, bound {g8_bound[0]:.4f} ms "
+          f"({g8_bound[1]}) ({card})")
+    family_kernel_checks("4n", mcfg, next(iter(mbank)), pool, table, lens_g, q8)
+    del mbank, mparams, pool
+    torch.cuda.empty_cache()
+
+    phase("4o")
+    # 4o. Gemma at full width: geglu, 16 heads of 256, vocab 256000, 2 of 28 layers
+    gcfg = dataclasses.replace(get_arch("gemma_7b"), num_layers=2, kernel_impl="pallas")
+    print(f"reduced: num_layers {get_arch('gemma_7b').num_layers}\u2192{gcfg.num_layers}")
+    t0 = time.perf_counter()
+    gparams = model_lib.init_params(gcfg, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"main path 4o build: {gcfg.name} d_model {gcfg.d_model}, {gcfg.num_heads} heads of "
+          f"{gcfg.head_dim}, {gcfg.mlp_type} d_ff {gcfg.d_ff}, vocab {gcfg.vocab_size}; init "
+          f"{time.perf_counter() - t0:.1f} s")
+    gbank, gemma_soft = sweep_bank(gcfg, gparams, (1.0, 0.5), "fused", "4o")
+    gemma_prompts = family_prompts(gcfg.vocab_size, 8, 16, 224, 32, SEED + 4)
+    _, gemma_counts = family_run(
+        "4o gemma fused bank", PagedServingEngine(gbank, moe_ecfg), gemma_prompts, (0, 1), 16,
+        gcfg.vocab_size, moe_need)
+    q1 = torch.randn((8, gcfg.num_heads, gcfg.head_dim), device=dev, dtype=torch.bfloat16)
+    pool = torch.randn((512, gcfg.num_kv_heads, 16, gcfg.head_dim), device=dev,
+                       dtype=torch.bfloat16)
+    d256_ms = graph_ms(torch, lambda: ops.paged_attention(q1, pool, pool, table, lens_g))
+    d256_bound = decode_bound(8, gcfg.num_heads, gcfg.num_kv_heads, gcfg.head_dim, 512)
+    print(f"  time paged decode D 256 (B 8, 16 q heads over 16 KV heads, group 1, bf16, 512 "
+          f"keys a slot): {d256_ms:.4f} ms device alone, bound {d256_bound[0]:.4f} ms "
+          f"({d256_bound[1]}) ({card})")
+    family_kernel_checks("4o", gcfg, next(iter(gbank)), pool, table, lens_g, q1)
+    del gbank, gparams, pool
+    torch.cuda.empty_cache()
+
+    phase("4p")
+    # 4p. the ssm LM and the encoder-decoder at full width and depth on
+    # ReferenceEngine: mamba2_370m fused, whisper_small bsr (the flash kernel
+    # over the cross heads, the low-rank and block-CSC kernels at the
+    # decoder's per-layer sites)
+    seq_counts = {}
+    for arch, fmt, need in (("mamba2_370m", "fused", ()),
+                            ("whisper_small", "bsr", ("flash_attention", "lowrank_matmul",
+                                                      "bsr_matmul"))):
+        scfg_ = dataclasses.replace(get_arch(arch), kernel_impl="pallas")
+        t0 = time.perf_counter()
+        sparams = model_lib.init_params(scfg_, seed=SEED)
+        torch.cuda.synchronize()
+        print(f"main path 4p build: {scfg_.name} {scfg_.num_layers} layers d_model "
+              f"{scfg_.d_model}, {str(scfg_.param_dtype)[6:]}; init "
+              f"{time.perf_counter() - t0:.1f} s")
+        sbank, s_soft = sweep_bank(scfg_, sparams, (1.0, 0.5), fmt, "4p " + arch)
+        sprompts = family_prompts(scfg_.vocab_size, 2, 16, 16, 0, SEED + 5)
+        _, c_ = family_run(f"4p {arch} {fmt} bank on ReferenceEngine",
+                           ReferenceEngine(sbank, EngineConfig(max_slots=2, max_len=64)),
+                           sprompts, (0, 1), 8, scfg_.vocab_size, need)
+        c_["soft_threshold"] += s_soft
+        seq_counts[arch] = c_
+        if scfg_.family == "encdec":
+            # the encoder over 1500 frames (flash, non-causal) and a prefill
+            # whose cross heads come from it, then two decode steps
+            frames = torch.randn((1, scfg_.encoder_seq, scfg_.d_model), device=dev,
+                                 dtype=scfg_.param_dtype) * 0.1
+            ops.reset_launch_counts()
+            lg, ecache = model_lib.prefill(next(iter(sbank)).params, {
+                "tokens": torch.tensor([sprompts[0]], device=dev), "frames": frames},
+                scfg_, max_len=64)
+            for tok in (7, 11):
+                lg, ecache = model_lib.decode_step(next(iter(sbank)).params,
+                                                   torch.tensor([[tok]], device=dev), ecache,
+                                                   scfg_)
+            torch.cuda.synchronize()
+            enc_counts = ops.launch_counts()
+            if not bool(torch.isfinite(lg).all()) or enc_counts["flash_attention"] < 1:
+                fail(f"4p: the encoder's prefill is off: {enc_counts}")
+            print(f"  4p whisper encoder over {scfg_.encoder_seq} frames, prefill "
+                  f"{len(sprompts[0])} tokens and two decode steps: finite logits, launch "
+                  f"counts {json.dumps({k: v for k, v in enc_counts.items() if v})}")
+            for k, v in enc_counts.items():
+                c_[k] += v
+            # the flash kernel at these shapes against its plain version: the
+            # encoder's self-attention (T = S = 1500, no block multiple,
+            # non-causal), then the decoder's cross-attention over the
+            # 1500 cross heads of the bf16 cache at a prompt (T = 16) and a
+            # decode step (T = 1)
+            hq_, d_ = scfg_.num_heads, scfg_.head_dim
+            f_ = scfg_.encoder_seq
+            qe = fam_rand(1, hq_, f_, d_, dtype=scfg_.param_dtype)
+            ke, ve = (fam_rand(1, scfg_.num_kv_heads, f_, d_, dtype=scfg_.param_dtype)
+                      for _ in range(2))
+            check(f"4p flash_attention encoder T=S={f_} Hq={hq_} Hkv={scfg_.num_kv_heads} "
+                  f"D={d_} causal=False",
+                  ops.flash_attention(qe, ke, ve, causal=False, any_length=True),
+                  ref.attention_ref(qe, ke, ve, causal=False), scfg_.param_dtype)
+            for heads_dt, t_dim in ((ecache.cross_k.dtype, 16), (ecache.cross_k.dtype, 1),
+                                    (torch.float32, 1)):   # the reference engine's f32 heads
+                kc, vc = ke.to(heads_dt), ve.to(heads_dt)
+                qc = fam_rand(1, hq_, t_dim, d_, dtype=scfg_.param_dtype)
+                check(f"4p flash_attention cross T={t_dim} S={f_} [{str(qc.dtype)[6:]} q over "
+                      f"{str(kc.dtype)[6:]} heads]",
+                      ops.flash_attention(qc, kc, vc, causal=False, any_length=True),
+                      ref.attention_ref(qc, kc, vc, causal=False), qc.dtype)
+        del sbank, sparams
+        torch.cuda.empty_cache()
 
     phase("5")
     # ---- 5. first one-shot prefill, chunk and decode tick: card vs CPU -----------
@@ -2264,6 +2534,100 @@ def main() -> None:
         fail("5c: prefill + decode disagrees with the no-cache forward on the card")
     del card_dm, host_dm, cparams
 
+    phase("5e")
+    # 5e. the nine new architectures at .reduced(), card against CPU: one
+    # exact-SVD sweep on the CPU, a keep-0.5 tier in the family's first
+    # serving format, kernel_impl='pallas' (the CUDA kernels on the card,
+    # their plain versions on the CPU); prefill + two decode steps, then
+    # greedy streams (the paged engine with chunked prefill for the KV
+    # families, ReferenceEngine for ssm and encdec)
+    first_fmt = {"mamba2_370m": "fused", "whisper_small": "bsr"}
+    for arch in ("dbrx_132b", "qwen3_moe_30b_a3b", "whisper_small", "olmo_1b",
+                 "phi3_medium_14b", "gemma_7b", "qwen1p5_4b", "internvl2_76b", "mamba2_370m"):
+        rcfg = dataclasses.replace(get_arch(arch).reduced(), kernel_impl="pallas")
+        fmt = first_fmt.get(arch, "fused")
+        rparams = model_lib.init_params(rcfg, seed=SEED, device="cpu")
+        rscfg = SalaadConfig(selection=SelectionConfig(min_dim=16), exact_svd=True)
+        rstate, rblocks = init_slr_state(rparams, rscfg)
+        rstate, _ = admm_update(rparams, rstate, rblocks, rscfg, 0)
+        host = DeployedModel.build(rcfg, rparams, hpa_keep_ratio(rstate, rblocks, 0.5, 0.7)[0],
+                                   rblocks, fmt=fmt, bsr_block=32)
+        on_card = DeployedModel(rcfg, tree_map(lambda t_: t_.to(dev), host.params), fmt)
+        rrng = np.random.default_rng(SEED + 6)
+        toks = rrng.integers(0, rcfg.vocab_size, (2, 12))
+        extra = {}
+        if rcfg.family == "encdec":
+            extra["frames"] = torch.from_numpy(
+                rrng.standard_normal((2, rcfg.encoder_seq, rcfg.d_model)).astype(np.float32))
+        if rcfg.family == "vlm":
+            extra["patches"] = torch.from_numpy(
+                rrng.standard_normal((2, rcfg.num_patches, rcfg.d_model)).astype(np.float32))
+        runs = {}
+        for name, model, d_ in (("card", on_card, dev), ("cpu", host, torch.device("cpu"))):
+            batch = {"tokens": torch.from_numpy(toks[:, :10]).to(d_),
+                     **{k: v.to(d_) for k, v in extra.items()}}
+            lg, cache = model_lib.prefill(model.params, batch, rcfg, max_len=32,
+                                          cache_dtype=torch.float32)
+            outs = [lg[:, -1].float().cpu()]
+            for i in (10, 11):
+                lg, cache = model_lib.decode_step(model.params,
+                                                  torch.from_numpy(toks[:, i:i + 1]).to(d_),
+                                                  cache, rcfg)
+                outs.append(lg[:, -1].float().cpu())
+            runs[name] = torch.stack(outs)
+        compare(f"5e {arch} ({fmt}, keep 0.5) prefill + 2 decode steps", runs["card"],
+                runs["cpu"])
+        sprom = [rrng.integers(0, rcfg.vocab_size, int(n)).tolist()
+                 for n in rrng.integers(4, 20, 3)]
+        streams = {}
+        for name, model in (("card", on_card), ("cpu", host)):
+            if rcfg.family in ("ssm", "encdec"):
+                eng = ReferenceEngine(model, EngineConfig(max_slots=2, max_len=32))
+            else:
+                eng = PagedServingEngine(model, EngineConfig(max_slots=2, max_len=32,
+                                                             block_size=8, prefill_chunk=8))
+            for pr in sprom:
+                eng.submit(pr, max_new_tokens=6)
+            streams[name] = {r.uid: r.out_tokens for r in eng.run()}
+        same = sum(streams["card"][u] == streams["cpu"][u] for u in streams["cpu"])
+        print(f"parity 5e {arch} streams: {same} of {len(sprom)} token-identical")
+        if streams["card"] != streams["cpu"]:
+            fail(f"5e {arch}: the card's streams differ from the CPU's: {streams}")
+    # the MoE at full width, one layer, f32: the first decode tick, card
+    # against CPU, and the tokens whose top-8 expert set differs
+    qcfg = dataclasses.replace(get_arch("qwen3_moe_30b_a3b"), num_layers=1,
+                               param_dtype=torch.float32, kernel_impl="pallas")
+    qtoks = np.random.default_rng(SEED + 7).integers(0, qcfg.vocab_size, (4, 17))
+    inner_route = moe_lib._route
+    picks: list = []
+
+    def recording_route(*a, **kw):
+        out = inner_route(*a, **kw)
+        picks.append(out[1])
+        return out
+
+    moe_lib._route = recording_route
+    tick, sets = {}, {}
+    try:
+        for name, d_ in (("card", dev), ("cpu", torch.device("cpu"))):
+            qparams = model_lib.init_params(qcfg, seed=SEED, device=d_)
+            picks.clear()
+            _, cache = model_lib.prefill(qparams, {"tokens": torch.from_numpy(
+                qtoks[:, :16]).to(d_)}, qcfg, max_len=32, cache_dtype=torch.float32)
+            lg, _ = model_lib.decode_step(qparams, torch.from_numpy(qtoks[:, 16:]).to(d_),
+                                          cache, qcfg)
+            tick[name] = lg[:, -1].float().cpu()
+            sets[name] = [p_.sort(-1).values.cpu() for p_ in picks]
+            del qparams, cache
+    finally:
+        moe_lib._route = inner_route
+    n_diff = sum(int((a != b).any(-1).sum()) for a, b in zip(sets["card"], sets["cpu"]))
+    n_tok = sum(a.shape[0] for a in sets["cpu"])
+    print(f"parity 5e qwen3-moe full width, 1 layer, f32: {n_diff} of {n_tok} tokens "
+          f"(prefill and the decode tick) route to another top-{qcfg.top_k} expert set")
+    compare("5e qwen3-moe full width first decode tick", tick["card"], tick["cpu"])
+    torch.cuda.empty_cache()
+
     phase("end")
     # ---- result lines -------------------------------------------------------------
     meta = {
@@ -2296,7 +2660,9 @@ def main() -> None:
             "launches": (fused_counts[name] + bsr_counts[name] + adapter_counts[name]
                          + spec_par_counts[name] + spec_seq_counts[name] + int8_counts[name]
                          + batched_counts[name] + train_counts[name] + sweep_counts[name]
-                         + hybrid_counts[name]),
+                         + hybrid_counts[name] + moe_counts[name] + gemma_counts[name]
+                         + sum(c_[name] for c_ in seq_counts.values())
+                         + (moe_soft + gemma_soft if name == "soft_threshold" else 0)),
             "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
             "plain_ms": r_["plain_ms"], "bound_ms": r_["bound"][0],
             "bound_by": r_["bound"][1], "library_ms": r_["library_ms"],

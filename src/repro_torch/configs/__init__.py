@@ -1,2 +1,2 @@
 """Architecture configs (torch dtypes)."""
-from .base import ARCH_IDS, ArchConfig, get_arch  # noqa: F401
+from .base import ARCH_IDS, SHAPES, ArchConfig, ShapeConfig, get_arch, runnable_cells  # noqa: F401

@@ -341,9 +341,17 @@ slr_matmul.launches = 0
 def slr_matmul_stacked(x: torch.Tensor, p: torch.Tensor, vt: torch.Tensor,
                        stack: BsrStack, layer: int) -> torch.Tensor:
     """Layer ``layer`` of the fused SLR matmul. x (T, K), p (L, K, r),
-    vt (L, r, M), ``stack`` of shape (K, M) -> y (T, M) in x.dtype."""
+    vt (L, r, M), ``stack`` of shape (K, M) -> y (T, M) in x.dtype.
+
+    bf16 activations over f32 tables (a bf16 model's deployment: the SLR
+    state is f32) widen x to f32, which is exact, run the f32 instance and
+    round y to bf16: the Pallas kernel's own ``x.astype(f32)`` products and
+    output cast."""
     if x.device.type == "cpu":
         return ref.slr_matmul_stacked_ref(x, p, vt, stack, layer)
+    if x.dtype == torch.bfloat16 and stack.vals.dtype == torch.float32:
+        return slr_matmul_stacked(x.float(), p.float(), vt.float(), stack,
+                                  layer).to(torch.bfloat16)
     name = "slr_matmul_stacked"
     dev = check_cuda(name, x=x, p=p, vt=vt, counts=stack.counts, rows=stack.rows,
                      vals=stack.vals)

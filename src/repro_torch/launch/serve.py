@@ -27,8 +27,10 @@ switch: the launcher serves greedy.
 ``AdapterBank`` (``--max-resident-adapters`` rows on the device; fewer than
 N turns on LRU swaps), requests round-robin over the tenants.
 
-A family without per-slot cache lengths (the hybrid ``zamba2_2p7b``) serves
-through ``ReferenceEngine`` whatever ``--engine`` says, after a
+``--arch`` takes every id of ``configs.ARCH_IDS``. A family without per-slot
+cache lengths (the ssm ``mamba2_370m``, the hybrid ``zamba2_2p7b``, the
+encdec ``whisper_small``) serves through ``ReferenceEngine`` whatever
+``--engine`` says, after a
 ``{"note": ..., "capabilities": ...}`` line, as the JAX launcher does;
 ``--engine reference`` picks that engine for any family.
 
@@ -50,6 +52,9 @@ registry's Prometheus text on 127.0.0.1 during the run, and
   python -m repro_torch.launch.serve --arch salaad_llama_60m --engine batched \\
       --keep-ratios 1.0,0.6,0.3 --fmt fused --trace-out t.json --metrics-out m.txt
   python -m repro_torch.launch.serve --arch zamba2_2p7b --keep-ratios 1.0,0.5 --fmt fused
+  python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b --keep-ratios 1.0,0.5 \
+      --fmt fused --prefill-chunk 128 --prefix-cache
+  python -m repro_torch.launch.serve --arch whisper_small --keep-ratios 1.0,0.5 --fmt bsr
 
 Tensors live on the card unless ``--device cpu`` is given (with
 ``--reduced``, for a run of the plain versions on the CPU). On the card the

@@ -3,11 +3,14 @@ paged-cache paths (port of ``repro/models/attention.py``).
 
 Paths, one set of weights:
   * no cache, ``kernel_impl='pallas'``: the CUDA flash attention kernel
-    (``kernels/ops.py``), causal, forward only: it has no backward (nor has
-    the Pallas kernel), so asking for gradients through it raises;
+    (``kernels/ops.py``), causal or not (the encoder, cross-attention),
+    forward only: it has no backward (nor has the Pallas kernel), so asking
+    for gradients through it raises;
   * no cache, ``kernel_impl='blockwise'``: the flash forward and backward in
     PyTorch (``models/flash_vjp.py``), the JAX trainer's path;
-  * no cache, ``kernel_impl='dense'``: plain causal masked softmax;
+  * no cache, ``kernel_impl='dense'``: plain masked softmax;
+  * cross-attention (``kv_override``): the no-cache paths over the given
+    heads, with or without a cache (which passes through untouched);
   * paged cache, ``kernel_impl='pallas'``: the CUDA paged kernels
     (``kernels/ops.py``), single-query for decode and k-query for chunks
     and verify windows, over the pages they take
@@ -148,6 +151,11 @@ def paged_gather(cache: PagedLayerCache) -> tuple[torch.Tensor, torch.Tensor]:
     return gather(cache.k, cache.k_scale), gather(cache.v, cache.v_scale)
 
 
+def _proj(x, w, b=None):
+    y = apply_weight(x, w)
+    return y if b is None else y + b
+
+
 def attention_block(
     params: dict,
     x: torch.Tensor,                 # (B, T, d_model)
@@ -155,46 +163,59 @@ def attention_block(
     n_heads: int,
     n_kv: int,
     head_dim: int,
-    positions: torch.Tensor,         # (1 or B, T)
-    rope_theta: float = 1e4,
+    positions: torch.Tensor | None = None,   # (1 or B, T)
+    rope_theta: float | None = 1e4,
+    causal: bool = True,
     cache: PagedLayerCache | KVCache | None = None,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
     kernel_impl: str = "blockwise",
     q_block: int = 512,
     kv_block: int = 1024,
 ):
-    """Projections + RoPE + attention + output projection. The four
-    projections get (B, T, .) activations, unflattened, so a batched adapter
-    site (``serving/adapters.py``) can pick each slot's tables.
+    """Projections (with the q/k/v biases where the tree has them) + RoPE
+    (none for ``rope_theta=None``) + attention + output projection. The
+    four projections get (B, T, .) activations, unflattened, so a batched
+    adapter site (``serving/adapters.py``) can pick each slot's tables.
 
     Without a cache returns ``(out, (kh, vh))`` - the rotated KV heads, so a
     one-shot prefill can fill pages without re-projecting. With a paged cache
     the t new positions are inserted first and query i of slot b attends keys
     ``<= length[b] + i``; returns ``(out, updated layer cache)``. A
     contiguous cache does the same at its one length or at each row's.
+    ``kv_override`` (cross-attention) supplies the (B, Hkv, S, D) heads: no
+    key or value projection, no cache insert (the cache passes through), and
+    the no-cache paths attend them (non-causal for the encoder-decoder).
     """
     b, t, _ = x.shape
-    q = apply_weight(x, params["q"]).reshape(b, t, n_heads, head_dim)
-    k = apply_weight(x, params["k"]).reshape(b, t, n_kv, head_dim)
-    v = apply_weight(x, params["v"]).reshape(b, t, n_kv, head_dim)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    q = _proj(x, params["q"], params.get("q_bias")).reshape(b, t, n_heads, head_dim)
+    if kv_override is not None:
+        kh, vh = kv_override
+    else:
+        k = _proj(x, params["k"], params.get("k_bias")).reshape(b, t, n_kv, head_dim)
+        v = _proj(x, params["v"], params.get("v_bias")).reshape(b, t, n_kv, head_dim)
+        if positions is None:
+            positions = torch.arange(t, device=x.device)[None, :]
+        if rope_theta is not None:
+            q = apply_rope(q, positions, rope_theta)
+            k = apply_rope(k, positions, rope_theta)
+        kh = k.transpose(1, 2)            # (B, Hkv, T, D)
+        vh = v.transpose(1, 2)
     qh = q.transpose(1, 2)                # (B, Hq, T, D)
-    kh = k.transpose(1, 2)                # (B, Hkv, T, D)
-    vh = v.transpose(1, 2)
 
-    if cache is None:
+    if cache is None or kv_override is not None:
         if kernel_impl == "pallas":
             if torch.is_grad_enabled() and any(t.requires_grad for t in (qh, kh, vh)):
                 raise NotImplementedError(
                     "the CUDA flash attention kernel (kernel_impl='pallas') has no "
                     "backward; train with kernel_impl='blockwise'")
+            # the kernel masks ragged T and S itself (the encoder's 1500 frames)
             out = ops.flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
-                                      causal=True)
+                                      causal=causal, any_length=True)
         elif kernel_impl == "dense":
-            out = attention_ref(qh, kh, vh, causal=True)
+            out = attention_ref(qh, kh, vh, causal=causal)
         else:
-            out = flash_attention_vjp(qh, kh, vh, True, q_block, kv_block)
-        new_cache = (kh, vh)
+            out = flash_attention_vjp(qh, kh, vh, causal, q_block, kv_block)
+        new_cache = cache if kv_override is not None else (kh, vh)
     elif isinstance(cache, KVCache) and isinstance(cache.length, torch.Tensor):
         new_cache = contiguous_insert(cache, kh, vh)
         q_idx = cache.length.long()[:, None] + torch.arange(t, device=x.device)[None, :]

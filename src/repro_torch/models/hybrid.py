@@ -15,15 +15,13 @@ projections are read as plain tensors (deployment materializes them).
 """
 from __future__ import annotations
 
-import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .attention import KVCache, attention_block
-from .layers import apply_mlp, apply_norm, apply_weight, embed, rmsnorm
+from .layers import apply_mlp, apply_norm, apply_weight, embed, rmsnorm, seeded_normal
 from .ssm import SSMCache, init_ssm_layer, ssm_block, ssm_dims
 
 __all__ = ["HybridCache", "init_hybrid", "forward", "init_hybrid_cache"]
@@ -39,35 +37,15 @@ class HybridCache(NamedTuple):
     length: int               # valid prefix (a host integer)
 
 
-# elements drawn by one child generator in ``init_hybrid``
-_INIT_CHUNK = 1 << 24
-
-
 def init_hybrid(cfg, seed: int, device) -> dict:
-    """Random weights with the JAX package's shapes and scales. The values
-    come from numpy: ``seed``'s SeedSequence spawns one child generator per
-    2**24-element chunk of each leaf, in a fixed order, and the chunks fill
-    in parallel threads (2.7e9 parameters at full width), so the values do
-    not depend on the number of threads."""
+    """Random weights with the JAX package's shapes and scales, drawn by
+    ``layers.seeded_normal`` (2.7e9 parameters at full width)."""
     if cfg.num_layers % cfg.attn_every:
         raise ValueError(f"num_layers={cfg.num_layers} is not a multiple of "
                          f"attn_every={cfg.attn_every}")
     g = cfg.num_layers // cfg.attn_every
-    seq = np.random.SeedSequence(seed)
     dt, d, hd = cfg.param_dtype, cfg.d_model, cfg.head_dim
-
-    def normal(shape, scale):
-        out = np.empty(int(np.prod(shape)), np.float32)
-        kids = seq.spawn(-(-out.size // _INIT_CHUNK))
-
-        def fill(i):
-            part = out[i * _INIT_CHUNK:(i + 1) * _INIT_CHUNK]
-            np.random.default_rng(kids[i]).standard_normal(out=part, dtype=np.float32)
-            part *= np.float32(scale)
-
-        with ThreadPoolExecutor(os.cpu_count()) as pool:
-            list(pool.map(fill, range(len(kids))))
-        return torch.from_numpy(out.reshape(shape)).to(device=device, dtype=dt)
+    normal = seeded_normal(seed, device, dt)
 
     def norm():
         return {"norm_scale": torch.zeros((d,), dtype=dt, device=device)}

@@ -1,9 +1,14 @@
-"""Decoder-only dense transformer LM with a paged or a contiguous KV cache
-(port of the dense part of ``repro/models/transformer.py``).
+"""Decoder-only transformer LM (dense, MoE, and the VLM backbone) with a
+paged or a contiguous KV cache (port of ``repro/models/transformer.py``).
 
 Parameters keep the JAX package's tree: ``embed/embedding``, ``layers/...``
-stacked on a leading layer axis, ``final_norm/norm_scale`` and
-``lm_head/w``. The layer stack runs as a Python loop over layer indices -
+stacked on a leading layer axis (q/k/v/o with ``q_bias``/``k_bias``/
+``v_bias`` under ``qkv_bias``; the norms' leaves, none for ``nonparam_ln``;
+the MLP's, or ``moe/router`` and ``moe/experts/{gate,up,down}`` for the MoE
+family), ``final_norm`` and ``lm_head/w`` (absent under ``tie_embeddings``:
+the head is then ``embedding.T``). The VLM's patch stub enters as
+``prefix_embeds``, concatenated before the sqrt(d)-scaled token
+embeddings. The layer stack runs as a Python loop over layer indices -
 the counterpart of JAX's scan by index: ``layer_view`` hands each layer plain
 tensor slices and, for stacked fused SLR weights and pooled adapter sites
 (``serving/adapters.py``), an ``at_layer`` view that keeps the stacked tables
@@ -30,11 +35,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .attention import KVCache, PagedLayerCache, attention_block
-from .layers import apply_weight, embed, rmsnorm, swiglu
+from .layers import apply_mlp, apply_norm, apply_weight, embed, init_mlp, init_norm, seeded_normal
+from .moe import DropCounter, init_moe, moe_ffn
 from ..serving.kv_quant import quantize_kv
 
 __all__ = ["LMCache", "PagedKVCache", "init_lm", "layer_view", "forward", "init_cache",
-           "cache_from_prefill", "init_paged_cache", "scatter_prefill_pages",
+           "cache_from_prefill", "init_paged_cache", "lm_head", "scatter_prefill_pages",
            "copy_cache_pages"]
 
 
@@ -74,36 +80,42 @@ class PagedKVCache(NamedTuple):
 
 
 def init_lm(cfg, seed: int, device) -> dict:
-    """Random weights with the JAX package's shapes and scales (other values:
-    they come from numpy's generator, seeded with ``seed``)."""
-    rng = np.random.default_rng(seed)
+    """Random weights with the JAX package's shapes and scales (other
+    values: ``layers.seeded_normal`` draws them from ``seed``)."""
     dt = cfg.param_dtype
     num_l, d, hd = cfg.num_layers, cfg.d_model, cfg.head_dim
-
-    def normal(shape, scale):
-        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
-        return torch.from_numpy(a).to(device=device, dtype=dt)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=device)
-
+    normal = seeded_normal(seed, device, dt)
+    lead = (num_l,)
     layers = {
         "q": normal((num_l, d, cfg.num_heads * hd), 1.0 / np.sqrt(d)),
         "k": normal((num_l, d, cfg.num_kv_heads * hd), 1.0 / np.sqrt(d)),
         "v": normal((num_l, d, cfg.num_kv_heads * hd), 1.0 / np.sqrt(d)),
         "o": normal((num_l, cfg.num_heads * hd, d), 1.0 / np.sqrt(cfg.num_heads * hd)),
-        "pre_attn": {"norm_scale": zeros(num_l, d)},
-        "pre_mlp": {"norm_scale": zeros(num_l, d)},
-        "gate": normal((num_l, d, cfg.d_ff), 1.0 / np.sqrt(d)),
-        "up": normal((num_l, d, cfg.d_ff), 1.0 / np.sqrt(d)),
-        "down": normal((num_l, cfg.d_ff, d), 1.0 / np.sqrt(cfg.d_ff)),
+        "pre_attn": init_norm(d, cfg.norm_type, dt, device, lead),
+        "pre_mlp": init_norm(d, cfg.norm_type, dt, device, lead),
     }
-    return {
+    if cfg.qkv_bias:
+        for name, width in (("q", cfg.num_heads), ("k", cfg.num_kv_heads),
+                            ("v", cfg.num_kv_heads)):
+            layers[f"{name}_bias"] = torch.zeros((num_l, width * hd), dtype=dt, device=device)
+    if cfg.num_experts:
+        layers["moe"] = init_moe(normal, d, cfg.d_ff, cfg.num_experts, dt, device, lead)
+    else:
+        layers.update(init_mlp(normal, d, cfg.d_ff, cfg.mlp_type, dt, device, lead))
+    params = {
         "embed": {"embedding": normal((cfg.vocab_size, d), 0.02)},
         "layers": layers,
-        "final_norm": {"norm_scale": zeros(d)},
-        "lm_head": {"w": normal((d, cfg.vocab_size), 1.0 / np.sqrt(d))},
+        "final_norm": init_norm(d, cfg.norm_type, dt, device),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": normal((d, cfg.vocab_size), 1.0 / np.sqrt(d))}
+    return params
+
+
+def lm_head(params: dict):
+    """The output projection: ``lm_head/w``, or the embedding's transpose
+    under tied embeddings."""
+    return params["lm_head"]["w"] if "lm_head" in params else params["embed"]["embedding"].T
 
 
 def layer_view(layers: dict, l: int) -> dict:
@@ -120,25 +132,37 @@ def layer_view(layers: dict, l: int) -> dict:
     return out
 
 
-def _layer_apply(lp: dict, x, cfg, positions, cache):
-    h = rmsnorm(x, lp["pre_attn"]["norm_scale"])
+def _layer_apply(lp: dict, x, cfg, positions, cache, drops=None):
+    """One layer; returns (x, aux loss, kv or new layer cache)."""
+    h = apply_norm(x, lp.get("pre_attn"), cfg.norm_type)
     attn_out, kv = attention_block(
         lp, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        positions=positions, rope_theta=cfg.rope_theta, cache=cache,
+        positions=positions, rope_theta=cfg.rope_theta, causal=True, cache=cache,
         kernel_impl=cfg.kernel_impl, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
     )
     x = x + attn_out
-    h = rmsnorm(x, lp["pre_mlp"]["norm_scale"])
-    return x + swiglu(lp, h), kv
+    h = apply_norm(x, lp.get("pre_mlp"), cfg.norm_type)
+    if cfg.num_experts:
+        out, aux = moe_ffn(lp["moe"], h, num_experts=cfg.num_experts, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor, num_groups=cfg.moe_groups,
+                           drops=drops)
+    else:
+        out, aux = apply_mlp(lp, h, cfg.mlp_type), torch.zeros((), device=x.device)
+    return x + out, aux, kv
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg, *,
+            prefix_embeds: torch.Tensor | None = None,
             cache: PagedKVCache | LMCache | None = None, position_offset=0,
-            collect_kv: bool = False) -> tuple[torch.Tensor, Any]:
-    """(logits (B, T, vocab), new cache or stacked KV heads).
+            collect_kv: bool = False,
+            drops: DropCounter | None = None) -> tuple[torch.Tensor, Any, torch.Tensor]:
+    """(logits (B, T', vocab), new cache or stacked KV heads, aux loss):
+    T' counts the ``prefix_embeds`` rows (B, P, d) in front of the tokens;
+    the aux loss is the MoE load-balance term summed over layers (0 for the
+    other families). ``drops`` counts the pairs the MoE capacity dropped.
 
     * no cache: the second value is the stacked ``(kh, vh)`` heads, each
-      (L, B, Hkv, T, D), when ``collect_kv`` (one-shot prefill), else None;
+      (L, B, Hkv, T', D), when ``collect_kv`` (one-shot prefill), else None;
     * paged cache: tokens insert at each slot's length; the pools update in
       place and the returned cache carries ``length + T``;
     * contiguous cache: the same at its one length or at each row's, in
@@ -146,6 +170,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     """
     x = embed(params["embed"], tokens)
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, t, _ = x.shape
     offset = torch.as_tensor(position_offset, device=x.device)
     steps = torch.arange(t, device=x.device)
@@ -154,6 +180,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     layers = params["layers"]
     unrolled = isinstance(layers, (list, tuple))
     kvs = []
+    aux = torch.zeros((), device=x.device)
     remat = cfg.remat and cache is None and not collect_kv and torch.is_grad_enabled()
     for l in range(cfg.num_layers):
         lp = layers[l] if unrolled else layer_view(layers, l)
@@ -167,20 +194,22 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
                                           cache.k_scale[l] if quant else None,
                                           cache.v_scale[l] if quant else None)
         if remat:
-            x, kv = checkpoint(_layer_apply, lp, x, cfg, positions, None,
-                               use_reentrant=False)
+            x, a, kv = checkpoint(_layer_apply, lp, x, cfg, positions, None,
+                                  use_reentrant=False)
         else:
-            x, kv = _layer_apply(lp, x, cfg, positions, layer_cache)
+            x, a, kv = _layer_apply(lp, x, cfg, positions, layer_cache, drops)
+        aux = aux + a
         if cache is None and collect_kv:
             kvs.append(kv)
 
-    x = rmsnorm(x, params["final_norm"]["norm_scale"])
-    logits = apply_weight(x, params["lm_head"]["w"])
+    x = apply_norm(x, params.get("final_norm"), cfg.norm_type)
+    logits = apply_weight(x, lm_head(params))
     if cache is not None:
-        return logits, cache._replace(length=cache.length + t)
+        return logits, cache._replace(length=cache.length + t), aux
     if collect_kv:
-        return logits, (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
-    return logits, None
+        return (logits, (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])),
+                aux)
+    return logits, None, aux
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, device,
@@ -194,7 +223,9 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device,
 
 
 def cache_from_prefill(kvs, max_len: int, dtype) -> LMCache:
-    """An LMCache from ``forward``'s stacked prefill heads (L, B, Hkv, T, D)."""
+    """An LMCache from ``forward``'s stacked prefill heads (L, B, Hkv, T, D);
+    a VLM prefill's T counts the patch prefix and may pass ``max_len``, and
+    the cache then grows to hold it."""
     kh, vh = kvs
     t = kh.shape[3]
     pad = (0, 0, 0, max(max_len - t, 0))

@@ -1,13 +1,15 @@
 """DeployedModel: run the transformer on SLR (L + S) weights directly (port
 of ``repro/serving/deployed.py``).
 
-Every SALAAD-selected matmul weight (attention q/k/v/o, MLP gate/up/down)
-becomes a :class:`~repro_torch.serving.slr_params.SLRLinear` in the
-parameter tree, so the unchanged model code runs ``x @ P @ Vt + x @ S`` at
-every linear site through ``models.layers.apply_weight``. Gather sites (the
-embedding) and the SSM projections of the hybrid family (read as plain
-tensors by ``models/ssm.py``, stacked (G, E, n, m)) are served
-dense-materialized. Formats:
+Every SALAAD-selected matmul weight (attention q/k/v/o, MLP gate/up/down,
+the encoder-decoder's cross-attention) becomes a
+:class:`~repro_torch.serving.slr_params.SLRLinear` in the parameter tree, so
+the unchanged model code runs ``x @ P @ Vt + x @ S`` at every linear site
+through ``models.layers.apply_weight``. Gather sites (the embedding, which a
+tied head reads transposed), the MoE routers and experts (every block with
+``moe`` in its name: the experts are dispatched by batched products) and the
+SSM projections (read as plain tensors by ``models/ssm.py``) are served
+dense-materialized; biases stay plain leaves. Formats:
 
   * ``dense``    - X_hat = L + S materialized
   * ``factored`` - (p, vt) + COO S, plain PyTorch products
@@ -19,6 +21,16 @@ dense-materialized. Formats:
                    block-CSC tables; the layer loop passes the layer index.
                    A weight outside a layer stack (the hybrid's shared
                    block) gets per-matrix tables and the unstacked kernel
+
+The families follow the JAX package's support matrix: the SSM LM's forward
+walks its stacked layer tree, so ``bsr`` (which unrolls it) raises for the
+``ssm`` family, and the encoder-decoder cannot take ``fused`` weights (the
+JAX forward scans its stacks directly, which fused stacked tables do not
+allow), so that raises too. The port's encoder-decoder ``bsr`` holds each
+stacked site of the encoder and decoder as a list of per-layer block-CSC
+weights, so those sites take the low-rank and block-CSC kernels (the JAX
+package keeps them stacked in factored form: the same numbers, other
+bytes).
 """
 from __future__ import annotations
 
@@ -99,6 +111,20 @@ def _unroll_layers(cfg, serving: Any, bsr_block: int) -> Any:
     return {**serving, "layers": [layer(l, layers) for l in range(cfg.num_layers)]}
 
 
+def _check_format(cfg, fmt: str):
+    """The JAX package's support matrix: its two failing cells raise here."""
+    if fmt == "bsr" and cfg.family == "ssm":
+        raise ValueError("fmt='bsr' cannot serve the ssm family: its forward walks the "
+                         "stacked layer tree, which bsr unrolls into per-layer dicts (the "
+                         "JAX package's scan fails on it too); serve fused, factored or "
+                         "dense")
+    if fmt == "fused" and cfg.family == "encdec":
+        raise ValueError("fmt='fused' cannot serve the encdec family: its stacked fused "
+                         "weights are applied per layer by index, and the encoder-decoder's "
+                         "forward walks its stacks directly in the JAX package; serve bsr, "
+                         "factored or dense")
+
+
 class DeployedModel:
     """A servable model: arch config + a parameter tree in a deployment
     format, consumed by the ordinary ``models.model`` API."""
@@ -116,6 +142,7 @@ class DeployedModel:
             return cls(cfg, surrogate_params(params, state, blocks), fmt)
         if fmt not in ("factored", "bsr", "fused"):
             raise ValueError(f"unknown deployment format {fmt!r}")
+        _check_format(cfg, fmt)
         by_name = {info.name: info for info in blocks}
         linears = build_slr_linears(state, blocks)
 
@@ -132,6 +159,12 @@ class DeployedModel:
             if fmt == "bsr" and lin.ndim == 2:
                 # unstacked weights outside the layer stack also take the kernels
                 return _coo_slice_to_bsr(lin, bsr_block)
+            if fmt == "bsr" and cfg.family == "encdec":
+                # a list of per-layer block-CSC weights in the stacked tree:
+                # the layer loops index it, and the stacked norms and biases
+                # stay shared by every tier of a bank, as in the JAX package
+                return [_coo_slice_to_bsr(lin.at_layer(l), bsr_block)
+                        for l in range(info.stack_dims[0])]
             return lin
 
         serving = replace_by_path(params, replace_leaf)
@@ -140,9 +173,10 @@ class DeployedModel:
         return cls(cfg, serving, fmt)
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full no-cache forward -> logits (parity checks / eval)."""
-        logits, _ = model_lib._forward(self.params, {"tokens": tokens}, self.cfg)
+    def forward(self, tokens: torch.Tensor, **extra) -> torch.Tensor:
+        """Full no-cache forward -> logits (parity checks / eval); ``extra``
+        holds the stub frontends' ``frames`` or ``patches``."""
+        logits, _ = model_lib._forward(self.params, {"tokens": tokens, **extra}, self.cfg)
         return logits
 
     def param_bytes(self) -> dict:

@@ -69,9 +69,9 @@ telemetry and tracing on or off.
 
 ``ReferenceEngine`` is the JAX package's per-slot, per-token engine over a
 contiguous float32 cache (one decode call and one host sync per slot per
-token, prompts fed token by token): the serving path of the hybrid family,
-whose SSM state has no per-slot lengths, and the measured baseline for the
-dense one. It keeps the same registry. Features it cannot give raise
+token, prompts fed token by token): the serving path of the ssm, hybrid
+and encdec families, whose caches have no per-slot lengths, and the
+measured baseline for the others. It keeps the same registry. Features it cannot give raise
 :class:`EngineCapabilityError` at construction, with its ``capabilities()``
 in the message.
 
@@ -91,6 +91,7 @@ from ..kernels import ops
 from ..kernels.paged_attention import takes_pages
 from ..models import model as model_lib
 from ..models import transformer as transformer_lib
+from ..models.moe import DropCounter
 from .adapters import AdapterBank, AdapterError
 from .deployed import DeployedModel
 from .elastic import ModelBank, TierController, TierControllerConfig
@@ -103,7 +104,7 @@ __all__ = ["Request", "RequestRejected", "EngineCapabilityError", "EngineConfig"
            "BATCHED_FAMILIES",
            "keyed_uniform", "unit_interval", "gumbel_argmax", "decode_emitted_tokens"]
 
-BATCHED_FAMILIES = ("dense",)   # ported cache families with per-slot lengths
+BATCHED_FAMILIES = ("dense", "moe", "vlm")   # cache families with per-slot lengths
 
 # internal timestamps use the monotonic clock; only Request.deadline is a
 # wall-clock value handed in by the caller
@@ -331,6 +332,15 @@ def page_pools(cfg, kv_dtype: str, field: str) -> tuple[torch.dtype, bool]:
     return dtype, quantized
 
 
+def _prompt_rows(tokens: np.ndarray, lengths: np.ndarray, slot_ids: np.ndarray,
+                 max_slots: int) -> np.ndarray:
+    """The (B, T) rows of a one-shot prefill that carry a prompt: each
+    group row's first ``lengths`` positions (padded rows carry
+    ``slot_ids == max_slots``)."""
+    real = np.arange(tokens.shape[1])[None, :] < lengths[:, None]
+    return real & (slot_ids < max_slots)[:, None]
+
+
 def _validate_request(prompt: list[int], max_new_tokens: int, max_len: int):
     if len(prompt) < 1:
         raise RequestRejected("empty prompt")
@@ -502,6 +512,9 @@ class ServingEngine:
         self.tracer: RequestTracer | None = None
         if ecfg.trace:
             self.start_trace()
+        # an MoE model's capacity drops, counted when the caller sets a
+        # moe.DropCounter here; each call marks the rows it serves
+        self.moe_drops: DropCounter | None = None
 
     # ----------------------------------------------------- observability ---
 
@@ -678,6 +691,12 @@ class ServingEngine:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _drops(self, real: np.ndarray) -> DropCounter | None:
+        """``moe_drops`` with ``real`` (the call's (B, T) served rows) marked."""
+        if self.moe_drops is not None:
+            self.moe_drops.real = self._to_dev(real)
+        return self.moe_drops
+
     def _device_cache(self):
         """Hook: the paged engine pushes host block-table updates here."""
         return self.cache
@@ -706,7 +725,8 @@ class ServingEngine:
         of every row (host)."""
         cache = self._device_cache()
         logits, new = model_lib.decode_step(self._call_params(key, self._slot_pool),
-                                            self._to_dev(tokens), cache, self.cfg)
+                                            self._to_dev(tokens), cache, self.cfg,
+                                            drops=self._drops(active[:, None]))
         # only active slots advance; inactive slots wrote a junk row at their
         # frozen position (paged: unmapped pages drop it), which the next real
         # insert overwrites
@@ -724,7 +744,8 @@ class ServingEngine:
         map (batched adapter mode). Returns each row's first token (host)."""
         logits, pcache = model_lib.prefill(
             self._call_params(key, rows), {"tokens": self._to_dev(tokens)}, self.cfg,
-            max_len=self.ecfg.max_len, cache_dtype=self.cache.k.dtype)
+            max_len=self.ecfg.max_len, cache_dtype=self.cache.k.dtype,
+            drops=self._drops(_prompt_rows(tokens, lengths, slot_ids, self.ecfg.max_slots)))
         group = np.nonzero(slot_ids < self.ecfg.max_slots)[0]
         src = self._to_dev(group)
         dst = self._to_dev(slot_ids[group].astype(np.int64))
@@ -1149,7 +1170,8 @@ class PagedServingEngine(ServingEngine):
         counts_d = self._to_dev(counts)
         n0 = torch.where(counts_d > 0, self._to_dev(starts), cache.length)
         logits, self.cache = model_lib.chunk_prefill_step(
-            params, self._to_dev(tokens), counts_d, cache._replace(length=n0), self.cfg)
+            params, self._to_dev(tokens), counts_d, cache._replace(length=n0), self.cfg,
+            drops=self._drops(np.arange(tokens.shape[1])[None, :] < counts[:, None]))
         self.chunk_calls += 1
         last = torch.from_numpy(np.maximum(counts - 1, 0).astype(np.int64)).to(self.device)
         rows = torch.arange(len(counts), device=self.device)
@@ -1167,9 +1189,10 @@ class PagedServingEngine(ServingEngine):
         prompt pages scattered into the pool; padded rows drop. ``rows`` is
         the group-indexed pool-row map (batched adapter mode)."""
         cache = self._device_cache()
-        logits, kvs = model_lib._forward(self._call_params(key, rows),
-                                         {"tokens": self._to_dev(tokens)}, self.cfg,
-                                         collect_kv=True)
+        logits, kvs = model_lib._forward(
+            self._call_params(key, rows), {"tokens": self._to_dev(tokens)}, self.cfg,
+            collect_kv=True,
+            drops=self._drops(_prompt_rows(tokens, lengths, slot_ids, self.ecfg.max_slots)))
         transformer_lib.scatter_prefill_pages(cache, kvs, self._to_dev(page_map))
         keep = slot_ids < self.ecfg.max_slots
         cache.length[self._to_dev(slot_ids[keep].astype(np.int64))] = \
@@ -1543,14 +1566,16 @@ class ReferenceEngine:
     slot's own) and a write-back, one ``decode_step`` call and one host sync
     per slot per token. Prompts are fed through the same decode step token by
     token, the last prompt token by the first tick. Each slot decodes with
-    its request's bank tier. It serves every ported family (the hybrid's
-    SSM state has no per-slot lengths, so the batched engines cannot). Its
+    its request's bank tier. It serves every family (the SSM and hybrid
+    states and the encoder-decoder's cache have no per-slot lengths, so the
+    batched engines cannot; the encoder-decoder's cross heads are zeros, as
+    in the JAX package, whose engine has no frames to encode). Its
     tokens are always greedy: like the JAX package's, it ignores
     ``greedy=False`` and ``temperature``. It keeps the batched engines'
     telemetry registry and tracer (the registry is shared infrastructure):
     each decode call is the ``decode_ref`` program of its tier."""
 
-    CACHE_BATCH_AXIS = 1     # the batch axis of every tensor of LMCache and HybridCache
+    CACHE_BATCH_AXIS = 1     # the batch axis of every tensor of every contiguous cache
 
     def __init__(self, model: ModelBank | DeployedModel, ecfg: EngineConfig | None = None):
         bank, ecfg = _resolve_engine_args(type(self).__name__, model, ecfg)
@@ -1595,7 +1620,7 @@ class ReferenceEngine:
     def capabilities(cls) -> dict:
         return {
             "engine": cls.__name__,
-            "families": ["dense", "hybrid"],
+            "families": ["dense", "moe", "vlm", "ssm", "hybrid", "encdec"],
             "kv": "contiguous",
             "features": {
                 "kv_dtype": ["float32"],

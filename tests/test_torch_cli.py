@@ -2,8 +2,9 @@
 repro.launch.serve`` at ``--reduced``: the same JSON keys and the same
 request, token, tier, adapter, prefix-cache and byte counts (and
 ``jit_retraces``: 0 on both sides), through the paged, batched, speculative
-and reference engines, for the dense Llama and the hybrid (whose line
-follows the JAX launcher's fallback note). The observability switches write
+and reference engines, for the dense Llama, the hybrid, and one architecture
+of each other family (the ssm, hybrid and encdec lines follow the JAX
+launcher's fallback note). The observability switches write
 files both packages' validators accept. Both launchers serve a fresh all-zero SLR
 state, so every SLR site takes the zero corner and the streams agree exactly;
 only the timings differ.
@@ -149,11 +150,44 @@ def test_hybrid_serves_through_the_reference_engine(engine, monkeypatch, capsys)
     if not engine:
         assert got[0]["note"] == want[0]["note"]
         assert got[0]["capabilities"]["engine"] == "ReferenceEngine"
-        assert got[0]["capabilities"]["families"] == ["dense", "hybrid"]
-        assert {k: v for k, v in got[0]["capabilities"].items() if k != "families"} == \
-            {k: v for k, v in want[0]["capabilities"].items() if k != "families"}
+        assert got[0]["capabilities"] == want[0]["capabilities"]
     assert set(got[-1]) == set(want[-1])
     for key in set(got[-1]) - TIMED:
+        assert got[-1][key] == want[-1][key], key
+    assert got[-1]["requests"] == 3 and got[-1]["tokens"] == 12
+
+
+NEW_FAMILIES = {
+    "qwen3_moe_30b_a3b": ["--fmt", "fused", "--prefix-cache"],
+    "internvl2_76b": ["--fmt", "fused", "--engine", "batched"],
+    "gemma_7b": ["--fmt", "fused"],
+    "mamba2_370m": ["--fmt", "fused"],
+    "whisper_small": ["--fmt", "bsr"],
+}
+
+
+@pytest.mark.parametrize("arch", list(NEW_FAMILIES))
+def test_new_families_serve_like_jax(arch, monkeypatch, capsys):
+    """One architecture of each family the launchers gained (moe, vlm, a
+    dense variant, ssm, encdec), reduced on the CPU, in its first serving
+    format: the same lines as the JAX launcher, the ssm and encdec ones
+    after the same fallback note to ReferenceEngine. Every SLR site of the
+    fresh all-zero state serves zeros, so the streams agree where only those
+    sites and the deterministic norms reach the head; the encoder-decoder's
+    sinusoidal positions reach its LM head, which is no SLR block and is
+    drawn by each package's own generator, so its greedy sample differs."""
+    argv = ["--arch", arch, "--reduced", "--keep-ratios", "1.0,0.5", "--requests", "3",
+            "--max-new", "4", *NEW_FAMILIES[arch]]
+    got = run_lines(serve.main, argv + ["--device", "cpu"], monkeypatch, capsys)
+    want = run_lines(jax_serve.main, argv, monkeypatch, capsys)
+    fallback = get_arch(arch).family in ("ssm", "encdec")
+    assert len(got) == len(want) == (2 if fallback else 1)
+    assert got[:-1] == want[:-1]
+    if fallback:
+        assert got[0]["note"].startswith(f"family '{get_arch(arch).family}' has no per-slot")
+    assert set(got[-1]) == set(want[-1])
+    own_head = {"sample"} if arch == "whisper_small" else set()
+    for key in set(got[-1]) - TIMED - own_head:
         assert got[-1][key] == want[-1][key], key
     assert got[-1]["requests"] == 3 and got[-1]["tokens"] == 12
 

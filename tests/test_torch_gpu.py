@@ -92,6 +92,32 @@ def test_slr_matmul_stacked_matches_plain(cuda, dtype, bs, t, k, m, r):
         assert_close(got, ref.slr_matmul_stacked_ref(x, p, vt, stack, layer), dtype)
 
 
+@pytest.mark.parametrize("bs,t,k,m,r", [
+    (32, 8, 2048, 768, 192), (64, 128, 3072, 4096, 96), (32, 1, 64, 40, 12)])
+def test_slr_matmul_stacked_bf16_over_f32_tables(cuda, bs, t, k, m, r):
+    """A bf16 model's deployment: bf16 activations over the SLR state's f32
+    tables, widened exactly and run on the f32 instance (one launch), y
+    rounded to bf16; the MoE's attention width (2048 -> 768 at bs 32) and
+    Gemma's q site (3072 -> 4096)."""
+    rng = np.random.default_rng(bs + t + r)
+    num_l = 2
+    x = torch.from_numpy(rng.standard_normal((t, k), dtype=np.float32)).to(cuda, torch.bfloat16)
+    p = torch.from_numpy(rng.standard_normal((num_l, k, r), dtype=np.float32) / 8).to(cuda)
+    vt = torch.from_numpy(rng.standard_normal((num_l, r, m), dtype=np.float32) / 8).to(cuda)
+    stack = make_stack(rng, num_l, k, m, bs, 0.3, cuda, torch.float32)
+    for layer in range(num_l):
+        before = ops.launch_counts()["slr_matmul_stacked"]
+        got = ops.slr_matmul_stacked(x, p, vt, stack, layer)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        assert ops.launch_counts()["slr_matmul_stacked"] == before + 1
+        want = ref.slr_matmul_stacked_ref(x.float(), p, vt, stack, layer)
+        assert_close(got, want, torch.bfloat16)
+    got = ops.slr_matmul_stacked(x, None, None, stack, 0)   # r == 0: bf16 zero factors
+    assert_close(got, ref.slr_matmul_stacked_ref(x.float(), None, None, stack, 0),
+                 torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_slr_matmul_corners(cuda, dtype):
     """Empty S runs the low-rank kernel; r == 0 runs the fused kernel with
@@ -312,12 +338,14 @@ def make_pool(rng, b, hq, hkv, d, bs, nb, n, device, dtype):
 
 
 # (b, hq, hkv, d, bs, nb): head dims 32-256 (each bucket of the kernel), GQA
-# groups 1, 2, 4 and 16, pages of 4, 8, 16 and 32, tables of one to eight
+# groups 1, 2, 4, 8 and 16, pages of 4, 8, 16 and 32, tables of one to eight
 # segments; make_pool's lengths run 0, a page's last and first position,
-# mid-page and the table's end, the tails unmapped
+# mid-page and the table's end, the tails unmapped. The last two rows are the
+# MoE's 32 q heads over 4 KV heads at D = 64 and Gemma's 16 heads of 256
 PAGED_DECODE = [(5, 4, 2, 32, 4, 6), (8, 8, 8, 64, 16, 32), (3, 32, 2, 128, 8, 5),
                 (5, 8, 8, 80, 16, 20), (5, 16, 4, 256, 32, 12), (5, 8, 4, 64, 4, 600),
-                (5, 16, 1, 128, 32, 80), (5, 8, 2, 256, 16, 160)]
+                (5, 16, 1, 128, 32, 80), (5, 8, 2, 256, 16, 160),
+                (8, 32, 4, 64, 16, 32), (8, 16, 16, 256, 16, 32)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -337,7 +365,8 @@ def test_paged_attention_matches_plain(cuda, dtype, b, hq, hkv, d, bs, nb):
 PAGED_KQUERY = [(4, 4, 2, 3, 32, 4, 8), (8, 8, 8, 64, 64, 16, 32), (2, 6, 2, 21, 16, 8, 9),
                 (5, 8, 8, 1, 64, 16, 32), (5, 16, 8, 21, 80, 16, 24),
                 (5, 16, 4, 64, 128, 32, 16), (5, 8, 8, 130, 64, 16, 160),
-                (3, 16, 1, 130, 64, 4, 100), (3, 32, 2, 21, 256, 16, 40)]
+                (3, 16, 1, 130, 64, 4, 100), (3, 32, 2, 21, 256, 16, 40),
+                (8, 32, 4, 128, 64, 16, 16), (8, 16, 16, 128, 256, 16, 16)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -675,6 +704,37 @@ def test_flash_attention_matches_plain(cuda, dtype, b, hq, hkv, t, s, d, causal)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == before + 1
     assert_close(got, ref.attention_ref(q, k, v, causal=causal, offset=0), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,t,s,causal", [
+    (1, 12, 1500, 1500, False), (2, 12, 1, 1500, False), (2, 12, 16, 1500, False),
+    (2, 12, 200, 200, True)])
+def test_flash_attention_any_length(cuda, dtype, b, hq, t, s, causal):
+    """Lengths that are no block multiple, which the kernel masks itself:
+    Whisper's encoder over 1500 frames and its cross-attention (12 heads of
+    64, non-causal), and a ragged causal prefill."""
+    rng = np.random.default_rng(t + s)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+               for shape in ((b, hq, t, 64), (b, hq, s, 64), (b, hq, s, 64)))
+    got = ops.flash_attention(q, k, v, causal=causal, any_length=True)
+    assert_close(got, ref.attention_ref(q, k, v, causal=causal, offset=0), dtype)
+
+
+def test_flash_attention_bf16_queries_over_f32_heads(cuda):
+    """The reference engine's bf16 encoder-decoder over its f32 cross heads:
+    one launch of the f32 instance on widened operands, bf16 out."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 12, 1, 64), dtype=np.float32)).to(
+        cuda, torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((2, 12, 1500, 64), dtype=np.float32)).to(cuda)
+            for _ in range(2))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=False, any_length=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert_close(got, ref.attention_ref(q.float(), k, v, causal=False), torch.bfloat16)
 
 
 def test_flash_attention_rejects_unpadded_lengths(cuda):
