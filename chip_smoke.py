@@ -164,6 +164,21 @@ error:
       frames (flash, non-causal), a prefill and two decode steps, and the
       flash kernel held against its plain version at the encoder's
       1500 x 1500 and the cross-attention's 16 x 1500 and 1 x 1500;
+   q. SALAAD training of the hybrid at full width (run after j): zamba2_2p7b
+      at its published widths (d_model 2560, 32 heads of 80, d_ff 10240,
+      ssm_state 64, vocab 32000, bf16) cut to 18 of its 54 layers (3 of the 9
+      shared-block groups, about 1.0e9 parameters), ``Trainer.fit`` with seq
+      256, batch 4, lr 1e-3 (one warmup step, a cosine over the run), K = 2
+      and 6 steps (3 randomized-SVD ADMM steps, their f32 products in TF32),
+      remat on, batches through
+      ``DevicePrefetcher``: every loss and ADMM statistic finite, the last
+      loss below the first, soft_threshold launching once per sweep chunk of
+      the selected leaves in every ADMM step; the step and ADMM-step ms and
+      the peak memory printed; then the trained state deployed (HPA keeps
+      1.0 / 0.5, ``fused``, one ModelBank) serves 2 greedy requests of 8 new
+      tokens on ``ReferenceEngine``, the unstacked SLR kernel launching for
+      both tiers; then ``repro_torch.launch.train.main`` runs the MoE at
+      ``--reduced`` for 4 steps with K = 2 in this process on the card;
 5. parity: the first one-shot prefill's, the first chunk's and the first
    decode tick's logits on the card against the same model on the CPU, and
    one prefill and two decode steps over the per-slot contiguous cache (a
@@ -185,7 +200,14 @@ error:
    engine with chunks for the KV families, ReferenceEngine for ssm and
    encdec); and qwen3_moe_30b_a3b at full width, one layer, f32: the first
    decode tick within ``LOGIT_TOL``, the tokens whose top-8 expert set
-   differs printed.
+   differs printed; (5f) each of the six families at ``.reduced()`` (f32,
+   remat on, TF32 off), one ``Trainer.fit`` of 4 steps with K = 2 on the card
+   and on the CPU from the same parameters, batches and CPU-drawn sketches:
+   losses and ADMM reconstruction errors within 1e-3 relative, soft_threshold
+   launching once per selected leaf per ADMM step; and the balanced causal
+   scheme's forward and q/k/v gradients against the full scheme's on the card
+   (f32, T = 1536 in q blocks of 512, GQA group 2) within 1e-4 of the largest
+   value.
 
 Output: the card's name and power limit, build time, per-phase lines, then
 one ``{"kernels": [...]}`` line and, last, the device line the harness reads.
@@ -194,6 +216,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -227,6 +250,10 @@ HYBRID = "zamba2_2p7b"
 HYBRID_BUDGETS = (1.0, 0.5)
 N_HYBRID, HYBRID_MAX_NEW = 6, 16  # 4i: requests, new tokens each
 N_HYBRID_CPU = 4                 # 5c: requests, MAX_NEW_CPU new tokens each
+HYBRID_TRAIN_LAYERS = 18         # 4q: 3 of the 9 shared-block groups
+HYBRID_TRAIN_STEPS, HYBRID_TRAIN_K = 6, 2   # 4q: 3 ADMM steps
+HYBRID_TRAIN_SEQ, HYBRID_TRAIN_BATCH = 256, 4
+HYBRID_SERVE_NEW = 8             # 4q: new tokens of each of the 2 requests
 MAX_NEW_CPU = 8
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -349,11 +376,16 @@ def main() -> None:
     from repro_torch.data.synthetic import DataConfig, SyntheticC4
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.optim.adam import AdamConfig
+    from repro_torch.optim.schedule import warmup_cosine
     from repro_torch.train import checkpoint
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from repro_torch.core.selection import select_blocks
     from repro_torch.core.sparse import to_dense as sparse_dense
-    from repro_torch.tree import leaf_by_path
+    from repro_torch.tree import leaf_by_path, tree_leaves_with_path
+    from repro_torch.core.admm import SWEEP_ELEMS
+    from repro_torch.data.pipeline import DevicePrefetcher
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.flash_vjp import flash_attention_vjp
 
     dev = torch.device("cuda")
     card = card_line()
@@ -1962,7 +1994,198 @@ def main() -> None:
         print(f"main path 4j launcher {' '.join(args_j)} ({time.perf_counter() - t0:.1f} s): "
               f"{json.dumps(line)}")
 
+    phase("4q")
+    # 4q. SALAAD training of the hybrid at full width: zamba2_2p7b at its
+    # published widths, cut to 18 of its 54 layers (3 of the 9 shared-block
+    # applications) so that parameters, gradients, Adam moments, the SLR
+    # state and the rSVD workspace fit the card; remat on, batches through
+    # DevicePrefetcher; the ADMM sweeps' f32 products in TF32, as in 4i
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    h_before = torch.cuda.memory_allocated() / 2**30      # what earlier phases still hold
+    hcfg = dataclasses.replace(get_arch(HYBRID), num_layers=HYBRID_TRAIN_LAYERS)
+    hscfg = SalaadConfig(selection=SelectionConfig(min_dim=16), update_every=HYBRID_TRAIN_K)
+    # the default schedule's shape fitted to the run: one warmup step, then a
+    # cosine decay over the 6 steps. Its default 100-step warmup keeps the
+    # rate below 6e-5 here, so the loss only follows the batches; a constant
+    # 1e-3 from the first step made the loss spike to 17.6 at step 4
+    htrainer = Trainer(hcfg, TrainerConfig(
+        total_steps=HYBRID_TRAIN_STEPS, log_every=1, salaad=hscfg,
+        adam=AdamConfig(lr=TRAIN_LR),
+        schedule=functools.partial(warmup_cosine, warmup=1, total=HYBRID_TRAIN_STEPS)),
+        device=dev)
+    t0 = time.perf_counter()
+    h_state = htrainer.init(seed=SEED)
+    torch.cuda.synchronize()
+    h_init = time.perf_counter() - t0
+    h_params_n = sum(t_.numel() for _, t_ in tree_leaves_with_path(h_state.params))
+    # soft_threshold runs once per sweep chunk: a leaf's slices are swept in
+    # chunks of at most SWEEP_ELEMS elements (core/admm.py)
+    h_chunks = sum(-(-b.num_blocks // max(1, SWEEP_ELEMS // (b.n * b.m)))
+                   for b in htrainer.blocks) * hscfg.admm_inner_steps
+    h_admm_ms, h_admm_soft, h_admm_stats = [], [], []
+    h_inner = htrainer._admm_step
+
+    def timed_hybrid_admm(state):
+        torch.cuda.synchronize()
+        before = ops.KERNELS["soft_threshold"].launches
+        t1 = time.perf_counter()
+        out = h_inner(state)
+        torch.cuda.synchronize()
+        h_admm_ms.append((time.perf_counter() - t1) * 1e3)
+        h_admm_soft.append(ops.KERNELS["soft_threshold"].launches - before)
+        h_admm_stats.append(out[1])
+        return out
+
+    htrainer._admm_step = timed_hybrid_admm
+    feed = DevicePrefetcher(SyntheticC4(DataConfig(hcfg.vocab_size, HYBRID_TRAIN_SEQ,
+                                                   HYBRID_TRAIN_BATCH, seed=SEED)), device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        h_state = htrainer.fit(h_state, feed)
+    finally:
+        feed.close()
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    h_wall = time.perf_counter() - t0
+    h_train_counts = ops.launch_counts()
+    h_peak = torch.cuda.max_memory_allocated() / 2**30
+    h_losses = [m["loss"] for m in htrainer.metrics_log if "loss" in m]
+    h_step_ms = [m["sec"] * 1e3 for m in htrainer.metrics_log if "loss" in m]
+    h_recon = [m["admm_recon_err"] for m in htrainer.metrics_log if "admm_recon_err" in m]
+    h_n_admm = HYBRID_TRAIN_STEPS // HYBRID_TRAIN_K
+    print(f"main path 4q hybrid training: {hcfg.name} at {hcfg.num_layers} of 54 layers "
+          f"(reduced: depth only; d_model {hcfg.d_model}, {hcfg.num_heads} heads of "
+          f"{hcfg.head_dim}, d_ff {hcfg.d_ff}, ssm_state {hcfg.ssm_state}, vocab "
+          f"{hcfg.vocab_size}, {str(hcfg.param_dtype)[6:]}), {h_params_n / 1e9:.3f}e9 "
+          f"parameters, init {h_init:.1f} s; seq {HYBRID_TRAIN_SEQ} x batch "
+          f"{HYBRID_TRAIN_BATCH}, lr {TRAIN_LR:g} (warmup 1, cosine over the run), "
+          f"K={HYBRID_TRAIN_K}, {HYBRID_TRAIN_STEPS} "
+          f"steps ({h_n_admm} rSVD ADMM steps) in {h_wall:.3f} s, remat on, DevicePrefetcher; "
+          f"train step ms {json.dumps([round(x, 3) for x in h_step_ms])} (median "
+          f"{float(np.median(h_step_ms[1:])):.3f} after the first; host clock around a step "
+          f"that ends in a sync); ADMM step ms {json.dumps([round(x, 3) for x in h_admm_ms])}; "
+          f"peak memory {h_peak:.2f} GiB (max_memory_allocated; {h_before:.2f} GiB of it "
+          f"held by earlier phases)")
+    print(f"  losses per step: {json.dumps([round(x, 5) for x in h_losses])}")
+    print(f"  ADMM mean recon err per phase: {json.dumps([round(x, 6) for x in h_recon])}")
+    print(f"  selected: {json.dumps({b.name: list(b.shape) for b in htrainer.blocks})}")
+    print(f"  soft_threshold launches per ADMM step: {json.dumps(h_admm_soft)} (the selected "
+          f"leaves' sweep chunks: {h_chunks})")
+    print(f"  launch counts: {json.dumps(h_train_counts)}")
+    h_finite = all(math.isfinite(x) for x in h_losses + h_recon) and all(
+        bool(torch.isfinite(v).all()) for st in h_admm_stats for blk in st.values()
+        for v in (blk.values() if isinstance(blk, dict) else [blk]))
+    if not h_finite:
+        fail("4q: a loss or an ADMM statistic is not finite")
+    if len(h_losses) != HYBRID_TRAIN_STEPS or not h_losses[-1] < h_losses[0]:
+        fail(f"4q: the loss did not fall: {h_losses}")
+    if h_admm_soft != [h_chunks] * h_n_admm:
+        fail(f"4q: soft_threshold launches per ADMM step {h_admm_soft}, expected "
+             f"{h_chunks} in each of {h_n_admm}")
+    htrainer._admm_step = h_inner
+
+    # the trained state deployed: HPA keeps 1.0 and 0.5 in the fused format
+    # as one ModelBank, 2 greedy requests of 8 new tokens on ReferenceEngine
+    h_params, h_slr, h_blocks = h_state.params, h_state.slr, htrainer.blocks
+    del h_state, htrainer, h_admm_stats
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True       # the tiers' dense L + S
+    t0 = time.perf_counter()
+    h_models = []
+    for keep in HYBRID_BUDGETS:
+        slr_k, _ = hpa_keep_ratio(h_slr, h_blocks, keep, 0.7)
+        h_models.append(DeployedModel.build(hcfg, h_params, slr_k, h_blocks, fmt="fused"))
+        del slr_k
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del h_slr
+    torch.cuda.empty_cache()
+    h_bank = ModelBank(hcfg, h_models, keeps=HYBRID_BUDGETS)
+
+    def one_part_empty(lin) -> bool:            # a corner site runs one kernel part only
+        mat = lin.s_bsr
+        return (lin.p is None or lin.p.shape[-1] == 0 or mat is None or mat.empty
+                or int(mat.counts.sum()) == 0)
+
+    h_corner = {t_.index: sum(one_part_empty(t_.params["shared_attn"][site])
+                              for site in ("q", "k", "v", "o", "gate", "up", "down"))
+                for t_ in h_bank}
+    print(f"  trained state deployed (HPA + fused in {time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(h_bank.report())}")
+    h_eng = ReferenceEngine(h_bank, EngineConfig(max_slots=2, max_len=64))
+    h_tier_launches = {t_.index: 0 for t_ in h_bank}
+    h_tier_calls = {t_.index: 0 for t_ in h_bank}
+    h_inner_step = h_eng._step_slot
+
+    def counted_hybrid_step(slot, token):
+        tier = h_eng._active[slot].tier
+        before = ops.KERNELS["slr_matmul"].launches
+        out = h_inner_step(slot, token)
+        h_tier_launches[tier] += ops.KERNELS["slr_matmul"].launches - before
+        h_tier_calls[tier] += 1
+        return out
+
+    h_eng._step_slot = counted_hybrid_step
+    h_prompts = [np.random.default_rng(SEED + 8).integers(0, hcfg.vocab_size, 12).tolist()
+                 for _ in range(2)]
+    ops.reset_launch_counts()
+    h_stats = serve_batch(h_eng, hcfg.vocab_size, 2, HYBRID_SERVE_NEW, SEED,
+                          tiers=tuple(range(len(h_bank))), prompts=h_prompts)
+    torch.cuda.synchronize()
+    h_serve_counts = ops.launch_counts()
+    print(f"main path 4q serving the trained hybrid on ReferenceEngine: {h_stats['requests']} "
+          f"requests, {h_stats['tokens']} tokens, {h_stats['tok_per_s']} tok/s; slr_matmul "
+          f"launches per tier {json.dumps({str(k): v for k, v in h_tier_launches.items()})} "
+          f"over decode calls {json.dumps({str(k): v for k, v in h_tier_calls.items()})}; "
+          f"sample {h_stats['sample']}")
+    if h_stats["requests"] != 2 or h_stats["tokens"] != 2 * HYBRID_SERVE_NEW \
+            or not all(0 <= t_ < hcfg.vocab_size for t_ in h_stats["sample"]):
+        fail(f"4q: the trained hybrid's requests did not finish: {h_stats}")
+    for tier in h_bank:
+        want = (7 - h_corner[tier.index]) * (hcfg.num_layers // hcfg.attn_every) \
+            * h_tier_calls[tier.index]
+        if h_tier_launches[tier.index] < 1 or h_tier_launches[tier.index] != want:
+            fail(f"4q tier {tier.name}: {h_tier_launches[tier.index]} slr_matmul launches over "
+                 f"{h_tier_calls[tier.index]} decode calls, expected {want}")
+    del h_eng, h_bank, h_models, h_params
+    torch.cuda.empty_cache()
+
+    # the train launcher in process on the card: the MoE at .reduced()
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train_main(["--arch", "qwen3_moe_30b_a3b", "--reduced", "--steps", "4",
+                    "--update-every", "2"])
+    torch.cuda.synchronize()
+    h_launcher_counts = ops.launch_counts()
+    t_line = json.loads(out.getvalue())
+    # the launcher prints the last 5 log entries: the losses of step 0 and the
+    # last step (log_every 20) and the 2 ADMM steps' reconstruction errors
+    t_losses = [m["loss"] for m in t_line["metrics"] if "loss" in m]
+    t_recon = [m["admm_recon_err"] for m in t_line["metrics"] if "admm_recon_err" in m]
+    print(f"main path 4q train launcher --arch qwen3_moe_30b_a3b --reduced --steps 4 "
+          f"--update-every 2 ({time.perf_counter() - t0:.1f} s): {json.dumps(t_line)}; "
+          f"soft_threshold launches {h_launcher_counts['soft_threshold']}")
+    if len(t_losses) != 2 or len(t_recon) != 2 \
+            or not all(math.isfinite(x) for x in t_losses + t_recon) \
+            or h_launcher_counts["soft_threshold"] < 1:
+        fail(f"4q: the train launcher's run is off: {t_line}, {h_launcher_counts}")
+
     # ---- 4n-4p. the other families at full width ---------------------------------
+    def gathered_sdpa_ms(q_, pool_, table_, n_keys):
+        """SDPA on the first ``n_keys`` positions of each slot's pages,
+        gathered beforehand with the KV heads repeated to the q heads, device
+        alone: the library yardstick of a paged decode call (K = V = pool)."""
+        b_, hkv_, d_ = q_.shape[0], pool_.shape[1], pool_.shape[-1]
+        kv_ = pool_[table_[:, :n_keys // pool_.shape[2]].long()].permute(0, 2, 1, 3, 4)
+        kv_ = kv_.reshape(b_, hkv_, n_keys, d_).repeat_interleave(q_.shape[1] // hkv_, dim=1)
+        return graph_ms(torch, lambda: F.scaled_dot_product_attention(q_[:, :, None], kv_, kv_))
+
     def decode_bound(b, hq_, hkv_, d_, keys):
         """Paged decode in bf16: q and out once, each visible K/V row once,
         the lengths and the table entries; 4 D flops per (query head, key)."""
@@ -2152,9 +2375,10 @@ def main() -> None:
     q8 = torch.randn((8, mcfg.num_heads, mcfg.head_dim), device=dev, dtype=torch.bfloat16)
     g8_ms = graph_ms(torch, lambda: ops.paged_attention(q8, pool, pool, table, lens_g))
     g8_bound = decode_bound(8, mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim, 512)
+    g8_sdpa = gathered_sdpa_ms(q8, pool, table, 512)
     print(f"  time paged decode group 8 (B 8, 32 q heads over 4 KV heads, D 64, bf16, 512 "
-          f"keys a slot): {g8_ms:.4f} ms device alone, bound {g8_bound[0]:.4f} ms "
-          f"({g8_bound[1]}) ({card})")
+          f"keys a slot): {g8_ms:.4f} ms device alone, SDPA on the gathered KV {g8_sdpa:.4f} "
+          f"ms device alone, bound {g8_bound[0]:.4f} ms ({g8_bound[1]}) ({card})")
     family_kernel_checks("4n", mcfg, next(iter(mbank)), pool, table, lens_g, q8)
     del mbank, mparams, pool
     torch.cuda.empty_cache()
@@ -2179,9 +2403,11 @@ def main() -> None:
                        dtype=torch.bfloat16)
     d256_ms = graph_ms(torch, lambda: ops.paged_attention(q1, pool, pool, table, lens_g))
     d256_bound = decode_bound(8, gcfg.num_heads, gcfg.num_kv_heads, gcfg.head_dim, 512)
+    d256_sdpa = gathered_sdpa_ms(q1, pool, table, 512)
     print(f"  time paged decode D 256 (B 8, 16 q heads over 16 KV heads, group 1, bf16, 512 "
-          f"keys a slot): {d256_ms:.4f} ms device alone, bound {d256_bound[0]:.4f} ms "
-          f"({d256_bound[1]}) ({card})")
+          f"keys a slot): {d256_ms:.4f} ms device alone, SDPA on the gathered KV "
+          f"{d256_sdpa:.4f} ms device alone, bound {d256_bound[0]:.4f} ms ({d256_bound[1]}) "
+          f"({card})")
     family_kernel_checks("4o", gcfg, next(iter(gbank)), pool, table, lens_g, q1)
     del gbank, gparams, pool
     torch.cuda.empty_cache()
@@ -2628,6 +2854,70 @@ def main() -> None:
     compare("5e qwen3-moe full width first decode tick", tick["card"], tick["cpu"])
     torch.cuda.empty_cache()
 
+    phase("5f")
+    # 5f. training of every family, card against CPU: each family at
+    # .reduced() (f32, remat on), one Trainer.fit of 4 steps with K = 2 from
+    # the same initial parameters on the same batches, the rSVD sketches drawn
+    # on the CPU from the step keys on both sides; TF32 off
+    f_soft = 0
+    f_rows = {}
+    for fam, arch in (("dense", "salaad_llama_60m"), ("moe", "qwen3_moe_30b_a3b"),
+                      ("vlm", "internvl2_76b"), ("ssm", "mamba2_370m"),
+                      ("hybrid", HYBRID), ("encdec", "whisper_small")):
+        fcfg5 = dataclasses.replace(get_arch(arch).reduced(), remat=True)
+        init5 = model_lib.init_params(fcfg5, seed=SEED, device="cpu")
+        runs5 = {}
+        for name, d_ in (("card", dev), ("cpu", torch.device("cpu"))):
+            tr5 = Trainer(fcfg5, TrainerConfig(
+                total_steps=4, log_every=1, adam=AdamConfig(lr=TRAIN_LR),
+                salaad=SalaadConfig(update_every=2, selection=SelectionConfig(min_dim=16))),
+                device=d_)
+            st5 = tr5.init(params=tree_map(lambda t_: t_.to(d_), init5))
+            ops.reset_launch_counts()
+            tr5.fit(st5, SyntheticC4(DataConfig(fcfg5.vocab_size, 32, 2, seed=SEED)))
+            if name == "card":
+                torch.cuda.synchronize()
+                soft5 = ops.launch_counts()["soft_threshold"]
+                f_soft += soft5
+            runs5[name] = ([m["loss"] for m in tr5.metrics_log if "loss" in m],
+                           [m["admm_recon_err"] for m in tr5.metrics_log
+                            if "admm_recon_err" in m])
+        (gl5, gr5), (cl5, cr5) = runs5["card"], runs5["cpu"]
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(gl5, cl5))
+        r_err = max(abs(a - b) / abs(b) for a, b in zip(gr5, cr5))
+        f_rows[fam] = {"arch": arch, "loss_rel_err": float(f"{l_err:.3e}"),
+                       "recon_rel_err": float(f"{r_err:.3e}"), "card_losses":
+                       [round(x, 6) for x in gl5], "soft_threshold": soft5}
+        if len(gl5) != 4 or len(gr5) != 2 or l_err > 1e-3 or r_err > 1e-3 \
+                or not all(math.isfinite(x) for x in gl5 + gr5):
+            fail(f"5f {arch}: the card's training disagrees with the CPU's: card {runs5['card']}"
+                 f" cpu {runs5['cpu']}")
+        if soft5 != 2 * len(tr5.blocks):
+            fail(f"5f {arch}: {soft5} soft_threshold launches, expected {2 * len(tr5.blocks)}")
+    print(f"parity 5f training of every family, card vs CPU (4 steps, K = 2; relative "
+          f"errors, tol 1e-3; {f_soft} soft_threshold launches on the card in all): "
+          f"{json.dumps(f_rows)}")
+    # the balanced causal scheme on the card against the full one: f32,
+    # T = 1536 in q blocks of 512 (nq = 3, an odd middle chunk), GQA group 2
+    brng = np.random.default_rng(SEED + 9)
+    b_in = [brng.standard_normal(s_).astype(np.float32)
+            for s_ in ((2, 8, 1536, 64), (2, 4, 1536, 64), (2, 4, 1536, 64), (2, 8, 1536, 64))]
+    bal = {}
+    for scheme in ("full", "balanced"):
+        q5, k5, v5 = (torch.from_numpy(a_).to(dev).requires_grad_(True) for a_ in b_in[:3])
+        out5 = flash_attention_vjp(q5, k5, v5, True, 512, 512, scheme=scheme)
+        (out5 * torch.from_numpy(b_in[3]).to(dev)).sum().backward()
+        bal[scheme] = [out5.detach(), q5.grad, k5.grad, v5.grad]
+    b_errs = [float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(bal["balanced"], bal["full"])]
+    print(f"parity 5f balanced vs full causal scheme on the card (f32, T = 1536, q_block 512, "
+          f"GQA 8 over 4 heads): out, dq, dk, dv errors over the largest value "
+          f"{json.dumps([float(f'{e:.3e}') for e in b_errs])} (tol 1e-4)")
+    if max(b_errs) > 1e-4:
+        fail(f"5f: the balanced scheme disagrees with the full one: {b_errs}")
+    del bal, q5, k5, v5, out5
+    torch.cuda.empty_cache()
+
     phase("end")
     # ---- result lines -------------------------------------------------------------
     meta = {
@@ -2662,6 +2952,8 @@ def main() -> None:
                          + batched_counts[name] + train_counts[name] + sweep_counts[name]
                          + hybrid_counts[name] + moe_counts[name] + gemma_counts[name]
                          + sum(c_[name] for c_ in seq_counts.values())
+                         + h_train_counts[name] + h_serve_counts[name]
+                         + h_launcher_counts[name]
                          + (moe_soft + gemma_soft if name == "soft_threshold" else 0)),
             "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
             "plain_ms": r_["plain_ms"], "bound_ms": r_["bound"][0],

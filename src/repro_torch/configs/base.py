@@ -60,16 +60,15 @@ class ArchConfig:
     kernel_impl: str = "blockwise"
     attn_q_block: int = 512
     attn_kv_block: int = 1024
-    causal_scheme: str = "full"         # full; balanced is a later slice
+    causal_scheme: str = "full"         # full | balanced (models/flash_balanced.py)
     moe_groups: int | None = None       # dispatch groups: kept for config compatibility
     scan_unroll: int | bool = 1         # the JAX scans' unroll: unused by the layer loops
     source: str = ""
 
     def __post_init__(self):
-        if self.causal_scheme != "full":
-            raise ValueError(
-                f"causal_scheme={self.causal_scheme!r} is not ported yet: the "
-                "triangle-only flash scheme (models/flash_balanced.py) is a later slice")
+        if self.causal_scheme not in ("full", "balanced"):
+            raise ValueError(f"causal_scheme={self.causal_scheme!r}: expected 'full' or "
+                             "'balanced'")
 
     @property
     def sub_quadratic(self) -> bool:

@@ -19,6 +19,7 @@ from .prox import (  # noqa: F401
     svt,
     svt_from_svd,
 )
+from .rpca import rpca  # noqa: F401
 from .rsvd import randomized_svd, rank_cap, sketch  # noqa: F401
 from .salaad import Salaad  # noqa: F401
 from .scaling import PAPER_RHO_CONSTANT, rho_for_block  # noqa: F401

@@ -5,7 +5,8 @@
       --update-every 5 --seq-len 256 --batch 8
 
 K Adam steps on the coupled loss, then one ADMM prox sweep (randomized SVD,
-I-controller), repeated for ``--steps``; ``--ckpt-dir`` writes checkpoints in
+I-controller), repeated for ``--steps``, for any ``--arch`` of
+``configs.ARCH_IDS``; ``--ckpt-dir`` writes checkpoints in
 the JAX package's format every ``--ckpt-every`` steps and resumes from the
 latest one there. Prints ``{"metrics": [...], "events": [...]}`` as the JAX
 launcher does. Runs on the card unless ``--device cpu`` is given (with

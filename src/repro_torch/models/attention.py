@@ -171,6 +171,7 @@ def attention_block(
     kernel_impl: str = "blockwise",
     q_block: int = 512,
     kv_block: int = 1024,
+    causal_scheme: str = "full",
 ):
     """Projections (with the q/k/v biases where the tree has them) + RoPE
     (none for ``rope_theta=None``) + attention + output projection. The
@@ -185,6 +186,8 @@ def attention_block(
     ``kv_override`` (cross-attention) supplies the (B, Hkv, S, D) heads: no
     key or value projection, no cache insert (the cache passes through), and
     the no-cache paths attend them (non-causal for the encoder-decoder).
+    ``causal_scheme`` picks the flash forward of the no-cache blockwise path
+    (``models/flash_vjp.py``), as in the JAX package.
     """
     b, t, _ = x.shape
     q = _proj(x, params["q"], params.get("q_bias")).reshape(b, t, n_heads, head_dim)
@@ -214,7 +217,8 @@ def attention_block(
         elif kernel_impl == "dense":
             out = attention_ref(qh, kh, vh, causal=causal)
         else:
-            out = flash_attention_vjp(qh, kh, vh, causal, q_block, kv_block)
+            out = flash_attention_vjp(qh, kh, vh, causal, q_block, kv_block,
+                                      scheme=causal_scheme)
         new_cache = cache if kv_override is not None else (kh, vh)
     elif isinstance(cache, KVCache) and isinstance(cache.length, torch.Tensor):
         new_cache = contiguous_insert(cache, kh, vh)

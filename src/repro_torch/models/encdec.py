@@ -167,8 +167,14 @@ def decode_stack(params: dict, tokens: torch.Tensor, enc_out, cfg,
 def forward(params: dict, tokens: torch.Tensor, cfg, *, frames=None,
             cache: EncDecCache | None = None, position_offset=0):
     """(logits, cache or encoder output, aux 0): without a cache the frames
-    are encoded first; with one the cross heads are the cache's."""
+    (zeros of ``encoder_seq`` frames when None) are encoded first; with one
+    the cross heads are the cache's."""
     if cache is None:
+        if frames is None:
+            # a tokens-only batch (the trainer's SyntheticC4): zero frames
+            # through the stub frontend (the JAX package's encode raises here)
+            frames = torch.zeros((tokens.shape[0], cfg.encoder_seq, cfg.d_model),
+                                 dtype=cfg.param_dtype, device=tokens.device)
         enc_out = encode(params, frames, cfg)
         logits, _ = decode_stack(params, tokens, enc_out, cfg, position_offset=position_offset)
         return logits, enc_out, torch.zeros((), device=logits.device)

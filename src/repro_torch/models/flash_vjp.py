@@ -21,6 +21,11 @@ underflow to 0 once the first block, which holds key 0, has set the row max).
 offset. A chunk prefilled into a contiguous cache of S positions, whose
 first query sits at the cache's length, attends with offset = that length
 (``models/attention.py``), as the JAX package's does.
+
+``scheme='balanced'`` runs the forward of ``models/flash_balanced.py`` when
+it applies (causal, T == S, T a multiple of the q block), as JAX
+``flash_vjp.py`` dispatches; the backward is the full scheme's either way,
+since the saved ``(q, k, v, out, lse)`` do not depend on the scheme.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .flash_balanced import balanced_causal_fwd
 
 __all__ = ["flash_attention_vjp"]
 
@@ -129,10 +136,19 @@ def _backward(q, k, v, out, lse, dout, causal, q_block, kv_block, offset):
             dv[:, :, :blk.s].to(v.dtype))
 
 
+def _takes_balanced(q, k, causal, q_block, scheme) -> bool:
+    t = q.shape[2]
+    return scheme == "balanced" and causal and t == k.shape[2] and t % min(q_block, t) == 0
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_block, kv_block, offset):
-        out, lse = _forward(q, k, v, causal, q_block, kv_block, offset)
+    def forward(ctx, q, k, v, causal, q_block, kv_block, offset, scheme):
+        if _takes_balanced(q, k, causal, q_block, scheme):
+            out, lse = balanced_causal_fwd(q, k, v, q_block, offset)
+            lse = lse.permute(1, 2, 3, 0, 4)          # (nq, b, ...) -> the full scheme's
+        else:
+            out, lse = _forward(q, k, v, causal, q_block, kv_block, offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, q_block, kv_block, offset)
         return out
@@ -141,15 +157,16 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, out, lse, dout, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, q_block: int = 512,
-                        kv_block: int = 1024, causal_offset: int = 0) -> torch.Tensor:
+                        kv_block: int = 1024, causal_offset: int = 0,
+                        scheme: str = "full") -> torch.Tensor:
     """q (B, Hq, T, D) over k, v (B, Hkv, S, D), GQA by head groups; query
     row i sees keys j <= i + ``causal_offset`` under ``causal``.
     Differentiable in q, k and v with O(T) saved state; the output is
-    q.dtype."""
+    q.dtype. ``scheme`` is ``'full'`` or ``'balanced'``."""
     return _FlashAttention.apply(q, k, v, bool(causal), int(q_block), int(kv_block),
-                                 int(causal_offset))
+                                 int(causal_offset), scheme)

@@ -12,6 +12,13 @@ loops (JAX's outer and inner scans), then applies the shared block.
 The shared block's linear sites are 2-D leaves, so the ``fused`` deployment
 serves them as per-matrix fused weights (``kernels/ops.slr_matmul``); the SSM
 projections are read as plain tensors (deployment materializes them).
+
+Under ``cfg.remat``, with gradients on and no cache, each SSM layer and each
+whole group (its SSM layers, then the shared attention and MLP block) run
+inside ``torch.utils.checkpoint``, as the JAX package checkpoints them: the
+group alone would recompute all of its layers' SSD internals at once in the
+backward, and an unchecked shared block would keep its residuals alive
+across every application.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import KVCache, attention_block
 from .layers import apply_mlp, apply_norm, apply_weight, embed, rmsnorm, seeded_normal
@@ -72,6 +80,36 @@ def init_hybrid(cfg, seed: int, device) -> dict:
     }
 
 
+def _ssm_layer(lp: dict, x: torch.Tensor, cfg, layer_cache: SSMCache | None = None):
+    out, nc = ssm_block(lp, rmsnorm(x, None), expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                        d_state=cfg.ssm_state, chunk=cfg.ssm_chunk, cache=layer_cache)
+    return x + out, nc
+
+
+def _shared_block(shared: dict, x: torch.Tensor, cfg, positions, att_cache=None):
+    h = apply_norm(x, shared.get("pre_attn"), cfg.norm_type)
+    attn_out, _ = attention_block(
+        shared, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        positions=positions, rope_theta=cfg.rope_theta, cache=att_cache,
+        kernel_impl=cfg.kernel_impl, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
+        causal_scheme=cfg.causal_scheme)
+    x = x + attn_out
+    h = apply_norm(x, shared.get("pre_mlp"), cfg.norm_type)
+    return x + apply_mlp(shared, h, cfg.mlp_type)
+
+
+def _group(glp: dict, shared: dict, x: torch.Tensor, cfg, positions, remat: bool):
+    """One group without a cache: its SSM layers, then the shared block;
+    under ``remat`` each SSM layer is checkpointed."""
+    for ei in range(cfg.attn_every):
+        lp = {k: v[ei] for k, v in glp.items()}
+        if remat:
+            x, _ = checkpoint(_ssm_layer, lp, x, cfg, use_reentrant=False)
+        else:
+            x, _ = _ssm_layer(lp, x, cfg)
+    return _shared_block(shared, x, cfg, positions)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg, *, cache: HybridCache | None = None,
             position_offset=0) -> tuple[torch.Tensor, HybridCache | None]:
     """(logits (B, T, vocab), new cache or None).
@@ -87,31 +125,27 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *, cache: HybridCache | Non
     positions = position_offset + torch.arange(t, device=x.device)[None, :]
     shared = params["shared_attn"]
     ssm = params["ssm_layers"]
-    states, convs = [], []
-    for gi in range(g):
-        for ei in range(e_per):
-            lp = {k: v[gi, ei] for k, v in ssm.items()}
-            layer_cache = None
-            if cache is not None:
+    if cache is None:
+        remat = cfg.remat and torch.is_grad_enabled()
+        for gi in range(g):
+            glp = {k: v[gi] for k, v in ssm.items()}
+            if remat:
+                x = checkpoint(_group, glp, shared, x, cfg, positions, True,
+                               use_reentrant=False)
+            else:
+                x = _group(glp, shared, x, cfg, positions, False)
+    else:
+        states, convs = [], []
+        for gi in range(g):
+            for ei in range(e_per):
                 l_idx = gi * e_per + ei
-                layer_cache = SSMCache(cache.ssm_state[l_idx], cache.conv[l_idx], cache.length)
-            out, nc = ssm_block(lp, rmsnorm(x, None), expand=cfg.ssm_expand,
-                                head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
-                                chunk=cfg.ssm_chunk, cache=layer_cache)
-            x = x + out
-            if cache is not None:
+                lp = {k: v[gi, ei] for k, v in ssm.items()}
+                x, nc = _ssm_layer(lp, x, cfg, SSMCache(cache.ssm_state[l_idx],
+                                                        cache.conv[l_idx], cache.length))
                 states.append(nc.state)
                 convs.append(nc.conv)
-        # the shared attention + MLP block
-        att_cache = None if cache is None else KVCache(cache.k[gi], cache.v[gi], cache.length)
-        h = apply_norm(x, shared.get("pre_attn"), cfg.norm_type)
-        attn_out, _ = attention_block(
-            shared, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
-            positions=positions, rope_theta=cfg.rope_theta, cache=att_cache,
-            kernel_impl=cfg.kernel_impl, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
-        x = x + attn_out
-        h = apply_norm(x, shared.get("pre_mlp"), cfg.norm_type)
-        x = x + apply_mlp(shared, h, cfg.mlp_type)
+            att_cache = KVCache(cache.k[gi], cache.v[gi], cache.length)
+            x = _shared_block(shared, x, cfg, positions, att_cache)
 
     x = apply_norm(x, params.get("final_norm"), cfg.norm_type)
     logits = apply_weight(x, params["lm_head"]["w"])

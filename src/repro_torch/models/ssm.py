@@ -9,7 +9,10 @@ Decode is the recurrent form: a (B, H, P, N) state updated per token.
 Plain PyTorch: the JAX package has no kernel for these blocks. The numerics
 follow it op for op, mixed precision included (``ssd_chunked``: the decay
 and cumsum math in f32, the large intra-chunk tensors in the activation
-dtype).
+dtype). Training differentiates ``ssd_chunked`` with autograd, as the JAX
+package has no custom backward either; the (Q, Q) blocks and per-chunk
+states it saves live only inside a layer's checkpoint when the model remats
+(``ssm_lm.py``, ``hybrid.py``).
 """
 from __future__ import annotations
 

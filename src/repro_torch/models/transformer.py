@@ -139,6 +139,7 @@ def _layer_apply(lp: dict, x, cfg, positions, cache, drops=None):
         lp, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
         positions=positions, rope_theta=cfg.rope_theta, causal=True, cache=cache,
         kernel_impl=cfg.kernel_impl, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
+        causal_scheme=cfg.causal_scheme,
     )
     x = x + attn_out
     h = apply_norm(x, lp.get("pre_mlp"), cfg.norm_type)

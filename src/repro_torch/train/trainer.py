@@ -10,7 +10,11 @@ Deterministic restart: the data batches and the rSVD sketches are pure
 functions of the step counter, so a run restored at step s replays the steps
 after s exactly.
 
-Everything runs on the card unless the trainer is given ``device='cpu'``.
+Every family of ``configs.ARCH_IDS`` trains: the MoE's load-balance loss
+enters the coupled loss with weight 0.01, and the VLM and the
+encoder-decoder train on tokens-only batches (``SyntheticC4``; the encoder
+then reads zero frames). Everything runs on the card unless the trainer is
+given ``device='cpu'``.
 """
 from __future__ import annotations
 
@@ -48,9 +52,6 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, arch_cfg, tcfg: TrainerConfig, device=None):
-        if arch_cfg.family != "dense":
-            raise ValueError(f"training the {arch_cfg.family!r} family is not ported yet "
-                             "(the port trains the dense family)")
         self.arch_cfg = arch_cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)

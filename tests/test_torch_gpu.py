@@ -1243,3 +1243,76 @@ def test_serve_launcher_on_card_serves_checkpoint(cuda, kv_dtype, tmp_path, caps
     assert counts["slr_matmul_stacked"] >= 1
     paged = counts["paged_attention"] + counts["paged_attention_kquery"]
     assert (paged >= 1) if kv_dtype != "int8" else (paged == 0)
+
+
+def test_device_prefetcher_on_card(cuda):
+    """DevicePrefetcher on the card: each batch is copied from pinned host
+    tensors on a side stream (not the consumer's), the consumer's stream
+    waits on the copy's event, and the batches equal the host's, in order
+    and after a restore to an earlier step."""
+    from repro_torch.data.pipeline import DevicePrefetcher
+    from repro_torch.data.synthetic import DataConfig, SyntheticC4
+
+    src = SyntheticC4(DataConfig(1000, 64, 4, seed=1))
+    pf = DevicePrefetcher(src, device=cuda, depth=2)
+    try:
+        assert pf._side is not None and pf._side != torch.cuda.current_stream()
+        placed, (done, pinned) = pf._place(src.batch(7))
+        assert isinstance(done, torch.cuda.Event)
+        assert all(v.is_pinned() for v in pinned.values())
+        for step in (0, 1, 2, 1):
+            b = pf.batch(step)
+            host = src.batch(step)
+            for k, v in b.items():
+                assert v.device.type == "cuda"
+                assert torch.equal(v.cpu(), torch.from_numpy(host[k]))
+        pf._ready(placed, (done, pinned))
+        assert torch.equal(placed["tokens"].cpu(), torch.from_numpy(src.batch(7)["tokens"]))
+    finally:
+        pf.close()
+    assert not pf._thread.is_alive()
+
+
+def test_hybrid_train_and_admm_step_on_card_match_cpu(cuda):
+    """Two train steps and one ADMM step (rSVD, sketches drawn on the CPU) of
+    the reduced hybrid, remat on, on the card against the same on the CPU,
+    from one state on the same batches: losses at 1e-4 relative; parameters
+    and L = p @ vt within 1e-3 of each leaf's scale; soft_threshold launched
+    once per selected leaf. Adam's eps is 1e-3, as in
+    ``tests/test_torch_train_families.py``: the update is then continuous in
+    the gradient, so rounding-level gradients cannot flip a step's sign."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticC4
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.steps import make_admm_step, make_train_step
+    from repro_torch.tree import tree_leaves_with_path
+
+    cfg = dataclasses.replace(get_arch("zamba2_2p7b").reduced(), kernel_impl="blockwise",
+                              remat=True)
+    scfg = SalaadConfig(update_every=2, selection=SelectionConfig(min_dim=16))
+    data = SyntheticC4(DataConfig(cfg.vocab_size, 32, 2, seed=0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        state, blocks = init_train_state(model_lib.init_params(cfg, seed=0, device=dev), scfg)
+        step = make_train_step(cfg, blocks, AdamConfig(lr=1e-3, eps=1e-3))
+        losses = []
+        for s in range(2):
+            state, m = step(state, data.batch(s))
+            losses.append(float(m["loss"]))
+        ops.reset_launch_counts()
+        state, _ = make_admm_step(scfg, blocks)(state)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["soft_threshold"] == len(blocks)
+        runs[dev] = (state, losses)
+    (cs, cl), (gs, gl) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    for path, leaf in tree_leaves_with_path(gs.params):
+        want = cs.params
+        for k in path:
+            want = want[k]
+        assert float((leaf.cpu() - want).abs().max()) <= 1e-3 * max(float(want.abs().max()),
+                                                                     1e-30), path
+    for name, blk in gs.slr.items():
+        lw = cs.slr[name].p @ cs.slr[name].vt
+        assert float(((blk.p @ blk.vt).cpu() - lw).abs().max()) <= 1e-3 * float(lw.abs().max())

@@ -33,7 +33,9 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.train.trainer", "repro_torch.launch.train",
             "repro_torch.models.ssm", "repro_torch.models.hybrid",
             "repro_torch.configs.zamba2_2p7b", "repro_torch.serving.telemetry",
-            "repro_torch.serving.trace"} <= set(mods)
+            "repro_torch.serving.trace", "repro_torch.models.flash_balanced",
+            "repro_torch.data.pipeline", "repro_torch.core.rpca",
+            "repro_torch.baselines", "repro_torch.baselines.reparam"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"
