@@ -179,6 +179,26 @@ error:
       tokens on ``ReferenceEngine``, the unstacked SLR kernel launching for
       both tiers; then ``repro_torch.launch.train.main`` runs the MoE at
       ``--reduced`` for 4 steps with K = 2 in this process on the card;
+   r. (run last, after 5f) tensor- and data-parallel serving: phase 2's SLR
+      state as a three-tier ``factored`` bank (keeps 1.0 / 0.6 / 0.3,
+      ``kernel_impl='pallas'``), the first 12 of (a)'s 24 prompts (the
+      shared system prompt, two exact repeats), 32 new tokens, 8 slots,
+      chunked prefill of 64 and the prefix cache, served unsharded in this
+      process, then at ``model=2``, ``model=4`` and ``model=2,data=2`` on 4
+      rank processes started once (``launch/mesh.py::RankPool``, before
+      phase 5) that share the card over gloo (CUDA tensors staged through
+      host memory: NCCL needs a card a rank): every rank's streams must equal
+      the unsharded run's, its KV pools must be 1/model of the unsharded
+      pools' bytes, and its paged decode, k-query and page-copy launches must
+      equal the unsharded run's (decode and k-query at least 1); tok/s per
+      rank printed beside the card (ranks sharing one card: a correctness
+      run, not a scaling one);
+   s. (run last) the five examples of ``repro_torch.examples`` on the card at
+      their JAX counterparts' configs (four at ``.reduced()`` with their
+      default steps; ``train_100m_e2e`` at the full ``salaad_llama_130m``
+      for 3 steps with a checkpoint at step 2, whose restart carried on to
+      step 3 must equal the uninterrupted run within 1e-4 of the largest
+      weight);
 5. parity: the first one-shot prefill's, the first chunk's and the first
    decode tick's logits on the card against the same model on the CPU, and
    one prefill and two decode steps over the per-slot contiguous cache (a
@@ -217,6 +237,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
@@ -339,6 +360,67 @@ def bank_prompts(rng, vocab: int, block: int) -> list[list[int]]:
     return out
 
 
+MESH_SPECS = ("model=2", "model=4", "model=2,data=2")   # 4r, on 4 ranks started once
+MESH_RANKS = 4
+# 4r serves the first 12 of 4a's 24 prompts: ranks sharing the card pay gloo's
+# loopback latency at each of 18-26 collectives a forward (about 6 ms at 4
+# ranks, tools/collective_times.py), and all 24 took 224-242 s of the run
+MESH_PROMPTS = 12
+
+
+def drive_bank(engine, prompts, max_new: int) -> tuple[dict, float]:
+    """4r's traffic on one engine: the prompts round-robin over the bank's
+    tiers, greedy; (uid -> tokens, seconds of ``run``)."""
+    import torch
+
+    n_tiers = len(engine.bank)
+    for i, p in enumerate(prompts):
+        engine.submit(p, max_new_tokens=max_new, tier=i % n_tiers)
+    sync = torch.cuda.synchronize if engine.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    done = engine.run()
+    sync()
+    return {r.uid: r.out_tokens for r in done}, time.perf_counter() - t0
+
+
+def mesh_rank(rank: int, path: str, device: str, specs, prompts, ecfg_kw: dict,
+              max_new: int) -> list:
+    """4r on one rank of the pool: the factored bank saved at ``path``
+    served at each mesh of ``specs`` (None where this rank lies outside the
+    grid): streams, tok/s, the rank's KV pool bytes and launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.sharding import ServingMesh
+    from repro_torch.serving.deployed import DeployedModel
+    from repro_torch.serving.elastic import ModelBank
+    from repro_torch.serving.engine import EngineConfig, PagedServingEngine
+
+    saved = torch.load(path, map_location=device, weights_only=False)
+    cfg = saved["cfg"]
+    bank = ModelBank(cfg, [DeployedModel(cfg, t, fmt="factored") for t in saved["trees"]],
+                     keeps=saved["keeps"])
+    out = []
+    for spec in specs:
+        mesh = ServingMesh.from_spec(spec)
+        if not mesh.member:
+            out.append(None)
+            continue
+        engine = PagedServingEngine(bank, EngineConfig(mesh=spec, **ecfg_kw))
+        ops.reset_launch_counts()
+        streams, secs = drive_bank(engine, prompts, max_new)
+        out.append({"streams": streams, "tok_s": sum(map(len, streams.values())) / secs,
+                    "pool_bytes": sum(t.numel() * t.element_size() for t in engine.cache
+                                      if isinstance(t, torch.Tensor) and t.dim() == 5),
+                    "counts": ops.launch_counts(), "collectives": mesh.collectives,
+                    "retraces": engine.stats_snapshot()["jit_retraces"]})
+        del engine
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         fail("src/repro_torch is missing: run chip_smoke.py from a checkout of the repo")
@@ -386,6 +468,10 @@ def main() -> None:
     from repro_torch.data.pipeline import DevicePrefetcher
     from repro_torch.launch.train import main as train_main
     from repro_torch.models.flash_vjp import flash_attention_vjp
+    from repro_torch.launch.mesh import RankPool
+    from repro_torch.serving.engine import _kv_pool_device_bytes
+    from repro_torch.examples import (elastic_deploy, multi_tenant_adapters, quickstart,
+                                      serve_slr, train_100m_e2e)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -2482,6 +2568,13 @@ def main() -> None:
         del sbank, sparams
         torch.cuda.empty_cache()
 
+    # 4r's ranks start now and come up while phase 5 runs on the CPU and the
+    # card; they touch the card only in 4r, after every other phase
+    rank_pool = RankPool(MESH_RANKS, dev)
+    print(f"4r rank pool: {MESH_RANKS} ranks on one card over {rank_pool.backend} (the "
+          "rule: NCCL only where each rank has a card of its own; under gloo the "
+          "collectives stage CUDA tensors through host memory)")
+
     phase("5")
     # ---- 5. first one-shot prefill, chunk and decode tick: card vs CPU -----------
     cpu_params, cpu_state = tree_map(lambda t: t.cpu(), (params, state))
@@ -2918,6 +3011,117 @@ def main() -> None:
     del bal, q5, k5, v5, out5
     torch.cuda.empty_cache()
 
+    phase("4r")
+    gc.collect()                 # the earlier phases' cycles, before the ranks take memory
+    torch.cuda.empty_cache()
+    # 4r. tensor- and data-parallel serving: phase 2's SLR state as a
+    # three-tier factored bank (pallas attention), the first MESH_PROMPTS of
+    # 4a's prompts on the paged engine with chunks of 64 and the prefix
+    # cache, unsharded here, then on
+    # the 4 ranks of the pool at each mesh of MESH_SPECS (ranks that share
+    # one card: the streams and the per-rank pools are the check, not speed)
+    r_ecfg = dict(max_slots=8, max_len=512, block_size=16, prefill_chunk=64,
+                  prefix_cache=True)
+    r_bank = ModelBank.build(cfg, params, state, blocks, BUDGETS, kappa=0.7, fmt="factored")
+    r_prompts = prompts[:MESH_PROMPTS]
+    r_engine = PagedServingEngine(r_bank, EngineConfig(**r_ecfg))
+    ops.reset_launch_counts()
+    r_streams, r_secs = drive_bank(r_engine, r_prompts, MAX_NEW)
+    r_counts = ops.launch_counts()
+    r_pool = sum(_kv_pool_device_bytes(r_engine.cache).values())
+    r_tok = sum(map(len, r_streams.values()))
+    print(f"  4r unsharded: {r_tok} tokens at {r_tok / r_secs:.2f} tok/s ({card}); KV pools "
+          f"{r_pool} B; launches {json.dumps(r_counts)}")
+    if r_tok != MESH_PROMPTS * MAX_NEW or min(r_counts["paged_attention"],
+                                        r_counts["paged_attention_kquery"]) < 1:
+        fail(f"4r: the unsharded run is off: {r_tok} tokens, launches {r_counts}")
+    del r_engine
+    r_dir = tempfile.mkdtemp(prefix="mesh_bank_")
+    r_path = os.path.join(r_dir, "bank.pt")
+    torch.save({"cfg": cfg, "keeps": list(BUDGETS), "trees": [t.params for t in r_bank]},
+               r_path)
+    t0 = time.perf_counter()
+    r_ranks = rank_pool.run(mesh_rank, r_path, str(dev), MESH_SPECS, r_prompts, r_ecfg,
+                            MAX_NEW, timeout=600)
+    rank_pool.close()
+    shutil.rmtree(r_dir, ignore_errors=True)
+    print(f"  4r ranks: {len(MESH_SPECS)} meshes in {time.perf_counter() - t0:.1f} s")
+    for i, spec in enumerate(MESH_SPECS):
+        m_ = int(re.search(r"model=(\d+)", spec).group(1))
+        recs = [(rank, r_[i]) for rank, r_ in enumerate(r_ranks) if r_[i] is not None]
+        for rank, rec in recs:
+            if rec["streams"] != r_streams:
+                differ = [u for u in r_streams if rec["streams"].get(u) != r_streams[u]]
+                fail(f"4r {spec} rank {rank}: streams differ from the unsharded run's for "
+                     f"requests {differ}")
+            if rec["pool_bytes"] * m_ != r_pool:
+                fail(f"4r {spec} rank {rank}: KV pools of {rec['pool_bytes']} B, not 1/{m_} "
+                     f"of the unsharded {r_pool} B")
+            for name in ("paged_attention", "paged_attention_kquery", "page_copy"):
+                if rec["counts"][name] != r_counts[name] or (
+                        name != "page_copy" and rec["counts"][name] < 1):
+                    fail(f"4r {spec} rank {rank}: {rec['counts'][name]} {name} launches, "
+                         f"the unsharded run {r_counts[name]}")
+            if rec["retraces"]:
+                fail(f"4r {spec} rank {rank}: {rec['retraces']} launch-plan rebuilds")
+        print(f"  4r {spec}: {len(recs)} ranks, streams equal to the unsharded run's on "
+              f"every rank; KV pools {recs[0][1]['pool_bytes']} B a rank (1/{m_}); tok/s by "
+              f"rank {[round(rec['tok_s'], 2) for _, rec in recs]} ({card}; ranks share one "
+              f"card over {recs[0][1]['collectives']}: correctness, not scaling); paged "
+              f"launches a rank {recs[0][1]['counts']['paged_attention']} decode, "
+              f"{recs[0][1]['counts']['paged_attention_kquery']} k-query, "
+              f"{recs[0][1]['counts']['page_copy']} page copy")
+    r_launches = {name: n + sum(r_[i]["counts"][name] for r_ in r_ranks
+                                for i in range(len(MESH_SPECS)) if r_[i] is not None)
+                  for name, n in r_counts.items()}
+    del r_bank
+
+    phase("4s")
+    # 4s. the five examples on the card at their JAX counterparts' configs;
+    # train_100m_e2e at the full salaad_llama_130m, three steps, a checkpoint
+    # at step 2, the restart carried on to step 3 against the uninterrupted run
+    ops.reset_launch_counts()
+    s_out = {}
+    for name, fn in (("quickstart", quickstart.main), ("elastic_deploy", elastic_deploy.main),
+                     ("multi_tenant_adapters", multi_tenant_adapters.main),
+                     ("serve_slr", serve_slr.main)):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            s_out[name] = fn([])
+        print(f"  4s {name} ({time.perf_counter() - t0:.1f} s): "
+              f"{buf.getvalue().strip().splitlines()[-1]}")
+    if not all(math.isfinite(v) for v in s_out["quickstart"].losses.values()):
+        fail(f"4s quickstart: losses {s_out['quickstart'].losses}")
+    if sorted(r.tier for r in s_out["elastic_deploy"].done) != [0, 1, 2]:
+        fail("4s elastic_deploy: the three tiers did not all decode")
+    if s_out["multi_tenant_adapters"].report["swaps"] < 3:
+        fail(f"4s multi_tenant_adapters: {s_out['multi_tenant_adapters'].report}")
+    if s_out["serve_slr"].kernel_err > 1e-3 or len(s_out["serve_slr"].spec_done) != 4:
+        fail(f"4s serve_slr: kernel path off by {s_out['serve_slr'].kernel_err}")
+    t0 = time.perf_counter()
+    e2e_dir = tempfile.mkdtemp(prefix="e2e_ckpt_")
+    with contextlib.redirect_stdout(io.StringIO()):
+        e2e = train_100m_e2e.main(["--ckpt-dir", e2e_dir], steps=3, ckpt_every=2)
+        resumed = e2e.trainer2.fit(e2e.state2, e2e.data)
+    shutil.rmtree(e2e_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    e2e_err = max(float((a - resumed.params["layers"][k]).abs().max())
+                  / max(float(a.abs().max()), 1e-30)
+                  for k, a in e2e.state.params["layers"].items() if isinstance(a, torch.Tensor))
+    losses = [m["loss"] for m in e2e.trainer.metrics_log if "loss" in m]
+    print(f"  4s train_100m_e2e ({time.perf_counter() - t0:.1f} s): "
+          f"{e2e.trainer.arch_cfg.name} d_model {e2e.trainer.arch_cfg.d_model}, losses "
+          f"{[round(x, 4) for x in losses]}, restart at step {int(e2e.state2.step)} carried on "
+          f"to {int(resumed.step)}: layer weights off the uninterrupted run's by {e2e_err:.3e} "
+          "of their largest value")
+    if int(e2e.state2.step) != 2 or int(resumed.step) != 3 or e2e_err > 1e-4 \
+            or not all(math.isfinite(x) for x in losses):
+        fail(f"4s train_100m_e2e: restart at {int(e2e.state2.step)}, error {e2e_err}")
+    s_counts = ops.launch_counts()
+    print(f"  4s launches: {json.dumps(s_counts)}")
+    del s_out, e2e, resumed
+    torch.cuda.empty_cache()
+
     phase("end")
     # ---- result lines -------------------------------------------------------------
     meta = {
@@ -2953,7 +3157,7 @@ def main() -> None:
                          + hybrid_counts[name] + moe_counts[name] + gemma_counts[name]
                          + sum(c_[name] for c_ in seq_counts.values())
                          + h_train_counts[name] + h_serve_counts[name]
-                         + h_launcher_counts[name]
+                         + h_launcher_counts[name] + r_launches[name] + s_counts[name]
                          + (moe_soft + gemma_soft if name == "soft_threshold" else 0)),
             "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
             "plain_ms": r_["plain_ms"], "bound_ms": r_["bound"][0],

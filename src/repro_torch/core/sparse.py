@@ -43,11 +43,23 @@ def from_dense(s: torch.Tensor, cap: int) -> CooMatrix:
     )
 
 
-def to_dense(coo: CooMatrix) -> torch.Tensor:
-    """Scatter back to a dense ``(..., n, m)`` matrix."""
+def to_dense(coo: CooMatrix, block: tuple[int, int, int, int] | None = None) -> torch.Tensor:
+    """Scatter back to a dense ``(..., n, m)`` matrix, or with ``block =
+    (row0, row1, col0, col1)`` only that block of it (the entries outside
+    are skipped)."""
     n, m = coo.shape
     live = coo.idx >= 0
     safe = torch.where(live, coo.idx, torch.zeros_like(coo.idx)).long()
+    if block is not None:
+        r0, r1, c0, c1 = block
+        if (c0, c1) == (0, m):      # whole rows: one contiguous range of flat indices
+            live = live & (safe >= r0 * m) & (safe < r1 * m)
+            safe = torch.where(live, safe - r0 * m, torch.zeros_like(safe))
+        else:
+            row, col = safe // m, safe % m
+            live = live & (row >= r0) & (row < r1) & (col >= c0) & (col < c1)
+            safe = torch.where(live, (row - r0) * (c1 - c0) + col - c0, torch.zeros_like(safe))
+        n, m = r1 - r0, c1 - c0
     vals = torch.where(live, coo.values, torch.zeros_like(coo.values))
     batch = coo.values.shape[:-1]
     out = torch.zeros((*batch, n * m), dtype=coo.values.dtype,

@@ -56,6 +56,19 @@ registry's Prometheus text on 127.0.0.1 during the run, and
       --fmt fused --prefill-chunk 128 --prefix-cache
   python -m repro_torch.launch.serve --arch whisper_small --keep-ratios 1.0,0.5 --fmt bsr
 
+``--mesh model=N[,data=M]`` serves tensor- and data-parallel
+(``parallel/sharding.py``): the launcher checks the spec against the
+architecture, then starts N x M rank processes (``launch/mesh.py::run_ranks``:
+NCCL when each rank gets a card of its own, gloo when they share one card or
+run on the CPU) that each build the same bank and serve the same requests;
+rank 0 prints a note line naming the backend and the collectives' path, then
+the usual line. Started inside an initialised group (``torchrun`` sets
+``WORLD_SIZE``), it joins that group instead. Every rank holds ``1/N`` of the
+heads, so the streams are the unsharded ones.
+
+  python -m repro_torch.launch.serve --arch salaad_llama_60m --reduced --device cpu \
+      --keep-ratios 1.0,0.6,0.3 --mesh model=2,data=2
+
 Tensors live on the card unless ``--device cpu`` is given (with
 ``--reduced``, for a run of the plain versions on the CPU). On the card the
 paged engines run the CUDA attention kernels (``kernel_impl='pallas'``:
@@ -70,11 +83,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import sys
 import time
 import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_arch
 from ..core.admm import SalaadConfig, init_slr_state
@@ -92,8 +108,11 @@ from ..serving.engine import (
     PagedServingEngine,
     ReferenceEngine,
     ServingEngine,
+    check_mesh,
     decode_emitted_tokens,
 )
+from ..parallel.sharding import ServingMesh, pick_backend
+from .mesh import run_ranks
 from ..serving.slr_params import deployment_report
 from ..serving.speculative import SpeculativeEngine
 from ..serving.telemetry import start_metrics_server
@@ -101,11 +120,6 @@ from ..train import checkpoint
 
 ENGINES = {"paged": PagedServingEngine, "batched": ServingEngine,
            "reference": ReferenceEngine, "speculative": SpeculativeEngine}
-
-# switches whose code paths come with later slices of the port
-_LATER = {
-    "mesh": "--mesh (tensor-parallel serving is a later slice)",
-}
 
 
 def serve_batch(engine, vocab: int, requests: int, max_new: int, seed: int,
@@ -293,7 +307,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", default=None,
                     help="write one Prometheus scrape to this file after the run (over "
                          "HTTP when --metrics-port is set)")
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="tensor/data-parallel serving mesh, e.g. model=2 or "
+                         "model=2,data=2: starts that many rank processes")
     ap.add_argument("--adapters", type=int, default=0,
                     help="multi-tenant mode: register N SLR adapters (HPA views at spread "
                          "budgets) over ONE shared base and serve them through one "
@@ -305,10 +321,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _reject_later_slices(ap: argparse.ArgumentParser, args):
-    asked = [msg for name, msg in _LATER.items() if getattr(args, name) != ap.get_default(name)]
-    if asked:
-        raise ValueError(f"not ported yet: {'; '.join(asked)}")
+def _serve_rank(rank: int, argv: list[str]):
+    """One rank of a ``--mesh`` run (``run_ranks``)."""
+    main(argv)
+
+
+def _join_mesh(args, argv, cfg, device) -> ServingMesh | None:
+    """The ``--mesh`` run's grid on this rank: checks the spec, then starts
+    the rank processes (returning None here: they serve) unless a group is
+    initialised already or ``torchrun`` set one up."""
+    sizes = check_mesh(args.mesh, cfg, [args.fmt])
+    need = sizes["data"] * sizes["model"]
+    if need > 1 and not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            run_ranks(_serve_rank, need, device, sys.argv[1:] if argv is None else argv)
+            return None
+        backend = pick_backend(int(os.environ["WORLD_SIZE"]), device)
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend)
+    return ServingMesh.from_spec(args.mesh)
 
 
 def attention_impl(cfg, device, kv_dtype: str, engine=PagedServingEngine) -> str:
@@ -330,11 +362,22 @@ def attention_impl(cfg, device, kv_dtype: str, engine=PagedServingEngine) -> str
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    _reject_later_slices(ap, args)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     device = resolve_device(args.device)
+    emit = print
+    if args.mesh is not None:
+        smesh = _join_mesh(args, argv, cfg, device)
+        if smesh is None or not smesh.member:
+            return
+        if smesh.rank != 0:
+            # rank 0 reports; the others serve the same requests silently
+            emit = _silent
+            args.trace_out = args.trace_events = args.metrics_out = None
+            args.metrics_port = None
+        emit(json.dumps({"note": f"serving mesh {args.mesh}", "mesh": smesh.describe(),
+                         "collectives": smesh.collectives}))
     engine_cls = ENGINES[args.engine]
     spec_k = args.spec_k
     if engine_cls is SpeculativeEngine and spec_k == 0:
@@ -344,7 +387,7 @@ def main(argv=None):
     if engine_cls is not ReferenceEngine and cfg.family not in BATCHED_FAMILIES:
         # the capability line a constructor-time error would carry; features
         # the reference engine lacks then fail loudly in its constructor
-        print(json.dumps({
+        emit(json.dumps({
             "note": f"family {cfg.family!r} has no per-slot-length cache yet; falling "
                     "back to the reference engine",
             "capabilities": ReferenceEngine.capabilities(),
@@ -366,6 +409,7 @@ def main(argv=None):
         prefix_min_hit_pages=args.prefix_min_hit, tier_policy=args.tier_policy,
         spec_k=spec_k, spec_adaptive=args.spec_adaptive,
         adapters=args.adapters > 0, max_resident_adapters=args.max_resident_adapters,
+        mesh=args.mesh,
     )
 
     if args.adapters:
@@ -382,13 +426,13 @@ def main(argv=None):
         engine = engine_cls(bank, ecfg)
         stats = serve_with_observability(engine, args, cfg.vocab_size,
                                          adapters=tuple(range(args.adapters)))
-        print(json.dumps({"fmt": args.fmt, "adapters": bank.adapter_report(), **stats}))
+        emit(json.dumps({"fmt": args.fmt, "adapters": bank.adapter_report(), **stats}))
         return
 
     if args.keep_ratios is None:
         engine = engine_cls(ModelBank.single(cfg, params), ecfg)
         stats = serve_with_observability(engine, args, cfg.vocab_size)
-        print(json.dumps({"budget": None, "fmt": "dense-init", **stats}))
+        emit(json.dumps({"budget": None, "fmt": "dense-init", **stats}))
         return
 
     keeps = sorted({float(k) for k in args.keep_ratios.split(",")}, reverse=True)
@@ -398,7 +442,7 @@ def main(argv=None):
         draft_keep = min(args.spec_budget, target_keep)
         dropped = [k for k in keeps[1:] if k != draft_keep]
         if dropped:
-            print(json.dumps({
+            emit(json.dumps({
                 "note": "speculative mode serves ONE target tier: "
                         f"keep={target_keep} verifies, keep={draft_keep} (--spec-budget) "
                         f"drafts; --keep-ratios {dropped} not materialized",
@@ -428,13 +472,17 @@ def main(argv=None):
         # the speculative engine pins every slot to its target tier
         tiers = (None,) if engine_cls is SpeculativeEngine else tuple(range(len(bank)))
     stats = serve_with_observability(engine, args, cfg.vocab_size, tiers=tiers)
-    print(json.dumps({
+    emit(json.dumps({
         "fmt": args.fmt,
         "bank": bank.report(),
         "tier_policy": args.tier_policy,
         **stats,
         "tiers": tier_rows,
     }))
+
+
+def _silent(*_args, **_kw):
+    pass
 
 
 if __name__ == "__main__":

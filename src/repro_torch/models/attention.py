@@ -172,6 +172,7 @@ def attention_block(
     q_block: int = 512,
     kv_block: int = 1024,
     causal_scheme: str = "full",
+    rows=None,
 ):
     """Projections (with the q/k/v biases where the tree has them) + RoPE
     (none for ``rope_theta=None``) + attention + output projection. The
@@ -188,6 +189,11 @@ def attention_block(
     the no-cache paths attend them (non-causal for the encoder-decoder).
     ``causal_scheme`` picks the flash forward of the no-cache blockwise path
     (``models/flash_vjp.py``), as in the JAX package.
+
+    ``rows`` (a ``parallel.sharding.RowSplit``) says that x holds this rank's
+    share of the cache's rows: the new K/V rows are gathered from the data
+    column and inserted whole, and the queries attend through their own rows
+    of the cache's block table, lengths or buffers.
     """
     b, t, _ = x.shape
     q = _proj(x, params["q"], params.get("q_bias")).reshape(b, t, n_heads, head_dim)
@@ -204,6 +210,9 @@ def attention_block(
         kh = k.transpose(1, 2)            # (B, Hkv, T, D)
         vh = v.transpose(1, 2)
     qh = q.transpose(1, 2)                # (B, Hq, T, D)
+    own = (lambda t: t) if rows is None else rows.take
+    if rows is not None and cache is not None and kv_override is None:
+        kh, vh = rows.gather(torch.stack([kh, vh]), dim=1).unbind(0)   # one collective
 
     if cache is None or kv_override is not None:
         if kernel_impl == "pallas":
@@ -222,8 +231,8 @@ def attention_block(
         new_cache = cache if kv_override is not None else (kh, vh)
     elif isinstance(cache, KVCache) and isinstance(cache.length, torch.Tensor):
         new_cache = contiguous_insert(cache, kh, vh)
-        q_idx = cache.length.long()[:, None] + torch.arange(t, device=x.device)[None, :]
-        out = _masked_attention(qh, new_cache.k, new_cache.v, q_idx, n_heads, n_kv,
+        q_idx = own(cache.length).long()[:, None] + torch.arange(t, device=x.device)[None, :]
+        out = _masked_attention(qh, own(new_cache.k), own(new_cache.v), q_idx, n_heads, n_kv,
                                 head_dim).to(x.dtype)
     elif isinstance(cache, KVCache):
         n0 = int(cache.length)
@@ -231,28 +240,27 @@ def attention_block(
         cache.v[:, :, n0:n0 + t] = vh.to(cache.v.dtype)
         new_cache = KVCache(cache.k, cache.v, n0 + t)
         if t > 1:
-            out = flash_attention_vjp(qh, cache.k, cache.v, True, q_block, kv_block,
+            out = flash_attention_vjp(qh, own(cache.k), own(cache.v), True, q_block, kv_block,
                                       causal_offset=n0)
         else:
-            out = _masked_attention(qh, cache.k, cache.v,
+            out = _masked_attention(qh, own(cache.k), own(cache.v),
                                     torch.full((b, 1), n0, device=x.device), n_heads, n_kv,
                                     head_dim).to(x.dtype)
     else:
         new_cache = paged_insert(cache, kh, vh)
+        table, lengths = own(new_cache.block_table), own(cache.length)
         if kernel_impl == "pallas" and takes_pages(qh.dtype, cache.k.dtype):
             if t == 1:
                 out = ops.paged_attention(
-                    qh[:, :, 0].contiguous(), new_cache.k, new_cache.v,
-                    new_cache.block_table, cache.length,
+                    qh[:, :, 0].contiguous(), new_cache.k, new_cache.v, table, lengths,
                 )[:, :, None]
             else:
                 out = ops.paged_attention_kquery(
-                    qh.contiguous(), new_cache.k, new_cache.v,
-                    new_cache.block_table, cache.length,
+                    qh.contiguous(), new_cache.k, new_cache.v, table, lengths,
                 )
         else:
-            kg, vg = paged_gather(new_cache)
-            q_idx = cache.length.long()[:, None] + torch.arange(t, device=x.device)[None, :]
+            kg, vg = paged_gather(new_cache._replace(block_table=table))
+            q_idx = lengths.long()[:, None] + torch.arange(t, device=x.device)[None, :]
             out = _masked_attention(qh, kg, vg, q_idx, n_heads, n_kv, head_dim).to(x.dtype)
 
     out = out.transpose(1, 2).reshape(b, t, n_heads * head_dim)

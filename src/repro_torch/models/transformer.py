@@ -34,6 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..parallel.sharding import current_mesh
 from .attention import KVCache, PagedLayerCache, attention_block
 from .layers import apply_mlp, apply_norm, apply_weight, embed, init_mlp, init_norm, seeded_normal
 from .moe import DropCounter, init_moe, moe_ffn
@@ -132,14 +133,14 @@ def layer_view(layers: dict, l: int) -> dict:
     return out
 
 
-def _layer_apply(lp: dict, x, cfg, positions, cache, drops=None):
+def _layer_apply(lp: dict, x, cfg, positions, cache, drops=None, rows=None):
     """One layer; returns (x, aux loss, kv or new layer cache)."""
     h = apply_norm(x, lp.get("pre_attn"), cfg.norm_type)
     attn_out, kv = attention_block(
         lp, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
         positions=positions, rope_theta=cfg.rope_theta, causal=True, cache=cache,
         kernel_impl=cfg.kernel_impl, q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block,
-        causal_scheme=cfg.causal_scheme,
+        causal_scheme=cfg.causal_scheme, rows=rows,
     )
     x = x + attn_out
     h = apply_norm(x, lp.get("pre_mlp"), cfg.norm_type)
@@ -168,6 +169,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
       place and the returned cache carries ``length + T``;
     * contiguous cache: the same at its one length or at each row's, in
       place (per-slot writes past the buffer drop).
+
+    Under a serving mesh with a data axis (``parallel/sharding.py``) this
+    rank computes its share of the rows: the new K/V rows of each layer are
+    gathered before the cache insert (the pools hold every row) and the
+    logits and collected heads are gathered at the end.
     """
     x = embed(params["embed"], tokens)
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -177,6 +183,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     offset = torch.as_tensor(position_offset, device=x.device)
     steps = torch.arange(t, device=x.device)
     positions = offset[:, None] + steps[None, :] if offset.dim() else offset + steps[None, :]
+    mesh = current_mesh()
+    rows = mesh.row_split(b) if mesh is not None else None
+    if rows is not None:
+        x = rows.take(x)
+        if positions.shape[0] == b:
+            positions = rows.take(positions)
 
     layers = params["layers"]
     unrolled = isinstance(layers, (list, tuple))
@@ -198,18 +210,22 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
             x, a, kv = checkpoint(_layer_apply, lp, x, cfg, positions, None,
                                   use_reentrant=False)
         else:
-            x, a, kv = _layer_apply(lp, x, cfg, positions, layer_cache, drops)
+            x, a, kv = _layer_apply(lp, x, cfg, positions, layer_cache, drops, rows)
         aux = aux + a
         if cache is None and collect_kv:
             kvs.append(kv)
 
     x = apply_norm(x, params.get("final_norm"), cfg.norm_type)
     logits = apply_weight(x, lm_head(params))
+    if rows is not None:
+        logits = rows.gather(logits)
     if cache is not None:
         return logits, cache._replace(length=cache.length + t), aux
     if collect_kv:
-        return (logits, (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])),
-                aux)
+        kh, vh = torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
+        if rows is not None:
+            kh, vh = rows.gather(kh, dim=1), rows.gather(vh, dim=1)
+        return logits, (kh, vh), aux
     return logits, None, aux
 
 

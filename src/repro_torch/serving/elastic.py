@@ -29,7 +29,7 @@ from typing import Any, Iterator, Protocol, runtime_checkable
 import numpy as np
 
 from ..core.hpa import hpa_keep_ratio
-from ..tree import tree_leaves_with_path
+from ..tree import tree_leaves_with_path, tree_map
 from .deployed import DeployedModel
 from .slr_params import SLRLinear
 
@@ -40,6 +40,7 @@ __all__ = [
     "TierController",
     "TierControllerConfig",
     "format_capability_table",
+    "shared_base_bytes",
 ]
 
 
@@ -59,6 +60,33 @@ class Tier:
     @property
     def params(self) -> Any:
         return self.model.params
+
+
+def shared_base_bytes(trees: list) -> int:
+    """Bytes of the leaves that are the same object in every tree (deployed
+    SLR weights aside): the weight memory a bank's tiers hold once. Takes the
+    bank's trees or, under a serving mesh, a rank's local trees."""
+    if len(trees) < 2:
+        return 0
+
+    def leaf_ids(tree) -> dict[int, Any]:
+        return {id(leaf): leaf for _, leaf in tree_leaves_with_path(tree)
+                if not isinstance(leaf, SLRLinear)}
+
+    first = leaf_ids(trees[0])
+    common = set(first)
+    for tree in trees[1:]:
+        common &= set(leaf_ids(tree))
+    total = 0
+
+    def add(t):
+        nonlocal total
+        total += t.numel() * t.element_size()
+        return t
+
+    for i in common:
+        tree_map(add, first[i])
+    return total
 
 
 class ModelBank:
@@ -135,18 +163,7 @@ class ModelBank:
     def shared_base_bytes(self) -> int:
         """Bytes of the leaves that are the same tensor object in every tier:
         the weight memory one bank amortizes across the spectrum."""
-        if len(self._tiers) == 1:
-            return 0
-
-        def leaf_ids(tree) -> dict[int, Any]:
-            return {id(leaf): leaf for _, leaf in tree_leaves_with_path(tree)
-                    if not isinstance(leaf, SLRLinear)}
-
-        first = leaf_ids(self._tiers[0].params)
-        common = set(first)
-        for tier in self._tiers[1:]:
-            common &= set(leaf_ids(tier.params))
-        return sum(first[i].numel() * first[i].element_size() for i in common)
+        return shared_base_bytes([t.params for t in self._tiers])
 
     def report(self) -> dict:
         """Per-tier served bytes + the shared base."""

@@ -75,11 +75,22 @@ measured baseline for the others. It keeps the same registry. Features it cannot
 :class:`EngineCapabilityError` at construction, with its ``capabilities()``
 in the message.
 
-Not ported yet, rejected with a ``ValueError`` that names it: tensor-parallel
-meshes.
+Tensor- and data-parallel serving (``parallel/sharding.py``): with
+``EngineConfig(mesh="model=N,data=M")`` the batched engines run on every rank
+of a ``torch.distributed`` grid of N x M ranks, each rank constructing the
+engine on the same bank and config and driving the same requests. Each rank
+holds ``1/N`` of the heads (its KV pools, ``self.cfg``'s head counts) and its
+slices of the linear sites (``ServingMesh.place_tiers``: every tier over one
+set of pieces); block tables, lengths and the sparse tables are whole on
+every rank, so the host scheduler (allocator, prefix cache, tier policy,
+speculation) sees no mesh. Each data column computes its share of the rows;
+logits are gathered, so every rank samples the same tokens. The validations
+are the JAX package's (``_resolve_serving_mesh``); an MoE model under a mesh
+raises (its expert-parallel path is not ported yet).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from dataclasses import dataclass, field
@@ -92,6 +103,7 @@ from ..kernels.paged_attention import takes_pages
 from ..models import model as model_lib
 from ..models import transformer as transformer_lib
 from ..models.moe import DropCounter
+from ..parallel.sharding import ServingMesh, parse_mesh_spec
 from .adapters import AdapterBank, AdapterError
 from .deployed import DeployedModel
 from .elastic import ModelBank, TierController, TierControllerConfig
@@ -101,7 +113,7 @@ from .trace import RequestTracer
 
 __all__ = ["Request", "RequestRejected", "EngineCapabilityError", "EngineConfig",
            "BlockAllocator", "ServingEngine", "PagedServingEngine", "ReferenceEngine",
-           "BATCHED_FAMILIES",
+           "BATCHED_FAMILIES", "check_mesh",
            "keyed_uniform", "unit_interval", "gumbel_argmax", "decode_emitted_tokens"]
 
 BATCHED_FAMILIES = ("dense", "moe", "vlm")   # cache families with per-slot lengths
@@ -190,8 +202,9 @@ class EngineConfig:
     telemetry: bool = True             # metrics registry, program timing, retrace
     #                                    detection; False: every hook is a no-op
     trace: bool = False                # per-request span tracer (engine.tracer)
-    # tensor-parallel serving comes with a later slice: kept so a request for
-    # it fails loudly
+    # tensor- and data-parallel serving (parallel/sharding.ServingMesh): a
+    # spec string like "model=2,data=1", kept a string so the config stays
+    # JSON-safe; the engine builds the mesh over the process group
     mesh: str | None = None
     adapters: bool = False             # serve an AdapterBank (serving/adapters.py)
     max_resident_adapters: int | None = None  # device adapter-pool rows; None = all
@@ -247,7 +260,10 @@ class EngineConfig:
                 raise ValueError("max_resident_adapters sizes the AdapterBank device pool "
                                  "and needs adapters=True")
         if self.mesh is not None:
-            raise ValueError("not ported yet: mesh (tensor-parallel serving)")
+            if not isinstance(self.mesh, str):
+                raise ValueError(f"mesh={self.mesh!r} must be a spec string like "
+                                 "'model=2,data=1' (or None for single-device)")
+            parse_mesh_spec(self.mesh)      # format only; the engine checks the rest
 
 
 def decode_emitted_tokens(done: list[Request]) -> int:
@@ -384,16 +400,63 @@ def _resolve_request_tier(bank: ModelBank, default: int, tier: int | None) -> in
         raise RequestRejected(str(e)) from None
 
 
-def _kv_pool_device_bytes(cache) -> dict[str, int]:
+def _kv_pool_device_bytes(cache, mesh: ServingMesh | None = None) -> dict[str, int]:
     """KV payload bytes per device (pools and int8 scale pools: the cache's
     5-D tensors), the number behind the ``serve_kv_pool_device_bytes``
-    gauge."""
+    gauge. Under a mesh every rank's own pools, keyed ``rank{r}:{device}``
+    (a collective over the grid)."""
     per_dev: dict[str, int] = {}
     for leaf in cache:
         if isinstance(leaf, torch.Tensor) and leaf.dim() == 5:
             key = str(leaf.device)
             per_dev[key] = per_dev.get(key, 0) + leaf.numel() * leaf.element_size()
-    return per_dev
+    if mesh is None:
+        return per_dev
+    return {f"rank{r}:{dev}": n for r, mine in enumerate(mesh.gather_object(per_dev))
+            for dev, n in mine.items()}
+
+
+def check_mesh(spec: str, cfg, fmts) -> dict[str, int]:
+    """The checks of a mesh spec that need no process group, as in the JAX
+    package: the model axis must divide both head counts (the KV pools and
+    the paged kernels split the head axis), and the block-CSC formats
+    (``fmts``: the tiers' formats) cannot split over it. The MoE's
+    expert-parallel path is not ported yet. Returns the axis sizes; the
+    launcher calls it before it starts any rank."""
+    sizes = parse_mesh_spec(spec)
+    if cfg.num_experts:
+        raise ValueError(f"not ported yet: expert parallelism (mesh={spec!r} with the "
+                         f"{cfg.num_experts}-expert MoE model {cfg.name!r})")
+    m = sizes["model"]
+    if m > 1:
+        heads = cfg.num_heads
+        kv_heads = cfg.num_kv_heads or heads
+        for fname, h in (("num_heads", heads), ("num_kv_heads", kv_heads)):
+            if not h or h % m:
+                raise ValueError(f"mesh={spec!r}: model axis size {m} must divide "
+                                 f"{fname}={h} (KV pools and paged attention shard the "
+                                 "head axis)")
+        for fmt in fmts:
+            if fmt in ("bsr", "fused"):
+                raise ValueError(f"mesh={spec!r}: deployment format {fmt!r} cannot shard "
+                                 "over the model axis (its block-CSC grid is indexed "
+                                 "globally by the kernels); serve 'dense' or 'factored' tiers "
+                                 "under a mesh")
+    return sizes
+
+
+def _resolve_serving_mesh(ecfg: EngineConfig, cfg, bank: ModelBank) -> ServingMesh | None:
+    """The ServingMesh of ``ecfg.mesh`` (None = unsharded): the grid over
+    the process group (a spec larger than the group raises first, as in the
+    JAX package), then ``check_mesh``; this rank must lie in the grid."""
+    if ecfg.mesh is None:
+        return None
+    smesh = ServingMesh.from_spec(ecfg.mesh)
+    check_mesh(ecfg.mesh, cfg, [getattr(t.model, "fmt", "dense") for t in bank])
+    if not smesh.member:
+        raise ValueError(f"mesh={ecfg.mesh!r}: rank {smesh.rank} lies outside the "
+                         f"{smesh.num_devices}-rank grid")
+    return smesh
 
 
 class ServingEngine:
@@ -437,7 +500,7 @@ class ServingEngine:
                 "elastic_tiers": True,
                 "tier_pressure_controller": False,
                 "prefix_caching": False,
-                "tensor_parallel": False,
+                "tensor_parallel": True,
                 "multi_tenant_adapters": True,
             },
         }
@@ -476,6 +539,10 @@ class ServingEngine:
                              "engine's bank, and an AdapterBank needs adapters=True; got "
                              f"adapters={ecfg.adapters} with {type(bank).__name__}")
         if self._adapters is not None:
+            if ecfg.mesh is not None:
+                raise ValueError(f"mesh={ecfg.mesh!r} + adapters is unsupported: the pooled "
+                                 "adapter tables are indexed per slot by the kernels, which "
+                                 "no axis partition can split; serve adapters unsharded")
             if self._speculative:
                 raise EngineCapabilityError("SpeculativeEngine does not serve AdapterBanks "
                                             "(draft and verify would each need a pool); use "
@@ -483,6 +550,12 @@ class ServingEngine:
             self._adapters.materialize(ecfg.max_resident_adapters)
         self.cfg, self.ecfg, self.bank = cfg, ecfg, bank
         self._tier_params, self._default_tier = _bank_tier_state(bank, ecfg)
+        # every tier over ONE set of this rank's pieces; the rank runs 1/N of
+        # the heads, so its arch config (and its KV pools) say so
+        self.mesh = _resolve_serving_mesh(ecfg, cfg, bank)
+        if self.mesh is not None:
+            self._tier_params = self.mesh.place_tiers(self._tier_params)
+            self.cfg = self.mesh.local_cfg(cfg)
         self.params = self._tier_params[self._default_tier]
         self.device = self.params["embed"]["embedding"].device
         # effective tier per slot (requested tier + controller downshift)
@@ -702,10 +775,11 @@ class ServingEngine:
         return self.cache
 
     def _place_cache(self):
-        """Record the KV pool's bytes per device (the gauge is set once: the
-        pools' shapes are fixed for the engine's life)."""
+        """Record the KV pool's bytes per device, one entry per rank under a
+        mesh (the gauge is set once: the pools' shapes are fixed for the
+        engine's life)."""
         if self.metrics.enabled:
-            self.metrics.set_pool_device_bytes(_kv_pool_device_bytes(self.cache))
+            self.metrics.set_pool_device_bytes(_kv_pool_device_bytes(self.cache, self.mesh))
 
     def _sample(self, logits: torch.Tensor, salt: int, slots=None) -> torch.Tensor:
         """Greedy or temperature sampling on the device; logits (R, vocab).
@@ -882,10 +956,15 @@ class ServingEngine:
         controller first: downshift comes before any eviction), advance
         mid-prefill slots, then one decode per active tier. Returns the
         requests that finished in it."""
-        with self.metrics.measure_tick():
+        with self.metrics.measure_tick(), self._mesh_scope():
             done = self._step_inner()
             self._update_gauges()
         return done
+
+    def _mesh_scope(self):
+        """The mesh as the forward's ``current_mesh()`` for one tick; a null
+        context when unsharded."""
+        return self.mesh if self.mesh is not None else contextlib.nullcontext()
 
     def _step_inner(self) -> list[Request]:
         done: list[Request] = []
@@ -1591,6 +1670,9 @@ class ReferenceEngine:
             missing.append(f"tier_policy={ecfg.tier_policy!r} (page-pressure controller)")
         if ecfg.prefix_cache:
             missing.append("prefix_cache=True (radix prompt cache)")
+        if ecfg.mesh is not None:
+            missing.append(f"mesh={ecfg.mesh!r} (tensor-parallel serving needs the batched "
+                           "engines)")
         if ecfg.adapters or isinstance(bank, AdapterBank):
             missing.append("multi-tenant adapters (AdapterBank serving needs the batched "
                            "engines)")

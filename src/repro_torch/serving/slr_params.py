@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core import sparse
-from ..core.admm import SLRState
+from ..core.admm import SLRState, surrogate_params
 from ..core.selection import BlockInfo, path_str
 from ..kernels import ops
 from ..kernels.bsr_matmul import BsrMatrix, bsr_from_dense
@@ -32,7 +32,7 @@ from ..kernels.slr_matmul import BsrStack, stack_bsr
 from ..tree import tree_leaves_with_path
 
 __all__ = ["SLRLinear", "SLRLayerView", "coo_to_bsr", "coo_to_bsr_stack",
-           "build_slr_linears", "live_rank_slice", "deployment_report"]
+           "build_slr_linears", "live_rank_slice", "deploy_params", "deployment_report"]
 
 
 @dataclass
@@ -49,6 +49,10 @@ class SLRLinear:
     fuse: bool = False               # one fused kernel per apply
     s_bsr: BsrMatrix | None = None   # per-matrix block-CSC (bsr format)
     use_kernel: bool = False         # apply through the kernels
+    # (row0, row1, col0, col1): the block of the whole weight this one is, on
+    # a rank of a model-parallel mesh (``parallel/sharding.py``); the COO
+    # tables stay whole and only the entries inside the block apply
+    block: tuple[int, int, int, int] | None = None
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """y = x @ (L + S) for an unstacked (or layer-sliced) weight."""
@@ -71,7 +75,7 @@ class SLRLinear:
         if self.s_bsr is not None and self.use_kernel:
             y = y + ops.bsr_matmul(flat, self.s_bsr).reshape(*x.shape[:-1], self.shape[1])
         elif self.s_coo is not None:
-            y = y + x @ sparse.to_dense(self.s_coo).to(x.dtype)
+            y = y + x @ sparse.to_dense(self.s_coo, self.block).to(x.dtype)
         return y
 
     def at_layer(self, layer: int):
@@ -186,6 +190,16 @@ def build_slr_linears(state: SLRState, blocks: list[BlockInfo]) -> dict[str, SLR
         s_coo = blk.s_coo if int((blk.s_coo.idx >= 0).sum()) else None
         out[info.name] = SLRLinear(p=p, vt=vt, s_coo=s_coo, shape=(info.n, info.m))
     return out
+
+
+def deploy_params(params: Any, state: SLRState, blocks: list[BlockInfo], fmt: str = "dense"):
+    """For fmt='dense': params with X replaced by X_hat = L + S (the
+    architecture-preserving deployment: the model code runs unchanged, paper
+    §4.3). The other formats are built by ``DeployedModel.build``."""
+    if fmt != "dense":
+        raise ValueError(f"deploy_params builds the dense format only, got fmt={fmt!r}; "
+                         "use serving.deployed.DeployedModel.build for the others")
+    return surrogate_params(params, state, blocks)
 
 
 def deployment_report(params: Any, state: SLRState, blocks: list[BlockInfo]) -> dict:

@@ -35,7 +35,12 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.configs.zamba2_2p7b", "repro_torch.serving.telemetry",
             "repro_torch.serving.trace", "repro_torch.models.flash_balanced",
             "repro_torch.data.pipeline", "repro_torch.core.rpca",
-            "repro_torch.baselines", "repro_torch.baselines.reparam"} <= set(mods)
+            "repro_torch.baselines", "repro_torch.baselines.reparam",
+            "repro_torch.parallel", "repro_torch.parallel.sharding",
+            "repro_torch.launch.mesh", "repro_torch.examples",
+            "repro_torch.examples.quickstart", "repro_torch.examples.elastic_deploy",
+            "repro_torch.examples.multi_tenant_adapters", "repro_torch.examples.serve_slr",
+            "repro_torch.examples.train_100m_e2e"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"

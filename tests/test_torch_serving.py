@@ -340,11 +340,12 @@ def test_pallas_needs_chunked_prefill(trained):
     ("kv_dtype", "int8", "int8"),
 ])
 def test_later_slice_features_raise(trained, field, value, name):
-    """The features of later slices raise at ``EngineConfig``, naming
-    themselves: the mesh. Sampling, speculation and int8 pages are ported:
-    the config takes them, and each raises, naming itself, in an engine that
-    cannot give it (a parallel draft schedule cannot sample, the paged engine
-    does not speculate, the reference engine keeps an f32 cache). The
+    """Features the config takes raise, naming themselves, in an engine that
+    cannot give them: sampling, speculation, int8 pages and the mesh (a
+    parallel draft schedule cannot sample, the paged engine does not
+    speculate, the reference engine keeps an f32 cache and serves on one
+    device, as the JAX package's lists them; a malformed mesh spec raises at
+    ``EngineConfig``). The
     telemetry registry and the tracer are ported: every engine builds its
     registry (a no-op one with ``telemetry=False``) and, with ``trace=True``,
     its tracer."""
@@ -353,9 +354,8 @@ def test_later_slice_features_raise(trained, field, value, name):
     from repro_torch.serving.trace import RequestTracer
 
     if field == "mesh":
-        with pytest.raises(ValueError, match=name):
-            EngineConfig(**{field: value})
-        return
+        with pytest.raises(ValueError, match="mesh="):
+            EngineConfig(mesh="tp=2")
     dm = DeployedModel(trained.tcfg, trained.tparams, fmt="dense")
     if field in ("telemetry", "trace"):
         for cls in (PagedServingEngine, ReferenceEngine):
@@ -374,7 +374,7 @@ def test_later_slice_features_raise(trained, field, value, name):
         elif field == "spec_k":
             PagedServingEngine(dm, EngineConfig(spec_k=value))
         else:
-            ReferenceEngine(dm, EngineConfig(kv_dtype=value))
+            ReferenceEngine(dm, EngineConfig(**{field: value}))
 
 
 @pytest.mark.parametrize("kw", [dict(max_slots=0), dict(block_size=8, prefill_chunk=12),
