@@ -179,21 +179,50 @@ error:
       tokens on ``ReferenceEngine``, the unstacked SLR kernel launching for
       both tiers; then ``repro_torch.launch.train.main`` runs the MoE at
       ``--reduced`` for 4 steps with K = 2 in this process on the card;
-   r. (run last, after 5f) tensor- and data-parallel serving: phase 2's SLR
+   t. (run after 5f, on two ranks of the pool started before phase 5) the
+      MoE expert-parallel: 4n's swept state cut to its first 2 of 48
+      layers as a two-tier (1.0 / 0.5) ``factored`` bank (no second sweep;
+      f32 activations over the bf16 experts, since a factored site
+      multiplies them by the f32 factors), saved once with ``torch.save``;
+      the first 4 of 4n's prompts, 32 new tokens, served unsharded here and
+      at ``model=2``, where each rank loads the bank with
+      ``torch.load(mmap=True)`` and copies only its 64 experts a layer to
+      the card: streams equal to the unsharded run's on both ranks, expert
+      bytes a rank exactly 1/2 of the unsharded run's, dropped (and routed)
+      pairs summed over the ranks equal to the unsharded counts, paged decode
+      and k-query launches a rank equal to the unsharded run's;
+   u. (on the ranks while this process builds and saves t's bank)
+      ``repro_torch.launch.train --distributed`` at full width on all four
+      ranks, one step at ``data=4`` (rank 0 alone prints, its loss within
+      2e-3 of 4g's first); then data-parallel training: 4g's model, seed,
+      batches and K at
+      ``data=2`` on two ranks (5 steps and one randomized-SVD ADMM sweep, a
+      checkpoint written by data rank 0): losses within 2e-3 of 4g's first
+      5 (the largest gap printed), the ranks' parameter, Adam and SLR
+      checksums equal, soft_threshold launching as in one 4g sweep on each
+      rank; one gradient-sized all-reduce timed; one
+      ``make_compressed_grad_fn`` call at full width against the exact
+      mean of the ranks' gradients (the error over the largest scale
+      printed, held to the formula's own bound), with the bytes a rank
+      sends; the checkpoint resumed here at ``data=1`` (while t's ranks
+      serve) bit for bit, and its next step held against 4g's;
+   r. (after u) tensor- and data-parallel serving: phase 2's SLR
       state as a three-tier ``factored`` bank (keeps 1.0 / 0.6 / 0.3,
-      ``kernel_impl='pallas'``), the first 12 of (a)'s 24 prompts (the
-      shared system prompt, two exact repeats), 32 new tokens, 8 slots,
-      chunked prefill of 64 and the prefix cache, served unsharded in this
-      process, then at ``model=2``, ``model=4`` and ``model=2,data=2`` on 4
-      rank processes started once (``launch/mesh.py::RankPool``, before
+      ``kernel_impl='pallas'``), the first 6 of (a)'s 24 prompts (the
+      shared system prompt), 16 new tokens each, and a three-page prompt (2
+      new tokens) whose exact repeat (16) is submitted once it has finished
+      (its last page privatized by a page copy: the copy-on-write case), 8
+      slots, chunked prefill of 64 and the prefix cache, served unsharded in
+      this process and at ``model=2``, ``model=4`` and ``model=2,data=2`` on
+      4 rank processes started once (``launch/mesh.py::RankPool``, before
       phase 5) that share the card over gloo (CUDA tensors staged through
-      host memory: NCCL needs a card a rank): every rank's streams must equal
-      the unsharded run's, its KV pools must be 1/model of the unsharded
-      pools' bytes, and its paged decode, k-query and page-copy launches must
-      equal the unsharded run's (decode and k-query at least 1); tok/s per
-      rank printed beside the card (ranks sharing one card: a correctness
-      run, not a scaling one);
-   s. (run last) the five examples of ``repro_torch.examples`` on the card at
+      host memory: NCCL needs a card a rank), the ranks beside s: every
+      rank's streams must equal the unsharded run's, its KV pools must be
+      1/model of the unsharded pools' bytes, and its paged decode, k-query
+      and page-copy launches and copy-on-write copies must equal the
+      unsharded run's, each at least 1; tok/s per rank printed beside the
+      card (ranks sharing one card: a correctness run, not a scaling one);
+   s. (run last, while r's ranks serve) the five examples of ``repro_torch.examples`` on the card at
       their JAX counterparts' configs (four at ``.reduced()`` with their
       default steps; ``train_100m_e2e`` at the full ``salaad_llama_130m``
       for 3 steps with a checkpoint at step 2, whose restart carried on to
@@ -362,33 +391,56 @@ def bank_prompts(rng, vocab: int, block: int) -> list[list[int]]:
 
 MESH_SPECS = ("model=2", "model=4", "model=2,data=2")   # 4r, on 4 ranks started once
 MESH_RANKS = 4
-# 4r serves the first 12 of 4a's 24 prompts: ranks sharing the card pay gloo's
-# loopback latency at each of 18-26 collectives a forward (about 6 ms at 4
-# ranks, tools/collective_times.py), and all 24 took 224-242 s of the run
-MESH_PROMPTS = 12
+# 4r serves the first 6 of 4a's 24 prompts, 16 new tokens each, and a
+# three-page prompt whose exact repeat comes once its first run has ended:
+# ranks sharing the card pay gloo's loopback latency at each of 18-26
+# collectives a forward (about 6 ms at 4 ranks, tools/collective_times.py), a
+# forward for each tier a tick, so its time goes with the ticks; all 24
+# prompts at 32 tokens took 224-242 s of the run, 12 took 135.9 s of rank time
+MESH_PROMPTS = 6
+MESH_NEW = 16
+MESH_SHORT_PAGES = 3             # under one chunk of 64: its repeat privatizes a page
+MESH_SHORT_NEW = 2               # the short prompt's first run ends early; its repeat
+                                 # comes once it has (its pages then sit in the cache)
+EP_SPEC = "model=2"              # 4t: expert-parallel serving on 2 of the pool's ranks
+EP_LAYERS = 2                    # 4t: 2 of qwen3-moe's 48 layers (half of 4n's depth)
+EP_KEEPS = (1.0, 0.5)
+EP_PROMPTS = 4                   # 4t: the first 4 of 4n's prompts
+DP_DATA = 2                      # 4u: data-parallel training on 2 of the pool's ranks
 
 
-def drive_bank(engine, prompts, max_new: int) -> tuple[dict, float]:
+def drive_bank(engine, prompts, max_new, late=()) -> tuple[dict, float]:
     """4r's traffic on one engine: the prompts round-robin over the bank's
-    tiers, greedy; (uid -> tokens, seconds of ``run``)."""
+    tiers, greedy, ``max_new`` new tokens each (or a list, one a prompt);
+    each ``(prompt, max_new)`` of ``late`` is submitted once every request
+    of that prompt has finished, so an exact repeat finds its original's
+    pages in the prefix cache; (uid -> tokens, seconds of the run)."""
     import torch
 
     n_tiers = len(engine.bank)
-    for i, p in enumerate(prompts):
-        engine.submit(p, max_new_tokens=max_new, tier=i % n_tiers)
+    news = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
+    uids = [engine.submit(p, max_new_tokens=n, tier=i % n_tiers)
+            for i, (p, n) in enumerate(zip(prompts, news))]
     sync = torch.cuda.synchronize if engine.device.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    done = engine.run()
+    done = []
+    for i, (p, n) in enumerate(late, len(prompts)):
+        want = {u for u, q in zip(uids, prompts) if q == p}
+        while not want <= {r.uid for r in done}:
+            done += engine.step()
+        engine.submit(p, max_new_tokens=n, tier=i % n_tiers)
+    done += engine.run()
     sync()
     return {r.uid: r.out_tokens for r in done}, time.perf_counter() - t0
 
 
 def mesh_rank(rank: int, path: str, device: str, specs, prompts, ecfg_kw: dict,
-              max_new: int) -> list:
+              max_new, late) -> dict:
     """4r on one rank of the pool: the factored bank saved at ``path``
     served at each mesh of ``specs`` (None where this rank lies outside the
-    grid): streams, tok/s, the rank's KV pool bytes and launch counts."""
+    grid): streams, tok/s, the rank's KV pool bytes, copy-on-write copies
+    and launch counts; and the rank's seconds, the bank's load included."""
     import torch
 
     from repro_torch.kernels import ops
@@ -397,6 +449,7 @@ def mesh_rank(rank: int, path: str, device: str, specs, prompts, ecfg_kw: dict,
     from repro_torch.serving.elastic import ModelBank
     from repro_torch.serving.engine import EngineConfig, PagedServingEngine
 
+    t_rank = time.perf_counter()
     saved = torch.load(path, map_location=device, weights_only=False)
     cfg = saved["cfg"]
     bank = ModelBank(cfg, [DeployedModel(cfg, t, fmt="factored") for t in saved["trees"]],
@@ -409,16 +462,207 @@ def mesh_rank(rank: int, path: str, device: str, specs, prompts, ecfg_kw: dict,
             continue
         engine = PagedServingEngine(bank, EngineConfig(mesh=spec, **ecfg_kw))
         ops.reset_launch_counts()
-        streams, secs = drive_bank(engine, prompts, max_new)
+        streams, secs = drive_bank(engine, prompts, max_new, late)
         out.append({"streams": streams, "tok_s": sum(map(len, streams.values())) / secs,
                     "pool_bytes": sum(t.numel() * t.element_size() for t in engine.cache
                                       if isinstance(t, torch.Tensor) and t.dim() == 5),
                     "counts": ops.launch_counts(), "collectives": mesh.collectives,
+                    "cow_copies": engine.cow_copies,
                     "retraces": engine.stats_snapshot()["jit_retraces"]})
         del engine
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
+    return {"meshes": out, "seconds": time.perf_counter() - t_rank}
+
+
+def state_digest(tree) -> str:
+    """sha256 over every tensor of a training state (or a part of one), in
+    checkpoint order: equal digests are equal bits."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.train import checkpoint
+
+    h = hashlib.sha256()
+    for key, arr in checkpoint.flatten(tree).items():
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def expert_bytes(tiers: list) -> int:
+    """Bytes of the dense-materialized experts of a list of tier trees,
+    each tensor counted once."""
+    seen = {}
+    for tree in tiers:
+        for w in ("gate", "up", "down"):
+            t = tree["layers"]["moe"]["experts"][w]
+            seen[id(t)] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def serve_moe(engine, prompts, max_new: int) -> dict:
+    """4t's traffic on one engine with the launch counts and the MoE drop
+    counter set to 0 just before and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    engine.moe_drops = moe.DropCounter(engine.device)
+    ops.reset_launch_counts()
+    streams, secs = drive_bank(engine, prompts, max_new)
+    return {"streams": streams, "tok_s": sum(map(len, streams.values())) / secs,
+            "counts": ops.launch_counts(), "drops": engine.moe_drops.read(),
+            "expert_bytes": expert_bytes(engine._tier_params)}
+
+
+def ep_rank(rank: int, path: str, device: str, spec: str, prompts, ecfg_kw: dict,
+            max_new: int):
+    """4t on one rank: the factored MoE bank saved at ``path``, loaded
+    memory-mapped on the host with every leaf but the experts moved to the
+    card (the engine copies only this rank's experts there), served at
+    ``spec`` (None where this rank lies outside the grid)."""
+    import torch
+
+    from repro_torch.parallel.sharding import ServingMesh
+    from repro_torch.serving.deployed import DeployedModel
+    from repro_torch.serving.elastic import ModelBank
+    from repro_torch.serving.engine import EngineConfig, PagedServingEngine
+    from repro_torch.tree import replace_by_path, tree_map
+
+    if not ServingMesh.from_spec(spec).member:
+        return None
+    t0 = time.perf_counter()
+    saved = torch.load(path, mmap=True, map_location="cpu", weights_only=False)
+    moved: dict = {}
+
+    def place(path_, leaf):
+        if "experts" in path_:
+            return leaf
+        if id(leaf) not in moved:
+            moved[id(leaf)] = tree_map(lambda t: t.to(device), leaf)
+        return moved[id(leaf)]
+
+    cfg = saved["cfg"]
+    trees = [replace_by_path(t, place) for t in saved["trees"]]
+    bank = ModelBank(cfg, [DeployedModel(cfg, t, fmt="factored") for t in trees],
+                     keeps=saved["keeps"])
+    engine = PagedServingEngine(bank, EngineConfig(mesh=spec, **ecfg_kw))
+    load_s = time.perf_counter() - t0
+    out = serve_moe(engine, prompts, max_new)
+    out.update(load_s=load_s, collectives=engine.mesh.collectives,
+               card_bytes=torch.cuda.memory_allocated() if torch.cuda.is_available() else 0)
+    del engine, bank, trees, saved, moved
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
     return out
+
+
+def dp_rank(rank: int, device: str, data: int, steps: int, ckpt_dir: str):
+    """4u on one rank: ``Trainer.fit`` of salaad_llama_60m at full width at
+    ``data`` (4g's seed, batches and K: ``steps`` train steps, then one ADMM
+    sweep) with a checkpoint at the end, one gradient all-reduce timed alone
+    and one ``make_compressed_grad_fn`` call against the exact gradient mean
+    (None where this rank lies outside the grid)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.admm import SalaadConfig
+    from repro_torch.core.selection import SelectionConfig
+    from repro_torch.data.synthetic import DataConfig, SyntheticC4
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.parallel.compression import make_compressed_grad_fn, wire_bytes
+    from repro_torch.parallel.sharding import BatchShard, ServingMesh
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaf_by_path, replace_by_path, tree_leaves_with_path
+
+    mesh = ServingMesh.create(data=data)
+    if not mesh.member:
+        return None
+    cfg = get_arch("salaad_llama_60m")
+    trainer = Trainer(cfg, TrainerConfig(
+        total_steps=steps, log_every=1, ckpt_dir=ckpt_dir, ckpt_every=steps,
+        salaad=SalaadConfig(selection=SelectionConfig(min_dim=16), update_every=steps),
+        adam=AdamConfig(lr=TRAIN_LR)), mesh=mesh, device=device)
+    src = SyntheticC4(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    state = trainer.init(seed=SEED)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, src)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    # one gradient-sized all-reduce over the data ranks, timed alone
+    flat = torch.cat([t.reshape(-1) for _, t in tree_leaves_with_path(state.params)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh.all_reduce_data(flat)
+    torch.cuda.synchronize()
+    reduce_s = time.perf_counter() - t0
+    # the int8 all-reduce against the exact mean of the ranks' gradients of
+    # 4g's first batch, and against the formula's own bound per element:
+    # |mean(q_r s_max) - mean(g_r)| <= mean(s_max / 2 + |g_r| (s_max / s_r - 1))
+    def loss(p_, b_):
+        return model_lib.loss_fn(p_, b_, cfg)[0]
+
+    t_compressed = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(device) for k, v in src.batch(0).items()}
+    got = make_compressed_grad_fn(loss, mesh)(state.params, batch)
+    shard = BatchShard(mesh, TRAIN_BATCH)
+    live = {p_: t.detach().requires_grad_(True)
+            for p_, t in tree_leaves_with_path(state.params)}
+    with torch.enable_grad():
+        exact = torch.autograd.grad(
+            loss(replace_by_path(state.params, lambda p_, _: live[p_]),
+                 {k: shard.select(v) for k, v in batch.items()}), list(live.values()))
+    over_scale, over_bound = 0.0, 0.0
+    for p_, g in zip(live, exact):
+        every = mesh.all_gather_data(g.float()[None])          # (data, ...)
+        scales = every.flatten(1).abs().amax(1) / 127.0 + 1e-12
+        s_max = scales.max()
+        err = (leaf_by_path(got, p_).float() - every.sum(0) / data).abs()
+        bound = (s_max / 2 + every.abs() * (s_max / scales.view(-1, *[1] * g.dim())
+                                            - 1)).sum(0) / data
+        over_scale = max(over_scale, float((err / s_max).max()))
+        over_bound = max(over_bound, float((err / (bound * (1 + 1e-3) + 1e-6 * s_max)).max()))
+    compressed_s = time.perf_counter() - t_compressed
+    out = {"losses": [m["loss"] for m in trainer.metrics_log if "loss" in m],
+           "recon": [m["admm_recon_err"] for m in trainer.metrics_log
+                     if "admm_recon_err" in m],
+           "params": state_digest(state.params), "opt": state_digest(state.opt),
+           "slr": state_digest(state.slr), "state": state_digest(state), "counts": counts,
+           "fit_s": fit_s, "reduce_s": reduce_s, "reduce_bytes": flat.numel() * 4,
+           "compressed_err_over_scale": over_scale,
+           "compressed_err_over_bound": over_bound,
+           "compressed_bytes": wire_bytes(state.params),
+           "f32_bytes": flat.numel() * 4, "compressed_s": compressed_s}
+    del trainer, state, got, exact, flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def launcher_rank(rank: int, argv: list) -> tuple[str, float]:
+    """The train launcher with ``--distributed`` on this rank of the pool:
+    (what it printed, its seconds)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.train import main as train_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_main(argv + ["--distributed"])
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def u_rank(rank: int, launch_argv: list, device: str, data: int, steps: int, ckpt_dir: str):
+    """4u on one rank: the train launcher with ``--distributed`` (every
+    rank), then the data-parallel fit (the ranks of ``data``)."""
+    return launcher_rank(rank, launch_argv), dp_rank(rank, device, data, steps, ckpt_dir)
 
 
 def main() -> None:
@@ -463,7 +707,7 @@ def main() -> None:
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from repro_torch.core.selection import select_blocks
     from repro_torch.core.sparse import to_dense as sparse_dense
-    from repro_torch.tree import leaf_by_path, tree_leaves_with_path
+    from repro_torch.tree import leaf_by_path, replace_by_path, tree_leaves_with_path
     from repro_torch.core.admm import SWEEP_ELEMS
     from repro_torch.data.pipeline import DevicePrefetcher
     from repro_torch.launch.train import main as train_main
@@ -1867,6 +2111,7 @@ def main() -> None:
     step_ms = [m["sec"] * 1e3 for m in trainer.metrics_log if "loss" in m]
     recon = [m["admm_recon_err"] for m in trainer.metrics_log if "admm_recon_err" in m]
     n_admm = TRAIN_STEPS // TRAIN_K
+    train_losses, train_recon = list(losses), list(recon)    # 4u's ranks are held to these
     med_step = float(np.median(step_ms[2:]))
     # training tokens/s on the wall clock over whole phases of Algorithm 1
     # (K train steps, the ADMM sweep, batch generation and the host between),
@@ -2279,12 +2524,13 @@ def main() -> None:
                         + 4 * (b + b * -(-keys // 16)), 4 * b * hq_ * keys * d_,
                         PEAK_BF16_FLOPS)
 
-    def sweep_bank(fcfg, fparams, keeps, fmt, label):
+    def sweep_bank(fcfg, fparams, keeps, fmt, label, on_state=None):
         """One randomized-SVD sweep on the card, leaf by leaf (each leaf's old
         state freed once its new one exists; the sketches one admm_update
         call at step 0 draws), its products and the tiers' dense L + S in
-        TF32; then HPA tiers ``keeps`` in ``fmt`` as one ModelBank. Returns
-        (bank, soft_threshold launches of the sweep)."""
+        TF32; then HPA tiers ``keeps`` in ``fmt`` as one ModelBank, and
+        ``on_state(state, blocks)`` where given. Returns (bank,
+        soft_threshold launches of the sweep)."""
         fscfg = SalaadConfig(selection=SelectionConfig(min_dim=16))
         fstate, fblocks = init_slr_state(fparams, fscfg)
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -2309,6 +2555,8 @@ def main() -> None:
             models.append(DeployedModel.build(fcfg, fparams, hpa_keep_ratio(
                 fstate, fblocks, keep, 0.7)[0], fblocks, fmt=fmt))
         torch.backends.cuda.matmul.allow_tf32 = False
+        if on_state is not None:
+            on_state(fstate, fblocks)
         del fstate
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2419,7 +2667,23 @@ def main() -> None:
           f"{mcfg.head_dim} over {mcfg.num_kv_heads} KV heads, {mcfg.num_experts} experts "
           f"top-{mcfg.top_k} (d_ff {mcfg.d_ff}), vocab {mcfg.vocab_size}, "
           f"{str(mcfg.param_dtype)[6:]}; init {time.perf_counter() - t0:.1f} s")
-    mbank, moe_soft = sweep_bank(mcfg, mparams, (1.0, 0.5), "fused", "4n")
+    ep_cut: dict = {}
+
+    def cut_for_4t(fstate, fblocks):
+        """4t's share of 4n: the parameters and swept SLR state of the first
+        EP_LAYERS layers, held on the host until 4t."""
+        def first(t_):
+            return t_[:EP_LAYERS].cpu()
+
+        ep_cut["params"] = {k: (tree_map(first, v) if k == "layers"
+                                else tree_map(lambda t_: t_.cpu(), v))
+                            for k, v in mparams.items()}
+        ep_cut["state"] = {k: tree_map(first if k.startswith("layers/")
+                                       else (lambda t_: t_.cpu()), v)
+                           for k, v in fstate.items()}
+
+    mbank, moe_soft = sweep_bank(mcfg, mparams, (1.0, 0.5), "fused", "4n",
+                                 on_state=cut_for_4t)
     moe_prompts = family_prompts(mcfg.vocab_size, 16, 16, 224, 32, SEED + 3)
     moe_ecfg = EngineConfig(max_slots=8, max_len=512, block_size=16, prefix_cache=True,
                             prefill_chunk=128, kv_dtype="bfloat16")   # the model's pages
@@ -3011,75 +3275,236 @@ def main() -> None:
     del bal, q5, k5, v5, out5
     torch.cuda.empty_cache()
 
-    phase("4r")
+    phase("4t")
     gc.collect()                 # the earlier phases' cycles, before the ranks take memory
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    # 4t and 4u share the pool's ranks and overlap this process's work: 4u's
+    # ranks run the train launcher and the data-parallel fit while this
+    # process builds and saves 4t's bank; 4t's two ranks serve while this
+    # process serves unsharded and resumes 4u's checkpoint. 4u: the launcher
+    # with --distributed at full width on all four ranks (one step at
+    # data=4, 4g's seed, batch and K), then the fit of 4g's model, seed,
+    # batches and K at data=DP_DATA (TRAIN_K steps, one ADMM sweep, a
+    # checkpoint) on two
+    problems: list[str] = []
+    u_dir = tempfile.mkdtemp(prefix="dp_ckpt_")
+    u_launch = ["--arch", "salaad_llama_60m", "--steps", "1", "--update-every", str(TRAIN_K),
+                "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
+                "--seed", str(SEED), "--device", str(dev)]
+    rank_pool.submit(u_rank, u_launch, str(dev), DP_DATA, TRAIN_K, u_dir)
+    # 4t. expert-parallel serving: 4n's swept state cut to its first
+    # EP_LAYERS layers, as a two-tier factored bank (no second sweep): f32
+    # activations over the bf16 experts (a factored site multiplies the
+    # activations by the f32 factors, which needs them in f32 in this package
+    # and in the JAX one), served unsharded here and at EP_SPEC on two ranks
+    qwen = get_arch("qwen3_moe_30b_a3b")
+    ecfg_ep = dataclasses.replace(mcfg, num_layers=EP_LAYERS, param_dtype=torch.float32)
+    print(f"reduced: num_layers {qwen.num_layers}→{EP_LAYERS} (4t; d_model "
+          f"{ecfg_ep.d_model}, {ecfg_ep.num_experts} experts top-{ecfg_ep.top_k} of d_ff "
+          f"{ecfg_ep.d_ff}, {ecfg_ep.num_heads} q / {ecfg_ep.num_kv_heads} KV heads)")
+
+    def ep_leaf(path_, t_):
+        return t_.to(dev) if "experts" in path_ else t_.to(dev, torch.float32)
+
+    ep_params = replace_by_path(ep_cut.pop("params"), lambda p_, t_: ep_leaf(
+        "/".join(map(str, p_)), t_))
+    ep_state = {k: tree_map(lambda t_: t_.to(dev), v) for k, v in ep_cut.pop("state").items()}
+    ep_blocks = select_blocks(ep_params, SelectionConfig(min_dim=16))
+    if sorted(ep_state) != sorted(b.name for b in ep_blocks):
+        fail(f"4t: the cut state's blocks {sorted(ep_state)} are not the cut model's")
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = True     # the tiers' dense L + S, as in 4n
+    ep_models = [DeployedModel.build(ecfg_ep, ep_params, hpa_keep_ratio(
+        ep_state, ep_blocks, keep, 0.7)[0], ep_blocks, fmt="factored") for keep in EP_KEEPS]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del ep_state, ep_params
+    ep_bank = ModelBank(ecfg_ep, ep_models, keeps=EP_KEEPS)
+    torch.cuda.synchronize()
+    ep_build_s = time.perf_counter() - t0
+    ep_dir = tempfile.mkdtemp(prefix="ep_bank_")
+    ep_path = os.path.join(ep_dir, "bank.pt")
+    t0 = time.perf_counter()
+    torch.save({"cfg": ecfg_ep, "keeps": list(EP_KEEPS), "trees": [t_.params for t_ in ep_bank]},
+               ep_path)
+    ep_save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launched, fits = zip(*rank_pool.collect(timeout=900))
+    fits = [f_ for f_ in fits if f_ is not None]
+    u_wait_s = time.perf_counter() - t0
+    t_serve = time.perf_counter()
+    ep_prompts = moe_prompts[:EP_PROMPTS]
+    ep_ecfg = dict(max_slots=EP_PROMPTS, max_len=512, block_size=16, prefix_cache=True,
+                   prefill_chunk=128, kv_dtype="float32")
+    rank_pool.submit(ep_rank, ep_path, str(dev), EP_SPEC, ep_prompts, ep_ecfg, MAX_NEW)
+    ep_flat = serve_moe(PagedServingEngine(ep_bank, EngineConfig(**ep_ecfg)), ep_prompts,
+                        MAX_NEW)
+    # the checkpoint data rank 0 wrote at data=DP_DATA, resumed here at data=1
+    t0 = time.perf_counter()
+    u_trainer = Trainer(tcfg_arch, TrainerConfig(
+        total_steps=TRAIN_K + 1, log_every=1, ckpt_dir=u_dir, ckpt_every=0, salaad=train_scfg,
+        adam=AdamConfig(lr=TRAIN_LR)), device=dev)
+    u_state = u_trainer.maybe_restore(u_trainer.init(seed=SEED))
+    u_restored = state_digest(u_state)
+    u_state = u_trainer.fit(u_state, SyntheticC4(DataConfig(tcfg_arch.vocab_size, TRAIN_SEQ,
+                                                            TRAIN_BATCH, seed=SEED)))
+    u_loss = [m["loss"] for m in u_trainer.metrics_log if "loss" in m]
+    u_resume_s = time.perf_counter() - t0
+    shutil.rmtree(u_dir, ignore_errors=True)
+    del u_trainer, u_state
+    ep_ranks = [r_ for r_ in rank_pool.collect(timeout=900) if r_ is not None]
+    ep_serve_s = time.perf_counter() - t_serve
+    ep_file_bytes = os.path.getsize(ep_path)
+    shutil.rmtree(ep_dir, ignore_errors=True)
+    del ep_bank, ep_models
+    torch.cuda.empty_cache()
+    m_ep = int(EP_SPEC.split("=")[1])
+    print(f"  4t unsharded: {sum(map(len, ep_flat['streams'].values()))} tokens at "
+          f"{ep_flat['tok_s']:.2f} tok/s; expert bytes {ep_flat['expert_bytes']}; dropped "
+          f"pairs {json.dumps(ep_flat['drops'])}; launches {json.dumps(ep_flat['counts'])} "
+          f"({card}); bank built in {ep_build_s:.1f} s, saved in {ep_save_s:.1f} s "
+          f"({ep_file_bytes} B)")
+    for rank, rec in enumerate(ep_ranks):
+        same = sum(rec["streams"].get(u) == t_ for u, t_ in ep_flat["streams"].items())
+        print(f"  4t {EP_SPEC} rank {rank}: {same} of {len(ep_flat['streams'])} streams equal "
+              f"to the unsharded run's; expert bytes {rec['expert_bytes']}; dropped pairs "
+              f"{json.dumps(rec['drops'])}; {rec['tok_s']:.2f} tok/s; loaded and placed in "
+              f"{rec['load_s']:.1f} s; card bytes allocated {rec['card_bytes']}; launches "
+              f"{json.dumps(rec['counts'])} ({card}; ranks share one card over "
+              f"{rec['collectives']}: correctness, not scaling)")
+        if rec["streams"] != ep_flat["streams"]:
+            problems.append(f"4t rank {rank}: streams differ from the unsharded run's")
+        if rec["expert_bytes"] * m_ep != ep_flat["expert_bytes"]:
+            problems.append(f"4t rank {rank}: expert bytes {rec['expert_bytes']}, not 1/{m_ep} "
+                            f"of {ep_flat['expert_bytes']}")
+        for name in ("paged_attention", "paged_attention_kquery"):
+            if rec["counts"][name] != ep_flat["counts"][name] or rec["counts"][name] < 1:
+                problems.append(f"4t rank {rank}: {rec['counts'][name]} {name} launches, the "
+                                f"unsharded run {ep_flat['counts'][name]}")
+    if len(ep_ranks) != m_ep:
+        problems.append(f"4t: {len(ep_ranks)} ranks answered, expected {m_ep}")
+    for key in ("dropped", "real_dropped", "routed", "real_routed"):
+        if sum(r_["drops"][key] for r_ in ep_ranks) != ep_flat["drops"][key]:
+            problems.append(f"4t: {key} summed over the ranks "
+                            f"{[r_['drops'][key] for r_ in ep_ranks]} is not the unsharded "
+                            f"{ep_flat['drops'][key]}")
+    t_launches = {name: ep_flat["counts"][name] + sum(r_["counts"][name] for r_ in ep_ranks)
+                  for name in ep_flat["counts"]}
+    ep_s = ep_build_s + ep_save_s + ep_serve_s
+    print(f"  4t: {ep_s:.1f} s of this process (build {ep_build_s:.1f}, save {ep_save_s:.1f}, "
+          f"serve {ep_serve_s:.1f}, 4u's resume {u_resume_s:.1f} s of it); the wait for 4u's "
+          f"ranks after the save {u_wait_s:.1f} s ({card})")
+
+    phase("4u")
+    # 4u. the launcher, the fit and the resume above, checked
+    if len(fits) != DP_DATA:
+        problems.append(f"4u: {len(fits)} ranks trained, expected {DP_DATA}")
+    for rank, f_ in enumerate(fits):
+        gap = max(abs(a - b) for a, b in zip(f_["losses"], train_losses[:TRAIN_K]))
+        print(f"  4u data={DP_DATA} rank {rank}: losses {json.dumps([round(x, 6) for x in f_['losses']])} "
+              f"(4g's first {TRAIN_K}: {json.dumps([round(x, 6) for x in train_losses[:TRAIN_K]])}), "
+              f"largest gap {gap:.3e} (tol 2e-3); ADMM recon err {f_['recon']} (4g's first "
+              f"{train_recon[:1]}); {TRAIN_K} steps and the sweep in {f_['fit_s']:.2f} s; launches "
+              f"{json.dumps(f_['counts'])} ({card})")
+        if len(f_["losses"]) != TRAIN_K or not gap <= 2e-3:
+            problems.append(f"4u rank {rank}: losses off 4g's by {gap}")
+        if f_["counts"]["soft_threshold"] != 8 or f_["counts"]["soft_threshold"] != \
+                train_counts["soft_threshold"] // n_admm:
+            problems.append(f"4u rank {rank}: {f_['counts']['soft_threshold']} soft_threshold "
+                            f"launches, 4g's sweep {train_counts['soft_threshold'] // n_admm}")
+    if len({(f_["params"], f_["slr"], f_["opt"]) for f_ in fits}) != 1:
+        problems.append("4u: the ranks' parameter, Adam or SLR checksums differ")
+    f0 = fits[0]
+    print(f"  4u checksums (sha256): params {f0['params'][:16]}, Adam {f0['opt'][:16]}, SLR "
+          f"{f0['slr'][:16]}: {'equal' if len({f_['state'] for f_ in fits}) == 1 else 'DIFFER'}"
+          f" on every rank")
+    rate = f0["reduce_bytes"] * (DP_DATA - 1) / f0["reduce_s"] / 1e9
+    print(f"  4u gradient all-reduce ({f0['reduce_bytes']} B of f32 a rank, gathered and "
+          f"added in data order): {f0['reduce_s'] * 1e3:.1f} ms, {rate:.3f} GB/s received a "
+          f"rank (gloo on one card, CUDA tensors staged through host memory; {card})")
+    print(f"  4u make_compressed_grad_fn at full width: largest error {f0['compressed_err_over_scale']:.3f}"
+          f" x the largest scale (2 x scale: {'held' if f0['compressed_err_over_scale'] <= 2 else 'not held'}; "
+          f"the ranks' scales differ and the max-scale dequantization rescales the smaller), "
+          f"{f0['compressed_err_over_bound']:.3f} x the formula's own bound; {f0['compressed_bytes']}"
+          f" B sent a rank per call against {f0['f32_bytes']} B of f32 ({card})")
+    if f0["compressed_err_over_bound"] > 1:
+        problems.append(f"4u: the int8 all-reduce is off its bound by "
+                        f"{f0['compressed_err_over_bound']}x")
+    resumed_same = u_restored == f0["state"]
+    print(f"  4u checkpoint at data={DP_DATA} resumed at data=1: step {TRAIN_K}, state "
+          f"{'equal to' if resumed_same else 'DIFFERENT from'} the ranks' bit for bit; the next "
+          f"step's loss {u_loss} (4g's {train_losses[TRAIN_K]:.6f}) ({card})")
+    if not resumed_same or len(u_loss) != 1 or not abs(u_loss[0] - train_losses[TRAIN_K]) <= 2e-3:
+        problems.append(f"4u: the resumed checkpoint is off: equal {resumed_same}, loss {u_loss}")
+    outs = [o_ for o_, _ in launched]
+    try:
+        l_metrics = json.loads(outs[0])["metrics"]
+    except ValueError:
+        l_metrics = []
+    l_loss = [m["loss"] for m in l_metrics if "loss" in m]
+    l_gap = abs(l_loss[0] - train_losses[0]) if len(l_loss) == 1 else math.inf
+    print(f"  4u launcher --distributed at full width on {len(launched)} ranks (data="
+          f"{len(launched)}, {launched[0][1]:.1f} s): rank 0 printed {json.dumps(l_metrics)}; "
+          f"the others printed {sum(len(o_.strip()) for o_ in outs[1:])} characters; its loss "
+          f"against 4g's first {train_losses[0]:.6f}: gap {l_gap:.3e} (tol 2e-3) ({card})")
+    if any(o_.strip() for o_ in outs[1:]) or not l_gap <= 2e-3:
+        problems.append(f"4u: the --distributed launcher's output is off: {outs[0]!r}")
+    u_launches = {name: sum(f_["counts"][name] for f_ in fits) for name in f0["counts"]}
+    tu_s = time.perf_counter() - t_phase
+    print(f"  4u: the launcher {launched[0][1]:.1f} s, the ranks' fit {f0['fit_s']:.1f} s and "
+          f"the int8 call against the exact mean {f0['compressed_s']:.1f} s, beside 4t's build "
+          f"and save; the resume {u_resume_s:.1f} s beside 4t's ranks ({card})")
+    print(f"  4t + 4u: {tu_s:.1f} s ({card})")
+    if problems:
+        fail("; ".join(problems))
+    torch.cuda.empty_cache()
+
+    phase("4r")
+    t_phase = time.perf_counter()
     # 4r. tensor- and data-parallel serving: phase 2's SLR state as a
     # three-tier factored bank (pallas attention), the first MESH_PROMPTS of
-    # 4a's prompts on the paged engine with chunks of 64 and the prefix
-    # cache, unsharded here, then on
-    # the 4 ranks of the pool at each mesh of MESH_SPECS (ranks that share
+    # 4a's prompts and a short prompt whose exact repeat comes late (the
+    # copy-on-write case), on the paged engine with chunks of 64 and the
+    # prefix cache, at each mesh of MESH_SPECS on the pool's 4 ranks while
+    # this process serves them unsharded and then runs 4s (ranks that share
     # one card: the streams and the per-rank pools are the check, not speed)
     r_ecfg = dict(max_slots=8, max_len=512, block_size=16, prefill_chunk=64,
                   prefix_cache=True)
     r_bank = ModelBank.build(cfg, params, state, blocks, BUDGETS, kappa=0.7, fmt="factored")
-    r_prompts = prompts[:MESH_PROMPTS]
-    r_engine = PagedServingEngine(r_bank, EngineConfig(**r_ecfg))
-    ops.reset_launch_counts()
-    r_streams, r_secs = drive_bank(r_engine, r_prompts, MAX_NEW)
-    r_counts = ops.launch_counts()
-    r_pool = sum(_kv_pool_device_bytes(r_engine.cache).values())
-    r_tok = sum(map(len, r_streams.values()))
-    print(f"  4r unsharded: {r_tok} tokens at {r_tok / r_secs:.2f} tok/s ({card}); KV pools "
-          f"{r_pool} B; launches {json.dumps(r_counts)}")
-    if r_tok != MESH_PROMPTS * MAX_NEW or min(r_counts["paged_attention"],
-                                        r_counts["paged_attention_kquery"]) < 1:
-        fail(f"4r: the unsharded run is off: {r_tok} tokens, launches {r_counts}")
-    del r_engine
+    r_short = prompts[0][:MESH_SHORT_PAGES * r_ecfg["block_size"]]
+    r_prompts = prompts[:MESH_PROMPTS] + [r_short]
+    r_new = [MESH_NEW] * MESH_PROMPTS + [MESH_SHORT_NEW]
+    r_late = [(r_short, MESH_NEW)]
     r_dir = tempfile.mkdtemp(prefix="mesh_bank_")
     r_path = os.path.join(r_dir, "bank.pt")
     torch.save({"cfg": cfg, "keeps": list(BUDGETS), "trees": [t.params for t in r_bank]},
                r_path)
-    t0 = time.perf_counter()
-    r_ranks = rank_pool.run(mesh_rank, r_path, str(dev), MESH_SPECS, r_prompts, r_ecfg,
-                            MAX_NEW, timeout=600)
-    rank_pool.close()
-    shutil.rmtree(r_dir, ignore_errors=True)
-    print(f"  4r ranks: {len(MESH_SPECS)} meshes in {time.perf_counter() - t0:.1f} s")
-    for i, spec in enumerate(MESH_SPECS):
-        m_ = int(re.search(r"model=(\d+)", spec).group(1))
-        recs = [(rank, r_[i]) for rank, r_ in enumerate(r_ranks) if r_[i] is not None]
-        for rank, rec in recs:
-            if rec["streams"] != r_streams:
-                differ = [u for u in r_streams if rec["streams"].get(u) != r_streams[u]]
-                fail(f"4r {spec} rank {rank}: streams differ from the unsharded run's for "
-                     f"requests {differ}")
-            if rec["pool_bytes"] * m_ != r_pool:
-                fail(f"4r {spec} rank {rank}: KV pools of {rec['pool_bytes']} B, not 1/{m_} "
-                     f"of the unsharded {r_pool} B")
-            for name in ("paged_attention", "paged_attention_kquery", "page_copy"):
-                if rec["counts"][name] != r_counts[name] or (
-                        name != "page_copy" and rec["counts"][name] < 1):
-                    fail(f"4r {spec} rank {rank}: {rec['counts'][name]} {name} launches, "
-                         f"the unsharded run {r_counts[name]}")
-            if rec["retraces"]:
-                fail(f"4r {spec} rank {rank}: {rec['retraces']} launch-plan rebuilds")
-        print(f"  4r {spec}: {len(recs)} ranks, streams equal to the unsharded run's on "
-              f"every rank; KV pools {recs[0][1]['pool_bytes']} B a rank (1/{m_}); tok/s by "
-              f"rank {[round(rec['tok_s'], 2) for _, rec in recs]} ({card}; ranks share one "
-              f"card over {recs[0][1]['collectives']}: correctness, not scaling); paged "
-              f"launches a rank {recs[0][1]['counts']['paged_attention']} decode, "
-              f"{recs[0][1]['counts']['paged_attention_kquery']} k-query, "
-              f"{recs[0][1]['counts']['page_copy']} page copy")
-    r_launches = {name: n + sum(r_[i]["counts"][name] for r_ in r_ranks
-                                for i in range(len(MESH_SPECS)) if r_[i] is not None)
-                  for name, n in r_counts.items()}
-    del r_bank
+    rank_pool.submit(mesh_rank, r_path, str(dev), MESH_SPECS, r_prompts, r_ecfg, r_new,
+                     r_late)
+    r_engine = PagedServingEngine(r_bank, EngineConfig(**r_ecfg))
+    ops.reset_launch_counts()
+    r_streams, r_secs = drive_bank(r_engine, r_prompts, r_new, r_late)
+    r_counts = ops.launch_counts()
+    r_cow = r_engine.cow_copies
+    r_pool = sum(_kv_pool_device_bytes(r_engine.cache).values())
+    r_tok = sum(map(len, r_streams.values()))
+    print(f"  4r unsharded: {len(r_streams)} requests, {r_tok} tokens at {r_tok / r_secs:.2f} "
+          f"tok/s ({card}); KV pools {r_pool} B; copy-on-write copies {r_cow}; launches "
+          f"{json.dumps(r_counts)}")
+    if r_tok != sum(r_new) + sum(n for _, n in r_late) or r_cow < 1 or min(
+            r_counts["paged_attention"], r_counts["paged_attention_kquery"],
+            r_counts["page_copy"]) < 1:
+        fail(f"4r: the unsharded run is off: {r_tok} tokens, {r_cow} copy-on-write copies, "
+             f"launches {r_counts}")
+    del r_engine, r_bank
+    r_own_s = time.perf_counter() - t_phase
 
     phase("4s")
-    # 4s. the five examples on the card at their JAX counterparts' configs;
-    # train_100m_e2e at the full salaad_llama_130m, three steps, a checkpoint
-    # at step 2, the restart carried on to step 3 against the uninterrupted run
+    t_s = time.perf_counter()
+    # 4s. the five examples on the card at their JAX counterparts' configs,
+    # while 4r's ranks serve; train_100m_e2e at the full salaad_llama_130m,
+    # three steps, a checkpoint at step 2, the restart carried on to step 3
+    # against the uninterrupted run
     ops.reset_launch_counts()
     s_out = {}
     for name, fn in (("quickstart", quickstart.main), ("elastic_deploy", elastic_deploy.main),
@@ -3121,6 +3546,52 @@ def main() -> None:
     print(f"  4s launches: {json.dumps(s_counts)}")
     del s_out, e2e, resumed
     torch.cuda.empty_cache()
+    s_s = time.perf_counter() - t_s
+
+    # 4r's ranks, collected after 4s
+    t0 = time.perf_counter()
+    r_done = rank_pool.collect(timeout=600)
+    r_wait_s = time.perf_counter() - t0
+    rank_pool.close()
+    shutil.rmtree(r_dir, ignore_errors=True)
+    r_ranks = [d_["meshes"] for d_ in r_done]
+    r_rank_s = max(d_["seconds"] for d_ in r_done)
+    print(f"  4r ranks: {len(MESH_SPECS)} meshes in {r_rank_s:.1f} s (the slowest rank, its "
+          f"bank load included, beside 4s); waited {r_wait_s:.1f} s after 4s ({card})")
+    for i, spec in enumerate(MESH_SPECS):
+        m_ = int(re.search(r"model=(\d+)", spec).group(1))
+        recs = [(rank, r_[i]) for rank, r_ in enumerate(r_ranks) if r_[i] is not None]
+        for rank, rec in recs:
+            if rec["streams"] != r_streams:
+                differ = [u for u in r_streams if rec["streams"].get(u) != r_streams[u]]
+                fail(f"4r {spec} rank {rank}: streams differ from the unsharded run's for "
+                     f"requests {differ}")
+            if rec["pool_bytes"] * m_ != r_pool:
+                fail(f"4r {spec} rank {rank}: KV pools of {rec['pool_bytes']} B, not 1/{m_} "
+                     f"of the unsharded {r_pool} B")
+            for name in ("paged_attention", "paged_attention_kquery", "page_copy"):
+                if rec["counts"][name] != r_counts[name] or rec["counts"][name] < 1:
+                    fail(f"4r {spec} rank {rank}: {rec['counts'][name]} {name} launches, "
+                         f"the unsharded run {r_counts[name]}")
+            if rec["cow_copies"] != r_cow:
+                fail(f"4r {spec} rank {rank}: {rec['cow_copies']} copy-on-write copies, the "
+                     f"unsharded run {r_cow}")
+            if rec["retraces"]:
+                fail(f"4r {spec} rank {rank}: {rec['retraces']} launch-plan rebuilds")
+        print(f"  4r {spec}: {len(recs)} ranks, streams equal to the unsharded run's on "
+              f"every rank; KV pools {recs[0][1]['pool_bytes']} B a rank (1/{m_}); tok/s by "
+              f"rank {[round(rec['tok_s'], 2) for _, rec in recs]} ({card}; ranks share one "
+              f"card over {recs[0][1]['collectives']}, beside 4s: correctness, not scaling); "
+              f"paged launches a rank {recs[0][1]['counts']['paged_attention']} decode, "
+              f"{recs[0][1]['counts']['paged_attention_kquery']} k-query, "
+              f"{recs[0][1]['counts']['page_copy']} page copy ({recs[0][1]['cow_copies']} "
+              f"copy-on-write copies)")
+    r_launches = {name: n + sum(r_[i]["counts"][name] for r_ in r_ranks
+                                for i in range(len(MESH_SPECS)) if r_[i] is not None)
+                  for name, n in r_counts.items()}
+    print(f"  phase seconds: 4t + 4u {tu_s:.1f}; 4r's own {r_own_s:.1f} + its ranks "
+          f"{r_rank_s:.1f} beside 4s {s_s:.1f}, 4r + 4s {time.perf_counter() - t_phase:.1f} "
+          f"({len(r_prompts) + len(r_late)} requests, {r_tok} new tokens) ({card})")
 
     phase("end")
     # ---- result lines -------------------------------------------------------------
@@ -3158,6 +3629,7 @@ def main() -> None:
                          + sum(c_[name] for c_ in seq_counts.values())
                          + h_train_counts[name] + h_serve_counts[name]
                          + h_launcher_counts[name] + r_launches[name] + s_counts[name]
+                         + t_launches[name] + u_launches[name]
                          + (moe_soft + gemma_soft if name == "soft_threshold" else 0)),
             "max_abs_err": r_["max_abs_err"], "ms": r_["ms"],
             "plain_ms": r_["plain_ms"], "bound_ms": r_["bound"][0],

@@ -6,7 +6,11 @@ batch synthesis behind the device step. ``DevicePrefetcher`` also places the
 batches on a device: on a card the worker copies each batch from pinned host
 tensors with ``non_blocking=True`` on a side stream and records an event, and
 the consumer's stream waits on that event before the batch is used, so the
-host-to-device copy overlaps the previous step.
+host-to-device copy overlaps the previous step. With ``shardings`` (the
+mesh's ``parallel.sharding.batch_shardings``) it places only this rank's
+rows of each batch, as the JAX package's ``device_put`` with the batch
+shardings leaves each device its shard; the train step takes such a batch
+(``LocalRows``) as it is.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.sharding import LocalRows
 
 __all__ = ["Prefetcher", "DevicePrefetcher"]
 
@@ -83,29 +88,33 @@ class Prefetcher:
 
 class DevicePrefetcher(Prefetcher):
     """A ``Prefetcher`` that also places every batch on ``device`` (the card
-    unless told otherwise). The JAX package's ``shardings`` argument has no
-    counterpart until sharded training is ported: only None is accepted."""
+    unless told otherwise); with ``shardings`` (a dict of
+    ``BatchSharding`` by batch key) only this rank's rows."""
 
     def __init__(self, source, shardings: Any = None, device=None, **kw):
-        if shardings is not None:
-            raise ValueError("not ported yet: DevicePrefetcher(shardings=...) (sharded "
-                             "training is a later slice)")
+        self._shardings = shardings
         self._device = resolve_device(device)
         self._side = torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
         super().__init__(source, **kw)
 
     def _place(self, batch: dict) -> tuple[dict, Any]:
+        n = next(iter(batch.values())).shape[0]
+        if self._shardings is not None:
+            batch = {k: self._shardings[k].take(v) for k, v in batch.items()}
         host = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
                 for k, v in batch.items()}
         if self._side is None:
-            return {k: v.to(self._device) for k, v in host.items()}, None
+            return self._wrap({k: v.to(self._device) for k, v in host.items()}, n), None
         pinned = {k: v.pin_memory() for k, v in host.items()}
         with torch.cuda.stream(self._side):
             out = {k: v.to(self._device, non_blocking=True) for k, v in pinned.items()}
             done = torch.cuda.Event()
             done.record(self._side)
         # the pinned sources stay referenced until the copies are waited on
-        return out, (done, pinned)
+        return self._wrap(out, n), (done, pinned)
+
+    def _wrap(self, batch: dict, n: int) -> dict:
+        return batch if self._shardings is None else LocalRows(batch, n)
 
     def _ready(self, batch: dict, pending) -> dict:
         if pending is not None:

@@ -10,8 +10,10 @@ each rank gets a card of its own, gloo when they share one or run on the
 CPU), meeting through a ``file://`` rendezvous in a temporary directory.
 ``RankPool`` starts such ranks once and runs functions on all of them as often
 as asked (the tests and the smoke run reuse one set of ranks across meshes).
-The TPU pod shape of the JAX package's ``make_production_mesh`` comes with
-the dry-run slice.
+``init_distributed`` joins the group a launcher such as ``torchrun`` describes
+in its environment (the counterpart of ``jax.distributed.initialize()``), or
+takes the group that already exists. The TPU pod shape of the JAX package's
+``make_production_mesh`` comes with the dry-run slice.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import torch.multiprocessing as mp
 
 from ..parallel.sharding import ServingMesh, pick_backend
 
-__all__ = ["make_serving_mesh", "make_host_mesh", "init_rank", "run_ranks", "RankPool"]
+__all__ = ["make_serving_mesh", "make_host_mesh", "init_rank", "init_distributed",
+           "run_ranks", "RankPool"]
 
 
 def make_serving_mesh(spec: str) -> ServingMesh:
@@ -50,6 +53,26 @@ def init_rank(rank: int, world: int, backend: str, init_method: str,
         torch.cuda.set_device(rank)
     torch.set_num_threads(threads or max(1, (os.cpu_count() or 1) // world))
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+
+
+def init_distributed(device=None) -> torch.device:
+    """Join the process group that ``torchrun`` (or any launcher setting
+    ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``) describes, through ``env://``; where a group exists
+    already (the ranks of a ``RankPool``), that one. The backend follows
+    ``pick_backend`` over the ranks of this host, and under NCCL each rank
+    binds card ``LOCAL_RANK``. Returns the device this rank runs on
+    (``device``, by default the card, or the rank's own card under NCCL)."""
+    dev = torch.device(device) if device is not None else torch.device("cuda")
+    if not dist.is_initialized():
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
+        backend = pick_backend(local, dev)
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group(backend, init_method="env://")
+    if dev.type == "cuda" and dev.index is None and dist.get_backend() == "nccl":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _rank_main(rank, fn, world, backend, init_method, args):

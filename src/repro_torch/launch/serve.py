@@ -111,8 +111,8 @@ from ..serving.engine import (
     check_mesh,
     decode_emitted_tokens,
 )
-from ..parallel.sharding import ServingMesh, pick_backend
-from .mesh import run_ranks
+from ..parallel.sharding import ServingMesh
+from .mesh import init_distributed, run_ranks
 from ..serving.slr_params import deployment_report
 from ..serving.speculative import SpeculativeEngine
 from ..serving.telemetry import start_metrics_server
@@ -336,10 +336,7 @@ def _join_mesh(args, argv, cfg, device) -> ServingMesh | None:
         if "WORLD_SIZE" not in os.environ:
             run_ranks(_serve_rank, need, device, sys.argv[1:] if argv is None else argv)
             return None
-        backend = pick_backend(int(os.environ["WORLD_SIZE"]), device)
-        if backend == "nccl":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-        dist.init_process_group(backend)
+        init_distributed(device)
     return ServingMesh.from_spec(args.mesh)
 
 

@@ -1,5 +1,5 @@
-"""Training launcher: SALAAD (Algorithm 1) on one card (port of
-``repro/launch/train.py``).
+"""Training launcher: SALAAD (Algorithm 1) on one card, or data-parallel over
+the ranks of a process group (port of ``repro/launch/train.py``).
 
   python -m repro_torch.launch.train --arch salaad_llama_60m --steps 20 \\
       --update-every 5 --seq-len 256 --batch 8
@@ -11,7 +11,16 @@ the JAX package's format every ``--ckpt-every`` steps and resumes from the
 latest one there. Prints ``{"metrics": [...], "events": [...]}`` as the JAX
 launcher does. Runs on the card unless ``--device cpu`` is given (with
 ``--reduced``, a run of the plain versions on the CPU). ``--distributed``
-(multi-host training) is a later slice and raises.
+joins the process group ``torchrun`` describes (``env://``; or the group that
+exists already) and trains data-parallel over every rank, as the JAX
+launcher's ``jax.distributed.initialize()`` makes the same script run SPMD:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch salaad_llama_60m --reduced --device cpu --distributed --steps 3
+
+Each rank takes its rows of every global batch and the gradients are
+averaged over the ranks; rank 0 alone prints the JSON line and writes
+checkpoints.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from ..configs import get_arch
 from ..core.admm import SalaadConfig
 from ..core.selection import SelectionConfig
 from ..data.synthetic import DataConfig, SyntheticC4
+from .mesh import init_distributed, make_host_mesh
 from ..optim.adam import AdamConfig
 from ..train.trainer import Trainer, TrainerConfig
 
@@ -49,9 +59,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    device, mesh = args.device, None
     if args.distributed:
-        raise ValueError("not ported yet: --distributed (multi-host and sharded training "
-                         "is a later slice)")
+        device = init_distributed(args.device)
+        mesh = make_host_mesh()
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -66,13 +77,14 @@ def main(argv=None):
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                          ckpt_every=args.ckpt_every, salaad=salaad,
                          adam=AdamConfig(lr=args.lr))
-    trainer = Trainer(cfg, tcfg, device=args.device)
+    trainer = Trainer(cfg, tcfg, mesh=mesh, device=device)
     state = trainer.init(args.seed)
     state = trainer.maybe_restore(state)
     data = SyntheticC4(DataConfig(cfg.vocab_size, args.seq_len, args.batch, seed=args.seed))
     trainer.fit(state, data)
-    print(json.dumps({"metrics": trainer.metrics_log[-5:], "events": trainer.events},
-                     indent=1))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps({"metrics": trainer.metrics_log[-5:], "events": trainer.events},
+                         indent=1))
 
 
 if __name__ == "__main__":

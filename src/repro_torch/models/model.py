@@ -58,18 +58,20 @@ def init_params(cfg, seed: int = 0, device=None) -> dict:
 
 
 def _family_forward(params, batch: dict, cfg, cache=None, position_offset=0,
-                    collect_kv=False, drops=None):
+                    collect_kv=False, drops=None, rows=None):
     """The JAX package's ``_forward``: (logits, new cache or stacked KV
     heads, aux loss). Without a cache the encdec family's second value is
     its encoder output, the others' None unless ``collect_kv`` (the
     transformer families' prefill heads). ``drops`` (a
-    ``moe.DropCounter``) counts the pairs the MoE capacity dropped."""
+    ``moe.DropCounter``) counts the pairs the MoE capacity dropped; ``rows``
+    (a data-parallel train step's ``BatchShard``) are the transformer
+    families' rows of the global batch."""
     _require_family(cfg)
     tokens = batch["tokens"]
     if cfg.family in KV_FAMILIES:
         return transformer.forward(params, tokens, cfg, prefix_embeds=batch.get("patches"),
                                    cache=cache, position_offset=position_offset,
-                                   collect_kv=collect_kv, drops=drops)
+                                   collect_kv=collect_kv, drops=drops, rows=rows)
     if cfg.family == "ssm":
         return ssm_lm.forward(params, tokens, cfg, cache=cache, position_offset=position_offset)
     if cfg.family == "encdec":
@@ -104,11 +106,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.mean()
 
 
-def loss_fn(params, batch: dict, cfg, aux_weight: float = 0.01):
+def loss_fn(params, batch: dict, cfg, aux_weight: float = 0.01, rows=None):
     """Next-token CE plus ``aux_weight`` times the MoE load-balance loss (0
     for the other families); the VLM's loss covers the text tail only.
+    ``rows``: the data-parallel train step's share of the global batch.
     Returns ``(loss, {"ce": ..., "aux": ...})``."""
-    logits, _, aux = _family_forward(params, batch, cfg)
+    logits, _, aux = _family_forward(params, batch, cfg, rows=rows)
     if cfg.family == "vlm" and "patches" in batch:
         logits = logits[:, batch["patches"].shape[1]:]
     loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))

@@ -147,7 +147,7 @@ def _layer_apply(lp: dict, x, cfg, positions, cache, drops=None, rows=None):
     if cfg.num_experts:
         out, aux = moe_ffn(lp["moe"], h, num_experts=cfg.num_experts, top_k=cfg.top_k,
                            capacity_factor=cfg.capacity_factor, num_groups=cfg.moe_groups,
-                           drops=drops)
+                           drops=drops, rows=rows)
     else:
         out, aux = apply_mlp(lp, h, cfg.mlp_type), torch.zeros((), device=x.device)
     return x + out, aux, kv
@@ -157,7 +157,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
             prefix_embeds: torch.Tensor | None = None,
             cache: PagedKVCache | LMCache | None = None, position_offset=0,
             collect_kv: bool = False,
-            drops: DropCounter | None = None) -> tuple[torch.Tensor, Any, torch.Tensor]:
+            drops: DropCounter | None = None,
+            rows=None) -> tuple[torch.Tensor, Any, torch.Tensor]:
     """(logits (B, T', vocab), new cache or stacked KV heads, aux loss):
     T' counts the ``prefix_embeds`` rows (B, P, d) in front of the tokens;
     the aux loss is the MoE load-balance term summed over layers (0 for the
@@ -173,7 +174,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     Under a serving mesh with a data axis (``parallel/sharding.py``) this
     rank computes its share of the rows: the new K/V rows of each layer are
     gathered before the cache insert (the pools hold every row) and the
-    logits and collected heads are gathered at the end.
+    logits and collected heads are gathered at the end. A data-parallel
+    train step passes its ``BatchShard`` as ``rows``: the batch is this
+    rank's rows already.
     """
     x = embed(params["embed"], tokens)
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -184,7 +187,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     steps = torch.arange(t, device=x.device)
     positions = offset[:, None] + steps[None, :] if offset.dim() else offset + steps[None, :]
     mesh = current_mesh()
-    rows = mesh.row_split(b) if mesh is not None else None
+    if rows is None and mesh is not None:
+        rows = mesh.row_split(b)
     if rows is not None:
         x = rows.take(x)
         if positions.shape[0] == b:
@@ -207,7 +211,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
                                           cache.k_scale[l] if quant else None,
                                           cache.v_scale[l] if quant else None)
         if remat:
-            x, a, kv = checkpoint(_layer_apply, lp, x, cfg, positions, None,
+            x, a, kv = checkpoint(_layer_apply, lp, x, cfg, positions, None, None, rows,
                                   use_reentrant=False)
         else:
             x, a, kv = _layer_apply(lp, x, cfg, positions, layer_cache, drops, rows)

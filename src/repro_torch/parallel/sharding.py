@@ -1,4 +1,4 @@
-"""Sharding rules and the serving mesh (port of the serving half of
+"""Sharding rules and the mesh of ranks (port of
 ``repro/parallel/sharding.py``).
 
 The rules are pure functions over a mesh's axis sizes (a ``{"data": D,
@@ -31,7 +31,15 @@ the sites that need them:
     (``models/transformer.py``): each data column computes its share of the
     rows, the new K/V rows of every layer are gathered so the pools stay
     replicated over data, as the JAX package's pools are, and the logits are
-    gathered at the end.
+    gathered at the end;
+  * MoE experts split on their E axis (``experts`` role): rank ``j`` of a
+    model row holds experts ``[j E/m, (j+1) E/m)`` and ``models/moe.py``
+    sums the ranks' per-pair outputs over the row.
+
+Training under a mesh (``data = N``, ``model = 1``) splits the batch by
+``batch_shardings``' rule instead: a rank takes ``n / N`` rows where N
+divides them, else the whole batch (:class:`BatchShard`), and the train step
+averages the gradients over the data column (``all_reduce_data``).
 
 Leaves the JAX placement splits but a rank reads whole (the norm scales,
 ``down_bias``: GSPMD gathers them again at every use) are held whole.
@@ -53,7 +61,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.layers import apply_weight
-from ..tree import replace_by_path, tree_leaves_with_path
+from ..tree import replace_by_path, tree_leaves_with_path, tree_map
 
 __all__ = [
     "param_spec",
@@ -68,6 +76,12 @@ __all__ = [
     "ShardedEmbedding",
     "current_mesh",
     "serving_leaves",
+    "dp_axes",
+    "dp_size",
+    "batch_shardings",
+    "BatchSharding",
+    "BatchShard",
+    "LocalRows",
 ]
 
 
@@ -339,15 +353,23 @@ class ServingMesh:
     def local_tree(self, tree: Any, placed: dict[int, Any] | None = None) -> Any:
         """This rank's pieces of a full serving tree (dense or factored
         format). ``placed`` maps ``id(leaf)`` to a piece already made: a leaf
-        shared by several tiers is sliced once and reused."""
+        shared by several tiers is sliced once and reused. Every piece lands
+        on the device of the tree's embedding: a tree whose other leaves are
+        held on the host (memory-mapped from ``torch.load(mmap=True)``)
+        copies only this rank's pieces to the card."""
         if self.model == 1:
             return tree
         placed = {} if placed is None else placed
+        emb = tree.get("embed", {}).get("embedding") if isinstance(tree, Mapping) else None
+        device = getattr(emb, "device", None)
 
         def one(path, leaf):
             key = id(leaf)
             if key not in placed:
-                placed[key] = self._local_leaf("/".join(str(p) for p in path), leaf)
+                piece = self._local_leaf("/".join(str(p) for p in path), leaf)
+                if device is not None:
+                    piece = tree_map(lambda t: t.to(device), piece)
+                placed[key] = piece
             return placed[key]
 
         return replace_by_path(tree, one)
@@ -407,6 +429,21 @@ class ServingMesh:
             return op(x.cpu()).to(x.device)
         return op(x.contiguous())
 
+    def _sum_in_order(self, x: torch.Tensor, group, size: int) -> torch.Tensor:
+        def op(t):
+            parts = [torch.empty_like(t) for _ in range(size)]
+            dist.all_gather(parts, t, group=group)
+            return functools.reduce(torch.add, parts)
+
+        return self._staged(x, op)
+
+    def all_reduce_data(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of x over the data column, gathered and added in data order
+        (the same bits on every rank): the data-parallel gradient sum."""
+        if self.data == 1:
+            return x
+        return self._sum_in_order(x, self._data_group, self.data)
+
     def all_reduce_model(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of x over the model row (the row-parallel product's partials),
         added in model order after an all-gather: the same bits on every
@@ -414,13 +451,7 @@ class ServingMesh:
         sequential hops of its all-reduce (PERF.md §6)."""
         if self.model == 1:
             return x
-
-        def op(t):
-            parts = [torch.empty_like(t) for _ in range(self.model)]
-            dist.all_gather(parts, t, group=self._model_group)
-            return functools.reduce(torch.add, parts)
-
-        return self._staged(x, op)
+        return self._sum_in_order(x, self._model_group, self.model)
 
     def _gather(self, x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
         def op(t):
@@ -445,9 +476,14 @@ class ServingMesh:
         return self._gather(x, dim, self._data_group, self.data)
 
     def row_split(self, n: int) -> "RowSplit | None":
-        """This rank's share of a batch of ``n`` rows (None without a data
-        axis)."""
+        """This rank's share of a batch of ``n`` rows in the forward (None
+        without a data axis)."""
         return RowSplit(self, n) if self.data > 1 else None
+
+    def barrier(self) -> None:
+        """Every rank of the grid waits for the others."""
+        if self._mesh_group is not None:
+            dist.barrier(group=self._mesh_group)
 
     def gather_object(self, obj) -> list:
         """``obj`` of every rank of the grid, in rank order."""
@@ -472,7 +508,10 @@ def _role(name: str) -> str | None:
     """How this rank's compute consumes a split leaf: ``column`` (its output
     columns), ``row`` (its input rows, partials summed), ``head`` (vocabulary
     columns, logits gathered), ``embedding`` (d_model columns, lookups
-    gathered), or None (held whole)."""
+    gathered), ``experts`` (the E axis, no wrapper: ``models/moe.py`` sums
+    the ranks' outputs), or None (held whole)."""
+    if re.search(r"(^|/)experts/(gate|up|down|w1|w2|w3)$", name):
+        return "experts"
     if re.search(r"(^|/)(o|down)$", name):
         return "row"
     if re.search(r"(^|/)lm_head/w$", name):
@@ -561,12 +600,24 @@ class RowSplit:
     row ``n - 1`` (computed and dropped). ``gather`` concatenates the
     column's shares and drops them."""
 
+    # the rows are a share of a batch spread over the data column (the MoE's
+    # capacity and load-balance statistics then combine the column's)
+    spread = True
+
     def __init__(self, mesh: ServingMesh, n: int):
         self.mesh, self.n = mesh, n
         per = -(-n // mesh.data_size)
         start = mesh.data_index * per
         self.idx = np.minimum(np.arange(start, start + per), n - 1)
+        self.real = np.arange(start, start + per) < n
         self._dev: dict = {}
+
+    def live(self, device) -> torch.Tensor:
+        """(rows,) bool: False on the rows repeating row ``n - 1``."""
+        key = ("live", device)
+        if key not in self._dev:
+            self._dev[key] = torch.from_numpy(self.real).to(device)
+        return self._dev[key]
 
     def _index(self, device) -> torch.Tensor:
         if device not in self._dev:
@@ -580,3 +631,88 @@ class RowSplit:
     def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's rows of t, in row order (the inverse of ``take``)."""
         return self.mesh.all_gather_data(t, dim).narrow(dim, 0, self.n)
+
+
+class BatchShard:
+    """A data rank's rows of a global training batch of ``n`` rows, by
+    ``batch_shardings``' rule: rows ``[i n/N, (i+1) n/N)`` of data rank i
+    where N divides n, else all n on every rank. :meth:`select` cuts a
+    global batch leaf. The train step passes it to the forward (``rows=``)
+    where a :class:`RowSplit` would stand: the step has already cut the
+    batch, so ``take`` and ``gather`` are the identity, and ``spread`` tells
+    the MoE to combine its statistics over the data column."""
+
+    def __init__(self, mesh: ServingMesh, n: int):
+        self.mesh, self.n = mesh, n
+        dp = mesh.data_size
+        self.spread = dp > 1 and n % dp == 0
+        per = n // dp if self.spread else n
+        self.lo = mesh.data_index * per if self.spread else 0
+        self.hi = self.lo + per
+
+    def select(self, t, dim: int = 0):
+        """This rank's rows of a global batch leaf (a tensor or an array)."""
+        if not self.spread:
+            return t
+        if isinstance(t, torch.Tensor):
+            return t.narrow(dim, self.lo, self.hi - self.lo)
+        return np.take(np.asarray(t), np.arange(self.lo, self.hi), axis=dim)
+
+    def take(self, t, dim: int = 0):
+        return t
+
+    def gather(self, t, dim: int = 0):
+        return t
+
+    def live(self, device) -> torch.Tensor:
+        return torch.ones(self.hi - self.lo, dtype=torch.bool, device=device)
+
+
+class LocalRows(dict):
+    """A batch holding only this rank's rows of a global batch of ``n`` rows
+    (``DevicePrefetcher(shardings=...)`` yields these; the train step takes
+    them as they are)."""
+
+    def __init__(self, leaves: dict, n: int):
+        super().__init__(leaves)
+        self.n = n
+
+
+# ------------------------------------------------- training batch placement --
+
+
+def dp_axes(mesh) -> tuple[str, ...] | None:
+    """The batch-carrying axes of the mesh (the port's meshes have no pod
+    axis: ``("data",)``)."""
+    return ("data",) if "data" in _sizes(mesh) else None
+
+
+def dp_size(mesh) -> int:
+    return int(_sizes(mesh).get("data", 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSharding:
+    """The placement of one batch leaf: ``spec`` (``("data", None, ...)``,
+    the leading dim split over data, or all None, whole) over ``mesh``."""
+
+    mesh: ServingMesh
+    spec: tuple
+
+    def take(self, leaf):
+        """This rank's rows of a global batch leaf."""
+        if self.spec[0] is None:
+            return leaf
+        return BatchShard(self.mesh, leaf.shape[0]).select(leaf)
+
+
+def batch_shardings(specs: dict, mesh: ServingMesh) -> dict:
+    """Leading-dim (batch) placements for a dict of batch leaves (anything
+    with ``.shape``): over data where the data size divides the rows, else
+    whole, as in the JAX package."""
+    dpn = dp_size(mesh)
+    out = {}
+    for k, v in specs.items():
+        ax0 = "data" if v.shape[0] % dpn == 0 else None
+        out[k] = BatchSharding(mesh, (ax0,) + (None,) * (len(v.shape) - 1))
+    return out

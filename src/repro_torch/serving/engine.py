@@ -85,8 +85,9 @@ set of pieces); block tables, lengths and the sparse tables are whole on
 every rank, so the host scheduler (allocator, prefix cache, tier policy,
 speculation) sees no mesh. Each data column computes its share of the rows;
 logits are gathered, so every rank samples the same tokens. The validations
-are the JAX package's (``_resolve_serving_mesh``); an MoE model under a mesh
-raises (its expert-parallel path is not ported yet).
+are the JAX package's (``_resolve_serving_mesh``). An MoE's experts split
+over the model axis where it divides their count (``models/moe.py``); each
+rank's drop counter counts its own experts' pairs of the rows it serves.
 """
 from __future__ import annotations
 
@@ -420,13 +421,11 @@ def check_mesh(spec: str, cfg, fmts) -> dict[str, int]:
     """The checks of a mesh spec that need no process group, as in the JAX
     package: the model axis must divide both head counts (the KV pools and
     the paged kernels split the head axis), and the block-CSC formats
-    (``fmts``: the tiers' formats) cannot split over it. The MoE's
-    expert-parallel path is not ported yet. Returns the axis sizes; the
-    launcher calls it before it starts any rank."""
+    (``fmts``: the tiers' formats) cannot split over it. An MoE's experts
+    split over it where it divides their count (``models/moe.py``), and are
+    served whole on every rank where it does not. Returns the axis sizes;
+    the launcher calls it before it starts any rank."""
     sizes = parse_mesh_spec(spec)
-    if cfg.num_experts:
-        raise ValueError(f"not ported yet: expert parallelism (mesh={spec!r} with the "
-                         f"{cfg.num_experts}-expert MoE model {cfg.name!r})")
     m = sizes["model"]
     if m > 1:
         heads = cfg.num_heads

@@ -15,9 +15,19 @@ enters the coupled loss with weight 0.01, and the VLM and the
 encoder-decoder train on tokens-only batches (``SyntheticC4``; the encoder
 then reads zero frames). Everything runs on the card unless the trainer is
 given ``device='cpu'``.
+
+``mesh`` (a ``parallel.sharding.ServingMesh`` over the ranks of a process
+group, as the JAX trainer takes its ``Mesh``) is entered around every step:
+with ``data = N`` the train step splits the global batch over the data
+ranks and averages the gradients in data order, so each rank holds the same
+parameters, Adam moments and SLR state bit for bit (``train/steps.py``).
+Only data rank 0 writes checkpoints, then every rank meets at a barrier;
+restore loads whole tensors on every rank, so a state saved at one data
+size resumes at any other. Training over the model axis is not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
@@ -31,7 +41,7 @@ from ..optim.schedule import warmup_cosine
 from . import checkpoint
 from .fault import StragglerDetector, Watchdog
 from .state import TrainState, init_train_state
-from .steps import make_admm_step, make_train_step
+from .steps import check_train_mesh, make_admm_step, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer"]
 
@@ -51,9 +61,13 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, arch_cfg, tcfg: TrainerConfig, device=None):
+    def __init__(self, arch_cfg, tcfg: TrainerConfig, mesh=None, device=None):
+        check_train_mesh(mesh)
+        if mesh is not None and not mesh.member:
+            raise ValueError(f"rank {mesh.rank} lies outside the {mesh.num_devices}-rank mesh")
         self.arch_cfg = arch_cfg
         self.tcfg = tcfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.straggler = StragglerDetector()
         self.metrics_log: list[dict] = []
@@ -84,6 +98,17 @@ class Trainer:
 
     # ------------------------------------------------------------- loop ---
 
+    def _scope(self):
+        return self.mesh if self.mesh is not None else contextlib.nullcontext()
+
+    def _save(self, step: int, state: TrainState) -> None:
+        """Data rank 0 writes (every rank holds the same state), then the
+        ranks meet, so none reads a checkpoint before it is complete."""
+        if self.mesh is None or self.mesh.rank == 0:
+            checkpoint.save(self.tcfg.ckpt_dir, step, state, keep=self.tcfg.keep_ckpts)
+        if self.mesh is not None:
+            self.mesh.barrier()
+
     def fit(self, state: TrainState, data, steps: int | None = None) -> TrainState:
         steps = steps or self.tcfg.total_steps
         k_every = self.tcfg.salaad.update_every if self.tcfg.salaad else 0
@@ -94,7 +119,8 @@ class Trainer:
             t0 = time.time()
             if wd:
                 wd.arm()
-            state, metrics = self._train_step(state, batch)
+            with self._scope():
+                state, metrics = self._train_step(state, batch)
             loss = float(metrics["loss"])          # waits for the step to finish
             if wd:
                 wd.disarm()
@@ -105,7 +131,8 @@ class Trainer:
                 self.events.append(f"straggler: step {step} took {dt:.2f}s")
 
             if self._admm_step and k_every and (step + 1) % k_every == 0:
-                state, admm_stats = self._admm_step(state)
+                with self._scope():
+                    state, admm_stats = self._admm_step(state)
                 self.metrics_log.append(
                     {"step": step, "admm_recon_err": float(admm_stats["_mean_recon_err"])})
 
@@ -114,7 +141,7 @@ class Trainer:
 
             if self.tcfg.ckpt_dir and self.tcfg.ckpt_every \
                     and (step + 1) % self.tcfg.ckpt_every == 0:
-                checkpoint.save(self.tcfg.ckpt_dir, step + 1, state, keep=self.tcfg.keep_ckpts)
+                self._save(step + 1, state)
         return state
 
     # ------------------------------------------------------- deployment ---

@@ -15,6 +15,8 @@ wrote serves through both launchers with the same line.
 """
 import json
 import os
+import socket
+import subprocess
 import sys
 
 import pytest
@@ -67,13 +69,26 @@ def test_cli_matches_jax(flags, monkeypatch, capsys):
         assert sum(got["tokens_by_adapter"].values()) == got["tokens"]
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "model=2", "--arch", "qwen3_moe_30b_a3b"]])
-def test_later_slice_switches_raise(flag):
-    """``--mesh`` serves the dense families; the MoE's expert-parallel path
-    comes with a later slice, and the launcher refuses it before it starts
-    any rank."""
-    with pytest.raises(ValueError, match="not ported yet: expert parallelism"):
-        serve.main(["--arch", "salaad_llama_60m", "--reduced", "--device", "cpu", *flag])
+MOE_MESH = ["--arch", "qwen3_moe_30b_a3b", "--reduced", "--device", "cpu", "--fmt", "factored",
+            "--keep-ratios", "1.0,0.5", "--requests", "3", "--max-new", "4"]
+
+
+def test_moe_serves_under_a_mesh(monkeypatch, capsys):
+    """``--mesh model=2`` serves the MoE expert-parallel: the launcher
+    starts two rank processes, rank 0 prints the note line and then the
+    unsharded run's line (the same requests, tokens, sample and tiers)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(os.path.dirname(__file__), "..", "src"),
+           "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *MOE_MESH,
+                           "--mesh", "model=2"], capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    note, got = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+    assert note["mesh"]["shape"] == {"data": 1, "model": 2}
+    want = run_cli(serve.main, MOE_MESH, monkeypatch, capsys)
+    assert set(got) == set(want)
+    for key in ("requests", "tokens", "sample", "jit_retraces", "tiers"):
+        assert got[key] == want[key], key
 
 
 PORTED_SWITCHES = {
@@ -269,7 +284,27 @@ def test_attention_impl_on_card_needs_model_dtype_pages():
     assert serve.attention_impl(bf16, card, "float32", ServingEngine) == "pallas"
 
 
-def test_train_launcher_later_slice_switch_raises():
-    with pytest.raises(ValueError, match="not ported yet"):
-        train.main(["--arch", "salaad_llama_60m", "--reduced", "--device", "cpu",
-                    "--distributed"])
+def test_train_launcher_distributed_joins_env_group(monkeypatch, capsys):
+    """``--distributed`` joins the group ``torchrun``'s variables describe
+    (``env://``; here a group of one rank on a port the system picks) and
+    trains data-parallel over it: the one-process run's line."""
+    argv = ["--arch", "salaad_llama_60m", "--reduced", "--device", "cpu", "--steps", "2",
+            "--update-every", "2", "--seq-len", "16", "--batch", "2"]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, val in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                     "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                     "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(key, val)
+    try:
+        train.main(argv + ["--distributed"])
+        assert torch.distributed.is_initialized() and torch.distributed.get_world_size() == 1
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    got = json.loads(capsys.readouterr().out)
+    train.main(argv)
+    want = json.loads(capsys.readouterr().out)
+    assert [{k: v for k, v in m.items() if k != "sec"} for m in got["metrics"]] == \
+        [{k: v for k, v in m.items() if k != "sec"} for m in want["metrics"]]

@@ -37,6 +37,7 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.data.pipeline", "repro_torch.core.rpca",
             "repro_torch.baselines", "repro_torch.baselines.reparam",
             "repro_torch.parallel", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.compression",
             "repro_torch.launch.mesh", "repro_torch.examples",
             "repro_torch.examples.quickstart", "repro_torch.examples.elastic_deploy",
             "repro_torch.examples.multi_tenant_adapters", "repro_torch.examples.serve_slr",

@@ -145,6 +145,21 @@ def test_param_specs_match_jax(banks, fmt, data, model):
             assert sharding.param_spec(name, shape, sizes) == tuple(want), name
 
 
+@pytest.mark.parametrize("data,model", SHAPES + [(1, 1)])
+def test_batch_axes_match_jax(data, model):
+    """``dp_axes`` and ``dp_size`` against the JAX package's (the port's
+    meshes have no pod axis), and ``batch_shardings``' rule: the leading dim
+    over data where the data size divides it, else whole."""
+    mesh, sizes = standin(data, model), {"data": data, "model": model}
+    assert sharding.dp_axes(sizes) == jax_sharding.dp_axes(mesh)
+    assert sharding.dp_size(sizes) == jax_sharding.dp_size(mesh)
+    batch = {"tokens": torch.zeros(4, 8), "labels": torch.zeros(4, 8),
+             "odd": torch.zeros(3, 8, 2)}
+    got = sharding.batch_shardings(batch, ServingMesh(data, model))
+    assert got["tokens"].spec == ("data", None) and got["labels"].spec == ("data", None)
+    assert got["odd"].spec == (("data" if data == 1 else None), None, None)
+
+
 def test_kv_cache_spec_splits_the_head_axis():
     """The JAX package's ``kv_cache_shardings`` rule: 5-D pools split dim 2
     over the model axis when it divides; tables and lengths are whole."""
@@ -257,10 +272,31 @@ def test_check_mesh(banks, spec, fmt, match):
         check_mesh(spec, banks.cfg, [fmt])
 
 
-def test_moe_under_a_mesh_is_not_ported_yet():
+@pytest.mark.parametrize("spec,want", [("data=2", {"data": 2, "model": 1}),
+                                       ("model=2", {"data": 1, "model": 2}),
+                                       ("model=2,data=2", {"data": 2, "model": 2})])
+def test_moe_under_a_mesh(spec, want):
+    """An MoE passes the mesh checks (the head counts still bind: model=4
+    does not divide the reduced config's 2 KV heads), its experts split on
+    their E axis only, by the JAX package's rule with data dropped, and the
+    router stays whole: the experts' role keeps them out of the
+    row-parallel wrapper their ``down`` name would otherwise take."""
     moe = get_arch("qwen3_moe_30b_a3b").reduced()
-    with pytest.raises(ValueError, match="not ported yet: expert parallelism"):
-        check_mesh("data=2", moe, ["factored"])
+    assert check_mesh(spec, moe, ["factored", "dense"]) == want
+    with pytest.raises(ValueError, match="model axis size 4 must divide num_kv_heads=2"):
+        check_mesh("model=4", moe, ["factored"])
+    mesh = ServingMesh(want["data"], want["model"])
+    params = model_lib.init_params(moe, 0, "cpu")
+    local = mesh.local_tree(params)["layers"]["moe"]
+    m = want["model"]
+    for w in ("gate", "up", "down"):
+        name = f"layers/moe/experts/{w}"
+        full = params["layers"]["moe"]["experts"][w]
+        assert sharding._role(name) == "experts"
+        assert mesh.params_shardings(params)[name] == (None, "model", None, None)
+        assert type(local["experts"][w]) is torch.Tensor
+        assert torch.equal(local["experts"][w], full[:, :moe.num_experts // m])
+    assert local["router"] is params["layers"]["moe"]["router"]
 
 
 def test_mesh_larger_than_the_group(banks):

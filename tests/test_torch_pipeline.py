@@ -3,7 +3,8 @@ package's ``tests/test_pipeline_kvquant.py::TestPrefetcher``: the prefetched
 stream equals direct synthesis (and the JAX package's batches, byte for
 byte), a restore to an earlier step is served by direct synthesis, stale
 entries drain, ``close()`` joins the worker, ``DevicePrefetcher`` places
-tensors on the device it is given, and the port's ``Trainer`` runs on a
+tensors on the device it is given (with ``shardings``, only this data rank's
+rows), and the port's ``Trainer`` runs on a
 ``Prefetcher``. CPU only; the card's side-stream copies are in
 ``tests/test_torch_gpu.py``.
 """
@@ -17,6 +18,7 @@ from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import DevicePrefetcher, Prefetcher
 from repro_torch.data.synthetic import DataConfig, SyntheticC4
 from repro_torch.optim.adam import AdamConfig
+from repro_torch.parallel.sharding import LocalRows, ServingMesh, batch_shardings
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -80,8 +82,30 @@ def test_device_prefetcher_places_tensors():
         assert isinstance(b["labels"], torch.Tensor)
     finally:
         pf.close()
-    with pytest.raises(ValueError, match="not ported yet"):
-        DevicePrefetcher(src, shardings=object(), device="cpu")
+
+
+@pytest.mark.parametrize("rows,index", [(2, 0), (2, 1), (3, 1)])
+def test_device_prefetcher_places_this_ranks_rows(rows, index):
+    """``shardings=batch_shardings(...)`` of a two-rank data mesh (data rank
+    ``index`` of a stand-in grid: slicing needs no group) places that rank's
+    rows of each batch, or the whole batch where the rows do not split, as a
+    ``LocalRows`` naming the global row count."""
+    src = SyntheticC4(DataConfig(100, 8, rows))
+    mesh = ServingMesh(2, 1)
+    mesh.data_index = index
+    specs = batch_shardings(src.batch(0), mesh)
+    split = rows % 2 == 0
+    assert all(sh.spec == (("data" if split else None), None) for sh in specs.values())
+    pf = DevicePrefetcher(src, shardings=specs, device="cpu", depth=1)
+    try:
+        for step in range(2):
+            b = pf.batch(step)
+            assert isinstance(b, LocalRows) and b.n == rows
+            want = src.batch(step)["tokens"]
+            want = want[index * rows // 2:(index + 1) * rows // 2] if split else want
+            assert torch.equal(b["tokens"], torch.from_numpy(want))
+    finally:
+        pf.close()
 
 
 def vanilla_fit(feed) -> list[float]:
